@@ -1,0 +1,18 @@
+"""deepmod_tpu_torch — the PyTorch/CUDA port of deepmod_tpu.
+
+The JAX package ``deepmod_tpu`` stays the reference; this package imports
+nothing of it. Host layers (io, align, features, aggregate, engine host
+stages, testing) are its own copies of the JAX package's numpy code; the
+BiLSTM classifier runs on ``torch`` with a hand-written CUDA kernel for
+Hopper (``csrc/bilstm_fused.cu``), built with nvcc at first use.
+
+Entry points take an explicit device, ``"cuda"`` by default; the CPU is
+used only when asked for (``device="cpu"``, ``--device cpu``).
+
+    deepmod_tpu_torch.models  - BiLSTM classifier, .npz checkpoints
+    deepmod_tpu_torch.ops     - the CUDA kernel wrapper and its plain version
+    deepmod_tpu_torch.engine  - the detect pipeline
+    deepmod_tpu_torch.io, align, features, aggregate, utils, testing
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,277 @@
+"""Command-line interface of the PyTorch port.
+
+``detect`` takes the JAX package's flags (bin/DeepMod.py:304-383 names
+and defaults) plus ``--device`` (``cuda`` by default; ``cpu`` only when
+asked for) and ``--perRead 0`` (BEDs only, no per-read HDF5). ``synth``
+generates a synthetic dataset (fast5, or with ``--pod5`` a pod5 + basecall
+BAM pair that needs no h5py).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+
+def _align_str(value: str) -> str:
+    """Validate --alignStr at parse time."""
+    if value in ("bwa", "minimap2", "builtin", "auto"):
+        return value
+    if value.endswith((".sam", ".sam.gz", ".bam")):
+        if not os.path.isfile(value):
+            raise argparse.ArgumentTypeError(
+                f"alignment file not found: {value}"
+            )
+        return value
+    raise argparse.ArgumentTypeError(
+        f"{value!r}: expected bwa|minimap2|builtin|auto or a "
+        ".sam/.sam.gz/.bam path"
+    )
+
+
+def _common_flags(parser: argparse.ArgumentParser) -> None:
+    # names/defaults from DeepMod.py:305-319
+    parser.add_argument("--outLevel", type=int, default=2, choices=[0, 1, 2, 3])
+    parser.add_argument("--wrkBase", help="The base folder for FAST5 files.")
+    parser.add_argument("--FileID", default="mod")
+    parser.add_argument("--outFolder", default="./mod_output")
+    parser.add_argument("--recursive", type=int, default=1, choices=[0, 1])
+    parser.add_argument("--threads", type=int, default=4)
+    parser.add_argument("--files_per_thread", type=int, default=1000)
+    parser.add_argument("--windowsize", type=int, default=21)
+    parser.add_argument(
+        "--alignStr", type=_align_str, default="auto",
+        help="bwa | minimap2 | builtin | auto, or a path to a pre-aligned "
+        ".sam/.sam.gz/.bam to skip alignment",
+    )
+    parser.add_argument(
+        "--SignalGroup", type=str, default="simple", choices=["simple", "rundif"]
+    )
+    parser.add_argument("--move", default=False, action="store_true")
+    parser.add_argument("--basecall_1d", default="Basecall_1D_000")
+    parser.add_argument("--basecall_2strand", default="BaseCalled_template")
+
+
+def _parse_host_shard(spec):
+    """'i:n' -> (i, n) stripe of the fast5 list, or None."""
+    if not spec:
+        return None
+    try:
+        i_s, n_s = spec.split(":")
+        i, n = int(i_s), int(n_s)
+    except ValueError:
+        raise SystemExit(f"--hostShard {spec!r}: expected i:n (e.g. 0:4)")
+    if not 0 <= i < n:
+        raise SystemExit(f"--hostShard {spec!r}: need 0 <= i < n")
+    return (i, n)
+
+
+def _parse_regions(spec):
+    """'chr:1:100000;chr2:10000' -> [(chr, 1, 100000), ...] (DeepMod.py:152-160)."""
+    if not spec:
+        return [(None, None, None)]
+    out = []
+    for part in spec.split(";"):
+        bits = part.split(":")
+        out.append(
+            (
+                bits[0] if bits[0] else None,
+                int(bits[1]) if len(bits) > 1 and bits[1] else None,
+                int(bits[2]) if len(bits) > 2 and bits[2] else None,
+            )
+        )
+    return out
+
+
+def cmd_detect(args) -> int:
+    from deepmod_tpu_torch.engine.detect import DetectConfig, detect_run
+
+    config = DetectConfig(
+        wrk_base=args.wrkBase,
+        ref=args.Ref,
+        model_path=args.modfile,
+        out_folder=args.outFolder,
+        file_id=args.FileID,
+        base=args.Base,
+        fnum=args.fnum,
+        window_size=args.windowsize,
+        align_str=args.alignStr,
+        basecall_1d=args.basecall_1d,
+        basecall_2strand=args.basecall_2strand,
+        signal_group=args.SignalGroup,
+        move=args.move,
+        con_unk=args.ConUnk,
+        output_layer=args.outputlayer,
+        hidden=args.hidden,
+        regions=_parse_regions(args.region),
+        recursive=bool(args.recursive),
+        files_per_batch=args.files_per_thread,
+        pred_det=bool(args.predDet),
+        mod_cluster=bool(args.mod_cluster),
+        threads=args.threads,
+        precision=args.precision,
+        trace_dir=args.trace,
+        device_aggregation=bool(args.device_aggregation),
+        target_only=bool(args.targetOnly),
+        strict_ref_clips=bool(args.strictRefClips),
+        host_shard=_parse_host_shard(args.hostShard),
+        basecalls=args.basecalls or "",
+        device=args.device,
+        write_per_read=bool(args.perRead),
+    )
+    result = detect_run(config)
+    print(
+        f"detect done: {result.num_reads} reads, {result.num_windows} windows, "
+        f"{len(result.bed_files)} BED files in {result.elapsed_s:.1f}s"
+    )
+    for kind, files in result.errors.items():
+        print(f"  {kind}: {len(files)}")
+    if args.outLevel <= 0 and result.stage_seconds:
+        for name, secs in sorted(
+            result.stage_seconds.items(), key=lambda kv: -kv[1]
+        ):
+            print(f"  stage {name}: {secs:.2f}s")
+    if result.num_reads == 0 and result.errors:
+        print("detect FAILED: zero reads processed", file=sys.stderr)
+        return 1
+    return 0
+
+
+def cmd_synth(args) -> int:
+    from deepmod_tpu_torch.testing.synthetic import (
+        SynthConfig,
+        generate_dataset,
+        write_move_dataset_pod5,
+    )
+
+    config = SynthConfig(
+        genome_sizes={args.chrom: args.genome_size},
+        num_reads=args.num_reads,
+        seed=args.seed,
+        mod_motif=args.motif if args.mod_shift else None,
+        mod_level_shift=args.mod_shift,
+        fast5_style="move" if args.pod5 else "v2",
+    )
+    if args.pod5:
+        genome, reads, _ = write_move_dataset_pod5(args.out, config)
+    else:
+        genome, reads = generate_dataset(args.out, config)
+    print(
+        f"synth dataset at {args.out}: {len(genome)} chromosome(s), "
+        f"{len(reads)} reads"
+    )
+    return 0
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="deepmod_tpu_torch",
+        description=(
+            "Detection of nucleotide modifications from nanopore signal "
+            "data on PyTorch/CUDA."
+        ),
+    )
+    sub = parser.add_subparsers(dest="command")
+
+    p = sub.add_parser("detect", help="Detect modifications at genomic scale")
+    _common_flags(p)
+    p.add_argument("--Ref")
+    p.add_argument("--predDet", type=int, default=1, choices=[0, 1])
+    # read only by --predDet 0, which is not ported yet
+    p.add_argument("--predpath", default=None)
+    p.add_argument("--modfile", type=str, default=None)
+    p.add_argument("--fnum", type=int, default=7)
+    p.add_argument("--hidden", type=int, default=100)
+    p.add_argument("--region", default=None)
+    p.add_argument("--ConUnk", default=True, type=lambda s: s not in ("False", "0"))
+    p.add_argument("--outputlayer", default="", choices=["", "sigmoid"])
+    p.add_argument("--Base", type=str, default="C", choices=["A", "C", "G", "T"])
+    p.add_argument("--mod_cluster", default=0, type=int, choices=[0, 1])
+    p.add_argument(
+        "--precision", default="bf16", choices=["fp32", "bf16"],
+        help="bf16 keeps weights, inputs and sequences in bfloat16 with "
+        "fp32 accumulation and cell state",
+    )
+    p.add_argument(
+        "--trace", default=None,
+        help="write a torch.profiler chrome trace (detect.json) here",
+    )
+    p.add_argument(
+        "--device_aggregation", type=int, default=0, choices=[0, 1],
+        help="aggregate position counts on the device (not ported yet)",
+    )
+    p.add_argument(
+        "--targetOnly", type=int, default=0, choices=[0, 1],
+        help="classify only windows whose reference base is --Base "
+        "(BED-identical, per-read files carry mod_pred 0 on non-target "
+        "rows)",
+    )
+    p.add_argument(
+        "--strictRefClips", type=int, default=1, choices=[0, 1],
+        help="1 (default): replicate the reference detect path's swapped "
+        "minus-strand trim accounting (required for BED parity with the "
+        "reference); 0: keep those reads with self-consistent windows",
+    )
+    p.add_argument(
+        "--basecalls", default=None, metavar="calls.bam",
+        help="dorado-style basecall BAM/SAM (mv:B:c + ts:i tags) "
+        "enabling .pod5 inputs under --wrkBase",
+    )
+    p.add_argument(
+        "--hostShard", default=None, metavar="I:N",
+        help="process stripe i:n of the input file list (manual multi-run "
+        "workflow; combine with disjoint --FileIDs)",
+    )
+    p.add_argument(
+        "--perRead", type=int, default=1, choices=[0, 1],
+        help="1 (default): write the per-read predetail HDF5 and index "
+        "files; 0: BEDs only (needs no h5py)",
+    )
+    p.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="where the classifier runs; cuda raises without a GPU",
+    )
+    p.set_defaults(func=cmd_detect)
+
+    p = sub.add_parser("synth", help="Generate a synthetic test dataset")
+    p.add_argument("--out", required=True)
+    p.add_argument("--chrom", default="chrS")
+    p.add_argument("--genome-size", type=int, default=50000)
+    p.add_argument("--num-reads", type=int, default=20)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--motif", default="CG")
+    p.add_argument("--mod-shift", type=float, default=0.0)
+    p.add_argument(
+        "--pod5", action="store_true",
+        help="write move-style reads as pod5/reads.pod5 + calls.bam "
+        "(no h5py) instead of fast5",
+    )
+    p.set_defaults(func=cmd_synth)
+    return parser
+
+
+def _print_parameters(args) -> None:
+    """Startup config dump, like the reference's printParameters
+    (DeepMod.py:36-42): one right-aligned 'key: value' line per option."""
+    print("%30s: %s" % ("Current directory", os.getcwd()))
+    for key in sorted(vars(args)):
+        if key == "func":
+            continue
+        print("%30s: %s" % (key, vars(args)[key]))
+    sys.stdout.flush()
+
+
+def main(argv=None) -> int:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not getattr(args, "command", None):
+        parser.print_help()
+        return 0
+    if getattr(args, "outLevel", 2) <= 1:
+        _print_parameters(args)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

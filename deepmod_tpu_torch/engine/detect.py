@@ -1,0 +1,671 @@
+"""End-to-end modification detection pipeline on PyTorch.
+
+Counterpart of ``deepmod_tpu/engine/detect.py`` (the reference's detect
+path, mDetect_manager -> detect_handler -> mDetect1 -> handle_record ->
+mPredict1 -> sum_handler, myDetect.py:1124-1263, 948-984, 392-465,
+488-782, 787-834, 1028-1120):
+
+- fast5/pod5 batches are ingested, aligned and featurized on the host
+  (the numpy host layers, ``engine.host_worker``);
+- ALL windows of a file batch are classified in large bucketed chunks by
+  ``WindowPredictor`` on one device: the BiLSTM center features come from
+  the CUDA kernel (``ops.bilstm_fused``) on the card, or from its plain
+  version on the CPU;
+- predictions are scattered back to base maps, written in the reference's
+  on-disk formats (predetail HDF5 + index files) and accumulated into
+  per-(chr, strand) counters for the BEDs.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
+item): ``--threads > 1`` over several batches (HostPool), ``--predDet 0``,
+``--mod_cluster``, device aggregation, the fnum-57 histogram pack, and
+multi-device or multi-process runs.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import contextlib
+import dataclasses
+import glob
+import os
+import time
+from collections import defaultdict
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from deepmod_tpu_torch.aggregate.summarize import CountsMap, write_bed
+from deepmod_tpu_torch.engine.outputs import (
+    OutputOptions,
+    build_batch_request,
+    scatter_selected_preds,
+    write_batch_outputs,
+)
+from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, bilstm_logits
+from deepmod_tpu_torch.models.tf_import import (
+    load_model,
+    params_from_numpy,
+    params_to_numpy,
+)
+from deepmod_tpu_torch.ops.bilstm_fused import pack_bilstm_params, seq_dtype
+from deepmod_tpu_torch.utils import ErrorCensus
+from deepmod_tpu_torch.utils.device import resolve_device
+from deepmod_tpu_torch.utils.profiling import StageTimer
+
+PRE_BASE_STR = "rnn.pred.ind"  # index-file infix (myDetect.py:39)
+
+# depth of the chunk queue in WindowPredictor: chunk i+k is prepared on
+# the host and enqueued while chunk i computes; its result is fetched
+# only when the queue is full
+_LOOKAHEAD = 2
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to the PyTorch package yet "
+        f"(ROADMAP, port queue: {item})"
+    )
+
+
+@dataclasses.dataclass
+class DetectConfig:
+    wrk_base: str
+    ref: str
+    model_path: str
+    out_folder: str
+    file_id: str = "mod"
+    base: str = "C"
+    fnum: int = 7
+    window_size: int = 21
+    align_str: str = "auto"
+    basecall_1d: str = "Basecall_1D_000"
+    basecall_2strand: str = "BaseCalled_template"
+    signal_group: str = "simple"
+    move: bool = False
+    con_unk: bool = True
+    # regions: list of (chrom|None, start|None, end|None) (DeepMod.py:152-160)
+    regions: Sequence[Tuple[Optional[str], Optional[int], Optional[int]]] = (
+        (None, None, None),
+    )
+    recursive: bool = True
+    files_per_batch: int = 1000
+    pred_det: bool = True
+    write_per_read: bool = True       # predetail HDF5 + index files
+    mod_cluster: bool = False
+    output_layer: str = ""            # '' | 'sigmoid' (myMultiBiRNN.py:50-53)
+    hidden: int = 100                 # validated against the model
+    threads: int = 1
+    precision: str = "bf16"           # 'fp32' | 'bf16' kernel contract
+    # manual multi-run sharding: (host_id, num_hosts) processes
+    # files[host_id::num_hosts]
+    host_shard: Optional[Tuple[int, int]] = None
+    trace_dir: Optional[str] = None   # torch.profiler chrome trace output
+    device_aggregation: bool = False
+    # classify only windows whose reference base IS the target (BED-
+    # identical; per-read files carry mod_pred 0 on non-target rows)
+    target_only: bool = False
+    # dorado-style basecall BAM/SAM (mv:B:c + ts:i tags) for .pod5 inputs
+    basecalls: str = ""
+    strict_ref_clips: bool = True
+    predetail_gzip: int = 1
+    device: str = "cuda"              # 'cuda' | 'cpu' (explicit only)
+
+
+@dataclasses.dataclass
+class DetectResult:
+    out_folder: str
+    bed_files: List[str]
+    num_reads: int
+    num_windows: int
+    errors: Dict[str, List[str]]
+    elapsed_s: float
+    stage_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+
+
+class WindowPredictor:
+    """Bucketed window classification on one device.
+
+    Chunks are cut to a small set of bucket sizes (the last partial chunk
+    pads up to the smallest covering bucket; padding rows are zeros and
+    their predictions are dropped). Host->device copies go through pinned
+    memory with ``non_blocking=True`` and results come back through an
+    async copy and an event, so the host prepares chunk i+1 while the
+    device computes chunk i.
+    """
+
+    def __init__(
+        self,
+        params,
+        config: BiLSTMConfig,
+        buckets: Optional[Sequence[int]] = None,
+        device: Union[str, torch.device] = "cuda",
+        precision: str = "fp32",
+        compact_transfer: Optional[bool] = None,
+    ):
+        self.config = config
+        self.device = resolve_device(device)
+        self._cuda = self.device.type == "cuda"
+        if buckets is None:
+            buckets = (
+                (512, 4096, 16384, 65536, 131072, 262144)
+                if self._cuda else (512, 4096, 16384)
+            )
+        self.buckets = sorted(buckets)
+        self.precision = precision
+        self._dtype = seq_dtype(precision)
+        self.params = params_from_numpy(params_to_numpy(params), self.device)
+        self._model = pack_bilstm_params(self.params, config, precision)
+        if compact_transfer is None:
+            # ship compact (rows, fnum) feature blocks and let the kernel
+            # read each window in place: 21x fewer host->device bytes
+            compact_transfer = self._cuda
+        self.compact_transfer = bool(compact_transfer)
+        # packed compact transfer: the 4 one-hot refbase columns ride as
+        # ONE uint8 code (0..3 = ACGT, 4 = no base) and are rebuilt on the
+        # device from a 5x4 LUT — bit-identical (LUT rows are exact 0/1)
+        self._pack_onehot = config.num_input == 7
+        if (config.num_input == 57
+                and os.environ.get("DMT_COMPACT_PACK57", "0") == "1"):
+            raise _not_ported("the fnum-57 histogram pack",
+                              "fnum-57 hist pack")
+        lut = torch.zeros(5, 4, dtype=self._dtype)
+        lut[:4] = torch.eye(4, dtype=self._dtype)
+        self._lut = lut.to(self.device)
+        self._fn = self._classify
+        # which compact variants ran ('onehot' packed, False unpacked)
+        self.compact_modes: set = set()
+        # host->device payload bytes dispatched (features/windows only).
+        # Monotonic across calls — callers snapshot before/after.
+        self.transfer_bytes = 0
+
+    # -- device plumbing -------------------------------------------------
+
+    def _classify(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, T, F) device tensor (any strides) -> (N,) int8 predictions."""
+        logits = bilstm_logits(self._model, x, self.config, self.precision)
+        return torch.argmax(logits, dim=-1).to(torch.int8)
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        self.transfer_bytes += host.numel() * host.element_size()
+        if not self._cuda:
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def _launch(self, preds: torch.Tensor):
+        """Start the result fetch; returns a handle for ``_fetch``."""
+        if not self._cuda:
+            return preds, None
+        host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
+        host.copy_(preds, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _fetch(handle) -> np.ndarray:
+        host, done = handle
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
+
+    def _host_cast(self, arr: np.ndarray) -> torch.Tensor:
+        """numpy -> CPU tensor in the transfer dtype. bf16 mode casts on
+        the host (round to nearest even, as a device cast would), halving
+        host->device bytes."""
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self._dtype)
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    # -- window transfer -------------------------------------------------
+
+    def predict(self, windows: np.ndarray) -> np.ndarray:
+        """(N, T, F) -> (N,) int8 predictions."""
+        n = len(windows)
+        if n == 0:
+            return np.empty(0, np.int8)
+        windows = self._host_cast(windows)
+        out = np.empty(n, np.int8)
+        inflight: List[Tuple[int, int, Any]] = []  # (start, count, handle)
+
+        def drain(limit: int) -> None:
+            while len(inflight) > limit:
+                start, count, handle = inflight.pop(0)
+                out[start : start + count] = self._fetch(handle)[:count]
+
+        done = 0
+        # consume DESCENDING buckets greedily, but stop descending once the
+        # remainder's covering bucket pads with bounded waste (<= max of
+        # the smallest bucket and ~1.5% of n): fewer device calls than a
+        # full descent, far less padding than one top bucket
+        max_waste = max(self.buckets[0], n >> 6)
+        for b in reversed(self.buckets):
+            while n - done >= b:
+                x = self._to_device(windows[done : done + b])
+                inflight.append((done, b, self._launch(self._fn(x))))
+                done += b
+                drain(_LOOKAHEAD)
+            rem = n - done
+            if rem == 0 or self._bucket_for(rem) - rem <= max_waste:
+                break
+        if done < n:
+            rem = n - done
+            bucket = self._bucket_for(rem)
+            if bucket == rem:
+                tail = windows[done:]
+            else:
+                tail = torch.zeros((bucket,) + tuple(windows.shape[1:]),
+                                   dtype=windows.dtype)
+                tail[:rem] = windows[done:]
+            x = self._to_device(tail)
+            inflight.append((done, rem, self._launch(self._fn(x))))
+        drain(0)
+        return out
+
+    # -- compact transfer ------------------------------------------------
+
+    def predict_from_features(
+        self, features: np.ndarray, centers: np.ndarray, window: int = 21,
+        assume_packable: bool = False,
+    ) -> np.ndarray:
+        """Classify windows cut from compact per-read feature blocks.
+
+        ``features``: concatenated (rows, fnum) blocks (each block carries
+        its own +-100 pad); ``centers``: absolute row index of each
+        window's center. SPARSE selections (n * window < rows) take the
+        materialized-window path, which then moves fewer bytes and runs
+        fewer windows; dense ones ship each feature row once.
+
+        ``assume_packable``: skip the one-hot verification scan before
+        packed transfer — for engine-built feature blocks, whose leading
+        columns are 0/1 one-hots by construction.
+        """
+        n = len(centers)
+        if n == 0:
+            return np.empty(0, np.int8)
+        if self.compact_transfer and n * window >= len(features):
+            return self._predict_compact(
+                features, centers, window, assume_packable
+            )
+        half = window // 2
+        view = np.lib.stride_tricks.sliding_window_view(features, window, axis=0)
+        windows = np.moveaxis(view[centers - half], 2, 1)
+        return self.predict(windows)
+
+    def _predict_compact(
+        self, features: np.ndarray, centers: np.ndarray, window: int,
+        assume_packable: bool = False,
+    ) -> np.ndarray:
+        """Ship (rows, fnum) row chunks, classify EVERY window of a chunk
+        (the kernel reads window i as rows i..i+T-1 in place), keep the
+        requested centers on the host. Bit-identical to window transfer:
+        the window build is a pure copy and the bf16 rounding happens on
+        the same host values."""
+        n = len(centers)
+        half = window // 2
+        if n > 1 and not np.all(np.diff(centers) >= 0):
+            raise ValueError("compact transfer requires ascending centers")
+        if int(centers[0]) < half or int(centers[-1]) + half >= len(features):
+            raise ValueError(
+                "compact transfer requires a full window inside features "
+                f"for every center (first={int(centers[0])}, "
+                f"last={int(centers[-1])}, rows={len(features)}, "
+                f"window={window})"
+            )
+        fnum = features.shape[1]
+        pack: Any = False
+        if self._pack_onehot:
+            check_ok = True
+            if not assume_packable:
+                onehot = np.asarray(features[:, :4], np.float32)
+                check_ok = bool(
+                    ((onehot == 0.0) | (onehot == 1.0)).all()
+                    and (onehot.sum(axis=1) <= 1.0).all()
+                )
+            if check_ok:
+                pack = "onehot"
+                # rows with no hit ('-'/'N' refbase, pad rows) stay 4
+                codes = np.full(len(features), 4, np.uint8)
+                for k in range(3, -1, -1):
+                    codes[features[:, k] != 0] = k
+                codes_t = torch.from_numpy(codes)
+                rest_t = self._host_cast(features[:, 4:])
+        if not pack:
+            feats_t = self._host_cast(features)
+        self.compact_modes.add(pack)
+        out = np.empty(n, np.int8)
+        inflight: List[Tuple[int, int, np.ndarray, Any]] = []
+
+        def drain(limit: int) -> None:
+            while len(inflight) > limit:
+                i, j, idx, handle = inflight.pop(0)
+                out[i:j] = self._fetch(handle)[idx]
+
+        # a row chunk must cover at least one full window or the loop
+        # below cannot advance
+        min_rows = 1 << int(window).bit_length()
+        i = 0
+        while i < n:
+            row0 = int(centers[i]) - half
+            span = int(centers[-1]) + half + 1 - row0
+            bucket = (
+                self.buckets[-1]
+                if span >= self.buckets[-1]
+                else self._bucket_for(span)
+            )
+            bucket = max(bucket, min_rows)
+            # centers computable from rows [row0, row0+bucket):
+            # c + half <= row0 + bucket - 1
+            j = int(np.searchsorted(centers, row0 + bucket - half, "left"))
+            idx = np.asarray(centers[i:j]) - row0 - half
+            if pack:
+                c_chunk = _pad_rows(codes_t[row0 : row0 + bucket], bucket, 4)
+                r_chunk = _pad_rows(rest_t[row0 : row0 + bucket], bucket, 0)
+                c_dev = self._to_device(c_chunk)
+                r_dev = self._to_device(r_chunk)
+                feats = torch.cat([self._lut[c_dev.long()], r_dev], dim=1)
+            else:
+                feats = self._to_device(
+                    _pad_rows(feats_t[row0 : row0 + bucket], bucket, 0)
+                )
+            # window i = rows i..i+T-1, read in place by the kernel
+            win = feats.as_strided(
+                (bucket - window + 1, window, fnum), (fnum, fnum, 1)
+            )
+            inflight.append((i, j, idx, self._launch(self._fn(win))))
+            i = j
+            drain(_LOOKAHEAD)
+        drain(0)
+        return out
+
+
+def _pad_rows(chunk: torch.Tensor, rows: int, fill) -> torch.Tensor:
+    """A contiguous ``rows``-row copy of ``chunk``, padded with ``fill``."""
+    if len(chunk) == rows:
+        return chunk.contiguous()
+    out = torch.full((rows,) + tuple(chunk.shape[1:]), fill,
+                     dtype=chunk.dtype)
+    out[: len(chunk)] = chunk
+    return out
+
+
+def discover_fast5(wrk_base: str, recursive: bool = True) -> List[str]:
+    """Glob fast5 (and pod5) files up to 4 levels deep
+    (myDetect.py:1142-1146; .pod5 is beyond the reference)."""
+    files = []
+    for ext in ("*.fast5", "*.pod5"):
+        files.extend(glob.glob(os.path.join(wrk_base, ext)))
+        if recursive:
+            for depth in ("*/", "*/*/", "*/*/*/"):
+                files.extend(glob.glob(os.path.join(wrk_base, depth + ext)))
+    return files
+
+
+def _host_options(config: DetectConfig):
+    from .host_worker import HostOptions
+
+    return HostOptions(
+        ref=config.ref,
+        align_str=config.align_str,
+        fnum=config.fnum,
+        window_size=config.window_size,
+        base=config.base,
+        con_unk=config.con_unk,
+        regions=tuple(config.regions),
+        basecall_1d=config.basecall_1d,
+        basecall_2strand=config.basecall_2strand,
+        signal_group=config.signal_group,
+        move=config.move,
+        basecalls=config.basecalls,
+        min_events=50,
+        cpg_canonicalize=True,
+        strict_ref_clips=config.strict_ref_clips,
+    )
+
+
+def _nullstage(timer):
+    return timer.stage if timer is not None else (
+        lambda name: contextlib.nullcontext()
+    )
+
+
+def predict_batch_windows(
+    results, predictor: WindowPredictor, timer=None,
+    target_base: Optional[str] = None,
+) -> np.ndarray:
+    """The DEVICE part of one batch: classify every read's windows (only
+    refbase == ``target_base`` windows when set, detect --targetOnly)."""
+    stage = _nullstage(timer)
+    with stage("device_inference"):
+        all_features, all_centers, selections, n_total = build_batch_request(
+            results, target_base
+        )
+        preds_sel = predictor.predict_from_features(
+            all_features, all_centers, window=predictor.config.timesteps,
+            assume_packable=True,
+        )
+        return scatter_selected_preds(results, selections, preds_sel, n_total)
+
+
+def apply_batch_outputs(
+    results,  # List[HostReadResult]
+    preds: np.ndarray,
+    config: DetectConfig,
+    counts: CountsMap,
+    batch_id: int,
+    ct_folder: str,
+    timer=None,
+) -> Tuple[int, int, List[List[str]]]:
+    """The OUTPUT part of one batch: prediction scatter, per-read HDF5,
+    count accumulation. Mutates ``counts``: one thread at a time."""
+    stage = _nullstage(timer)
+    if not results:
+        return 0, 0, []
+    with stage("outputs_and_aggregation"):
+        return write_batch_outputs(
+            results, preds, _output_options(config), counts, batch_id,
+            ct_folder,
+        )
+
+
+def _output_options(config: DetectConfig) -> OutputOptions:
+    return OutputOptions(
+        wrk_base=config.wrk_base,
+        out_base=os.path.join(config.out_folder, config.file_id),
+        base=config.base,
+        write_per_read=config.write_per_read,
+        mod_cluster=config.mod_cluster,
+        gzip_level=config.predetail_gzip,
+    )
+
+
+def _write_index_files(
+    index_entries: List[List[str]], config: DetectConfig
+) -> None:
+    """Merged per-chromosome index files (myDetect.py:1195-1221)."""
+    out_base = os.path.join(config.out_folder, config.file_id)
+    by_chr: Dict[str, List[List[str]]] = defaultdict(list)
+    for entry in index_entries:
+        by_chr[entry[0]].append(entry)
+    for chrom, entries in by_chr.items():
+        entries = sorted(
+            entries, key=lambda e: (e[0], e[1], int(e[2]), e[3], e[4], e[5])
+        )
+        path = os.path.join(out_base, f"{PRE_BASE_STR}.{chrom}")
+        with open(path, "w") as fh:
+            fh.write(f"#base_folder_fast5 {config.wrk_base} \n")
+            fh.write(
+                f"#base_folder_output {os.path.abspath(out_base)} \n"
+            )
+            for entry in entries:
+                fh.write(" ".join(entry + ["\n"]))
+
+
+def _check_ported(config: DetectConfig) -> None:
+    if not config.pred_det:
+        raise _not_ported("--predDet 0 (summarize-only)", "predDet 0")
+    if config.mod_cluster:
+        raise _not_ported("--mod_cluster", "modCluster")
+    if config.device_aggregation:
+        raise _not_ported("device aggregation", "multi-GPU")
+
+
+def detect_run(
+    config: DetectConfig,
+    predictor: Optional[WindowPredictor] = None,
+) -> DetectResult:
+    """Full detect: per-read prediction + genomic summaries + BED.
+
+    ``predictor`` reuses an already-built WindowPredictor (device-resident
+    weights) across runs; it must match the configured model."""
+    _check_ported(config)
+    if not config.trace_dir:
+        return _detect_run_inner(config, predictor)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(config.device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        result = _detect_run_inner(config, predictor)
+    os.makedirs(config.trace_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(config.trace_dir, "detect.json"))
+    return result
+
+
+def _detect_run_inner(
+    config: DetectConfig,
+    predictor: Optional[WindowPredictor] = None,
+) -> DetectResult:
+    start_time = time.time()
+    os.makedirs(os.path.join(config.out_folder, config.file_id), exist_ok=True)
+
+    if predictor is None:
+        params, model_config = load_model(config.model_path)
+        model_config = dataclasses.replace(
+            model_config,
+            timesteps=config.window_size,
+            output_layer=config.output_layer or model_config.output_layer,
+        )
+        if model_config.num_input != config.fnum:
+            raise ValueError(
+                f"model expects fnum={model_config.num_input}, got {config.fnum}"
+            )
+        if model_config.num_hidden != config.hidden:
+            raise ValueError(
+                f"model expects hidden={model_config.num_hidden}, got {config.hidden}"
+            )
+        predictor = WindowPredictor(
+            params, model_config, device=config.device,
+            precision=config.precision,
+        )
+
+    timer = StageTimer()
+    files = sorted(discover_fast5(config.wrk_base, config.recursive))
+    if config.host_shard is not None:
+        host_id, num_hosts = config.host_shard
+        files = files[host_id::num_hosts]
+    errors = ErrorCensus()
+    counts: CountsMap = {}
+    all_index: List[List[str]] = []
+    n_reads = 0
+    n_windows = 0
+    out_futs: List = []
+
+    def drain_outputs(limit: int) -> None:
+        nonlocal n_reads, n_windows
+        while len(out_futs) > limit:
+            r, w, idx = out_futs.pop(0).result()
+            n_reads += r
+            n_windows += w
+            all_index.extend(idx)
+
+    from .host_worker import host_process_files, init_worker
+
+    host_opts = _host_options(config)
+    sub_folder_size = 100  # batches per subfolder (myDetect.py:1163)
+    n_batches = max(1, (len(files) + config.files_per_batch - 1) // config.files_per_batch)
+    batches = [
+        files[i * config.files_per_batch : (i + 1) * config.files_per_batch]
+        for i in range(n_batches)
+    ]
+    if config.threads > 1 and len(batches) > 1:
+        raise _not_ported(
+            "--threads > 1 over several file batches (HostPool workers)",
+            "HostPool",
+        )
+
+    def ct_folder_for(batch_id: int) -> str:
+        folder = os.path.join(
+            config.out_folder, config.file_id, str(batch_id // sub_folder_size)
+        )
+        os.makedirs(folder, exist_ok=True)
+        return folder
+
+    # a prefetch thread prepares the NEXT batch's host work while the
+    # device consumes the current one, and a writer thread overlaps the
+    # output stage with the next batch's inference
+    init_worker(host_opts)
+    todo = [(batch_id, batch) for batch_id, batch in enumerate(batches) if batch]
+    with cf.ThreadPoolExecutor(max_workers=1) as prefetch, \
+            cf.ThreadPoolExecutor(max_workers=1) as writer:
+        future = (
+            prefetch.submit(host_process_files, todo[0][1]) if todo else None
+        )
+        for pos, (batch_id, batch) in enumerate(todo):
+            try:
+                with timer.stage("host_ingest_align_features"):
+                    results, batch_errors = future.result()
+            except Exception as exc:
+                errors.add(
+                    f"Batch worker failed: {type(exc).__name__}",
+                    f"batch_{batch_id}",
+                )
+                results, batch_errors = [], {}
+            if pos + 1 < len(todo):
+                future = prefetch.submit(host_process_files, todo[pos + 1][1])
+            for kind, paths in batch_errors.items():
+                errors.extend(kind, paths)
+            if not results:
+                continue
+            preds = predict_batch_windows(
+                results, predictor, timer,
+                target_base=config.base if config.target_only else None,
+            )
+            for r in results:
+                r.features = None  # outputs never read them
+            out_futs.append(
+                writer.submit(
+                    apply_batch_outputs, results, preds, config, counts,
+                    batch_id, ct_folder_for(batch_id), timer,
+                )
+            )
+            drain_outputs(2)  # bound the writer backlog
+        drain_outputs(0)
+
+    if config.write_per_read:
+        _write_index_files(all_index, config)
+
+    bed_files: List[str] = []
+    for (chrom, strand), pc in sorted(counts.items()):
+        bed_path = os.path.join(
+            config.out_folder, f"mod_pos.{chrom}{strand}.{config.base}.bed"
+        )
+        if write_bed(bed_path, chrom, strand, config.base, pc) > 0:
+            bed_files.append(bed_path)
+
+    # completion sentinel (myDetect.py:1263)
+    open(config.out_folder.rstrip("/") + ".done", "w").close()
+    return DetectResult(
+        out_folder=config.out_folder,
+        bed_files=bed_files,
+        num_reads=n_reads,
+        num_windows=n_windows,
+        errors=errors.errors,
+        elapsed_s=time.time() - start_time,
+        stage_seconds=timer.as_dict(),
+    )

@@ -1,0 +1,8 @@
+from .bilstm import (
+    BiLSTMConfig,
+    init_bilstm_params,
+    bilstm_center_features,
+    bilstm_logits,
+    bilstm_probs,
+    bilstm_predict,
+)

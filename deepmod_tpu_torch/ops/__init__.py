@@ -1,0 +1,1 @@
+"""Device kernels of the port and their plain PyTorch versions."""

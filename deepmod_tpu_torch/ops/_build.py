@@ -1,0 +1,135 @@
+"""Build the port's CUDA kernels into one shared library, bound with ctypes.
+
+Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
+started together) for ``sm_90a``, and the objects are linked into
+``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
+sources carry a plain C interface, so no PyTorch header is compiled and
+a build takes seconds. The build runs at first use, from the sources in
+the checkout only, and is reused while the sources' content hash is
+unchanged. Nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.environ.get(
+    "DMT_TORCH_BUILD_DIR",
+    os.path.join(os.path.dirname(_PKG), "build", "kernels"),
+)
+LIB_NAME = "libdmt_torch_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+# what the last build did: seconds taken and the compilers' messages
+# (``-Xptxas -v``: registers, shared memory and spills per kernel)
+build_info = {"seconds": 0.0, "log": "", "cached": False}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build on a machine with the "
+            "CUDA toolkit (PATH or /usr/local/cuda/bin)"
+        )
+    return path
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256()
+    for path in sources + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if their sources changed; return the .so path."""
+    sources = _sources()
+    digest = _digest(sources)
+    out_dir = os.path.join(BUILD_DIR, digest)
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib_path):
+        build_info.update(seconds=0.0, log="", cached=True)
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    objs = []
+    for src in sources:
+        obj = os.path.join(out_dir, os.path.basename(src) + ".o")
+        objs.append(obj)
+        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", src, "-o", obj]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )))
+    log = []
+    failed = []
+    for cmd, proc in procs:
+        text, _ = proc.communicate()
+        log.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    tmp = lib_path + f".tmp{os.getpid()}"
+    link = subprocess.run(
+        [nvcc, *ARCH_FLAGS, "-shared", *objs, "-o", tmp],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout)
+    os.replace(tmp, lib_path)
+    build_info.update(
+        seconds=time.perf_counter() - t0, log="".join(log), cached=False
+    )
+    return lib_path
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in ("dmt_bilstm_center_f32", "dmt_bilstm_center_bf16"):
+        fn = getattr(lib, name)
+        # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
+        # hidden, num_layers, w, bias, forget_bias term, out, tile_b, stream
+        fn.argtypes = [p, i, i, i, i, i, i, i, i, p, p, f, p, i, p]
+        fn.restype = ctypes.c_int
+    lib.dmt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dmt_cuda_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            _bind(lib)
+            _lib = lib
+    return _lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if status != 0:
+        name = library().dmt_cuda_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} ({name})")

@@ -7,9 +7,13 @@ setup(
         "TPU-native detection of DNA modifications from nanopore "
         "sequencing signals"
     ),
-    packages=find_packages(include=["deepmod_tpu", "deepmod_tpu.*"]),
+    packages=find_packages(include=[
+        "deepmod_tpu", "deepmod_tpu.*",
+        "deepmod_tpu_torch", "deepmod_tpu_torch.*",
+    ]),
     package_data={
         "deepmod_tpu.native": ["*.cpp", "Makefile", "*.so"],
+        "deepmod_tpu_torch": ["csrc/*.cu"],
     },
     python_requires=">=3.10",
     install_requires=[
@@ -23,6 +27,9 @@ setup(
         "eval": ["scikit-learn", "matplotlib", "scipy"],
     },
     entry_points={
-        "console_scripts": ["deepmod-tpu = deepmod_tpu.cli:main"],
+        "console_scripts": [
+            "deepmod-tpu = deepmod_tpu.cli:main",
+            "deepmod-tpu-torch = deepmod_tpu_torch.cli:main",
+        ],
     },
 )

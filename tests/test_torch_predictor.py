@@ -1,0 +1,174 @@
+"""The port's WindowPredictor on the CPU: bucket schedule, compact and
+packed transfer, guards and sparse routing (mirroring the JAX package's
+tests/test_detect_e2e.py predictor tests), then identical fp32
+predictions to the JAX WindowPredictor on the same weights and features.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from deepmod_tpu.engine.detect import WindowPredictor as JaxPredictor
+from deepmod_tpu.models import bilstm as jb
+from deepmod_tpu_torch.engine.detect import WindowPredictor
+from deepmod_tpu_torch.models import bilstm as tb
+from deepmod_tpu_torch.models.tf_import import params_to_numpy
+
+CFG = tb.BiLSTMConfig(num_input=7)
+
+
+@pytest.fixture(scope="module")
+def params():
+    return params_to_numpy(tb.init_bilstm_params(5, CFG, device="cpu"))
+
+
+def _engine_features(rng, rows):
+    """Engine-shaped feature rows: a 0/1 one-hot (or none) + 3 numbers."""
+    feats = np.zeros((rows, 7), np.float32)
+    hot = rng.integers(0, 5, rows)  # 4 = no base ('-'/'N'/pad rows)
+    for b in range(4):
+        feats[hot == b, b] = 1.0
+    feats[:, 4] = (rng.standard_normal(rows) * 2).round(3)
+    feats[:, 5] = np.abs(rng.standard_normal(rows) * 2).round(3)
+    feats[:, 6] = rng.integers(1, 40, rows)
+    return feats
+
+
+def test_predictor_greedy_bucket_remainder(params):
+    pred = WindowPredictor(params, CFG, buckets=(8, 64, 256), device="cpu")
+    for n in (1, 7, 8, 9, 255, 256, 300, 583):
+        x = np.random.default_rng(n).standard_normal((n, 21, 7)).astype(
+            np.float32)
+        want = tb.bilstm_predict(pred.params, torch.from_numpy(x), CFG).numpy()
+        np.testing.assert_array_equal(pred.predict(x), want, err_msg=f"n={n}")
+
+
+def test_predictor_bounded_waste_schedule(params):
+    pred = WindowPredictor(params, CFG, buckets=(8, 64, 256), device="cpu")
+    calls = []
+
+    def fake_fn(x):
+        calls.append(int(x.shape[0]))
+        return torch.zeros(x.shape[0], dtype=torch.int8)
+
+    pred._fn = fake_fn
+    out = pred.predict(np.zeros((4436, 21, 7), np.float32))
+    assert len(out) == 4436
+    assert calls == [256] * 17 + [64, 64]
+    calls.clear()
+    pred.predict(np.zeros((256, 21, 7), np.float32))
+    assert calls == [256]
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_compact_transfer_equals_window_transfer(params, precision):
+    kw = dict(buckets=(64, 256), device="cpu", precision=precision)
+    ref = WindowPredictor(params, CFG, compact_transfer=False, **kw)
+    cmp = WindowPredictor(params, CFG, compact_transfer=True, **kw)
+    rng = np.random.default_rng(3)
+    for n_rows, mode in ((80, "all"), (300, "all"), (700, "scatter"),
+                         (1200, "sparse")):
+        feats = rng.standard_normal((n_rows, 7)).astype(np.float32)
+        lo, hi = 10, n_rows - 11
+        if mode == "all":
+            centers = np.arange(lo, hi, dtype=np.int64)
+        elif mode == "scatter":
+            centers = np.arange(lo, hi, 4, dtype=np.int64)
+        else:
+            centers = np.unique(rng.integers(lo, hi, size=37).astype(np.int64))
+        np.testing.assert_array_equal(
+            cmp.predict_from_features(feats, centers),
+            ref.predict_from_features(feats, centers),
+            err_msg=f"{n_rows} {mode}",
+        )
+    # a bucket list smaller than the window must still advance
+    tiny = WindowPredictor(params, CFG, buckets=(8,), device="cpu",
+                           compact_transfer=True, precision=precision)
+    feats = rng.standard_normal((60, 7)).astype(np.float32)
+    centers = np.arange(10, 50, dtype=np.int64)
+    np.testing.assert_array_equal(
+        tiny.predict_from_features(feats, centers),
+        ref.predict_from_features(feats, centers),
+    )
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_packed_compact_equals_unpacked(params, precision):
+    rng = np.random.default_rng(11)
+    feats = _engine_features(rng, 900)
+    centers = np.arange(12, 900 - 12, dtype=np.int64)
+    kw = dict(buckets=(64, 256), device="cpu", precision=precision)
+    packed = WindowPredictor(params, CFG, compact_transfer=True, **kw)
+    win = WindowPredictor(params, CFG, compact_transfer=False, **kw)
+    assert packed._pack_onehot
+    got = packed.predict_from_features(feats, centers)
+    assert packed.compact_modes == {"onehot"}
+    np.testing.assert_array_equal(got, win.predict_from_features(feats, centers))
+    # packed rows (1 code byte + 3 numbers) vs 21-row windows
+    assert packed.transfer_bytes * 10 < win.transfer_bytes
+    # non-one-hot library inputs fall back to the unpacked transfer
+    rand = rng.standard_normal((900, 7)).astype(np.float32)
+    np.testing.assert_array_equal(
+        packed.predict_from_features(rand, centers),
+        win.predict_from_features(rand, centers),
+    )
+    assert False in packed.compact_modes
+
+
+def test_compact_transfer_guards(params):
+    pred = WindowPredictor(params, CFG, buckets=(64,), device="cpu",
+                           compact_transfer=True)
+    feats = np.zeros((50, 7), np.float32)
+    with pytest.raises(ValueError, match="full window"):
+        pred.predict_from_features(feats, np.arange(5, 45, dtype=np.int64))
+    with pytest.raises(ValueError, match="full window"):
+        pred.predict_from_features(feats, np.arange(10, 45, dtype=np.int64))
+    with pytest.raises(ValueError, match="ascending"):
+        pred.predict_from_features(
+            np.zeros((200, 7), np.float32),
+            np.asarray([30, 20] + list(range(40, 160)), np.int64),
+        )
+
+
+def test_sparse_selection_routes_to_window_transfer(params):
+    pred = WindowPredictor(params, CFG, buckets=(64, 256), device="cpu",
+                           compact_transfer=True)
+    calls = {"compact": 0, "window": 0}
+    real_compact, real_window = pred._predict_compact, pred.predict
+
+    def spy_compact(*a, **kw):
+        calls["compact"] += 1
+        return real_compact(*a, **kw)
+
+    def spy_window(*a, **kw):
+        calls["window"] += 1
+        return real_window(*a, **kw)
+
+    pred._predict_compact = spy_compact
+    pred.predict = spy_window
+    feats = np.random.default_rng(0).standard_normal((2100, 7)).astype(
+        np.float32)
+    pred.predict_from_features(feats, np.linspace(20, 2000, 40).astype(np.int64))
+    assert calls == {"compact": 0, "window": 1}
+    pred.predict_from_features(feats, np.arange(10, 2090, dtype=np.int64))
+    assert calls == {"compact": 1, "window": 1}
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_predictions_identical_to_jax_predictor(params, compact):
+    """Same numpy weights and engine-shaped features through the JAX
+    predictor (scan path, fp32) and the port's (plain version, fp32)."""
+    rng = np.random.default_rng(21)
+    feats = _engine_features(rng, 3000)
+    centers = np.arange(100, 2900, dtype=np.int64)
+    jp = JaxPredictor(params, jb.BiLSTMConfig(num_input=7),
+                      buckets=(512, 4096), use_pallas=False,
+                      data_parallel=False, precision="fp32",
+                      compact_transfer=compact)
+    tp = WindowPredictor(params, CFG, buckets=(512, 4096), device="cpu",
+                         precision="fp32", compact_transfer=compact)
+    want = jp.predict_from_features(feats, centers, assume_packable=True)
+    got = tp.predict_from_features(feats, centers, assume_packable=True)
+    assert 0 < int(want.sum()) < len(want)
+    np.testing.assert_array_equal(got, want)
+    assert tp.transfer_bytes == jp.transfer_bytes
