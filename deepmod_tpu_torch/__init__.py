@@ -3,15 +3,17 @@
 The JAX package ``deepmod_tpu`` stays the reference; this package imports
 nothing of it. Host layers (io, align, features, aggregate, engine host
 stages, testing) are its own copies of the JAX package's numpy code; the
-BiLSTM classifier runs on ``torch`` with a hand-written CUDA kernel for
-Hopper (``csrc/bilstm_fused.cu``), built with nvcc at first use.
+BiLSTM classifier runs on ``torch`` with kernels hand-written in CUDA for
+Hopper (``csrc/bilstm_fused.cu`` for inference, ``csrc/bilstm_train.cu``
+for training), built with nvcc at first use.
 
 Entry points take an explicit device, ``"cuda"`` by default; the CPU is
 used only when asked for (``device="cpu"``, ``--device cpu``).
 
     deepmod_tpu_torch.models  - BiLSTM classifier, .npz checkpoints
-    deepmod_tpu_torch.ops     - the CUDA kernel wrapper and its plain version
-    deepmod_tpu_torch.engine  - the detect pipeline
+    deepmod_tpu_torch.ops     - the CUDA kernel wrappers and their plain versions
+    deepmod_tpu_torch.engine  - the detect and getfeatures pipelines
+    deepmod_tpu_torch.train   - feature-file loading and the trainer
     deepmod_tpu_torch.io, align, features, aggregate, utils, testing
 """
 

@@ -1,10 +1,12 @@
 """Command-line interface of the PyTorch port.
 
-``detect`` takes the JAX package's flags (bin/DeepMod.py:304-383 names
-and defaults) plus ``--device`` (``cuda`` by default; ``cpu`` only when
-asked for) and ``--perRead 0`` (BEDs only, no per-read HDF5). ``synth``
-generates a synthetic dataset (fast5, or with ``--pod5`` a pod5 + basecall
-BAM pair that needs no h5py).
+``detect``, ``train``, ``getfeatures`` and ``predfeatures`` take the JAX
+package's flags (bin/DeepMod.py:304-383 names and defaults). ``detect``,
+``train`` and ``predfeatures`` add ``--device`` (``cuda`` by default;
+``cpu`` only when asked for); ``detect`` adds ``--perRead 0`` (BEDs only,
+no per-read HDF5). ``getfeatures`` is host-only. ``synth`` generates a
+synthetic dataset (fast5, or with ``--pod5`` a pod5 + basecall BAM pair
+that needs no h5py).
 """
 
 from __future__ import annotations
@@ -138,6 +140,161 @@ def cmd_detect(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    from deepmod_tpu_torch.models.tf_import import load_model
+    from deepmod_tpu_torch.train.loader import TestSplit, find_feature_files
+    from deepmod_tpu_torch.train.trainer import TrainConfig, train_run
+
+    # 'g1dir1,g1dir2;g2dir1' grouping (myMultiBiRNN.py:427-438)
+    groups = []
+    specs = args.wrkBase.split(";") if args.wrkBase else []
+    if args.wrkBase2:
+        specs.append(args.wrkBase2)
+    split = TestSplit.parse(args.test) if args.test else None
+    for spec in specs:
+        files = []
+        for folder in spec.split(","):
+            if folder:
+                files.extend(
+                    find_feature_files(folder, bool(args.recursive), split)
+                )
+        if files:
+            groups.append(files)
+    if not groups:
+        print("no feature files found", file=sys.stderr)
+        return 1
+    groups.sort(key=len, reverse=True)  # largest group drives (:457-458)
+    init_params = None
+    resume_opt_from = None
+    if args.modfile:
+        init_params, _ = load_model(args.modfile)
+        # native checkpoints carry the Adam slots: --modfile continues the
+        # run (the reference's resume never worked, myMultiBiRNN.py:117)
+        resume_opt_from = args.modfile
+    config = TrainConfig(
+        out_folder=args.outFolder,
+        file_id=args.FileID,
+        fnum=args.fnum,
+        hidden=args.hidden,
+        window_size=args.windowsize,
+        unbalanced=bool(args.unbalanced),
+        output_layer=args.outputlayer,
+        test=args.test,
+        batch_size=args.batchsize,
+        epochs=args.epochs,
+        precision=args.trainPrecision,
+        device=args.device,
+    )
+    train_run(
+        groups, config, init_params=init_params,
+        resume_opt_from=resume_opt_from,
+    )
+    print("Training Finished!")
+    return 0
+
+
+def cmd_getfeatures(args) -> int:
+    from deepmod_tpu_torch.engine.getfeatures import (
+        GetFeaturesConfig,
+        getfeatures_run,
+    )
+
+    region = (None, None, None)
+    if args.region:
+        bits = [b.strip() for b in args.region.split(":")]
+        region = (
+            bits[0] if bits and bits[0] else None,
+            int(bits[1]) if len(bits) > 1 and bits[1] else None,
+            int(bits[2]) if len(bits) > 2 and bits[2] else None,
+        )
+    config = GetFeaturesConfig(
+        wrk_base=args.wrkBase,
+        ref=args.Ref,
+        out_folder=args.outFolder,
+        posneg=args.posneg,
+        fnum=args.fnum,
+        size_per_batch=args.size_per_batch,
+        motif_or_pos=args.motifORPos,
+        motif=args.motif,
+        mod_offset=args.ModinMotif,
+        fulmod_pattern=args.fulmod,
+        anymod_pattern=args.anymod,
+        nomod_pattern=args.nomod,
+        region=region,
+        basecall_1d=args.basecall_1d,
+        basecall_2strand=args.basecall_2strand,
+        signal_group=args.SignalGroup,
+        move=args.move,
+        align_str=args.alignStr,
+        basecalls=args.basecalls or "",
+        recursive=bool(args.recursive),
+        files_per_batch=args.files_per_thread,
+        save_format=args.save_format,
+        threads=args.threads,
+    )
+    result = getfeatures_run(config)
+    print(
+        f"getfeatures done: {result.num_reads} reads, {result.num_rows} rows, "
+        f"{len(result.feature_files)} files in {result.elapsed_s:.1f}s"
+    )
+    for kind, files in result.errors.items():
+        print(f"  {kind}: {len(files)}")
+    return 0
+
+
+def cmd_predfeatures(args) -> int:
+    """Standalone prediction over feature files with per-file tp/fp/fn/tn
+    (the reference's mPred path, which its CLI never wired up —
+    myMultiBiRNN.py:382-420, 465-477)."""
+    from deepmod_tpu_torch.models.tf_import import load_model
+    from deepmod_tpu_torch.train.loader import TestSplit, find_feature_files
+    from deepmod_tpu_torch.train.trainer import predict_feature_files
+
+    params, model_config = load_model(args.modfile)
+    split = TestSplit.parse(args.test) if args.test else None
+    files = []
+    for folder in args.wrkBase.split(","):
+        # P-mode: evaluate the HELD-OUT file complement; E-mode filtering
+        # happens per-row inside load_feature_file(for_test=True)
+        files.extend(
+            find_feature_files(folder, bool(args.recursive), split,
+                               for_test=True)
+        )
+    if not files:
+        if split is not None and any(
+            find_feature_files(folder, bool(args.recursive))
+            for folder in args.wrkBase.split(",")
+        ):
+            print(
+                "feature files exist but the --test split leaves an "
+                "empty held-out set (P-mode file counts truncate like "
+                "the reference: int(n_files * fraction))",
+                file=sys.stderr,
+            )
+        else:
+            print("no feature files found", file=sys.stderr)
+        return 1
+    out = os.path.join(args.outFolder, f"{args.FileID}_mpred.txt")
+    os.makedirs(args.outFolder, exist_ok=True)
+    results = predict_feature_files(
+        params, model_config, files, out,
+        window_size=args.windowsize, split=split, device=args.device,
+    )
+    tp = sum(r[0] for r in results.values())
+    fp = sum(r[1] for r in results.values())
+    fn = sum(r[2] for r in results.values())
+    tn = sum(r[3] for r in results.values())
+    print(f"total: tp={tp} fp={fp} fn={fn} tn={tn} -> {out}")
+    return 0
+
+
+def _device_flag(p: argparse.ArgumentParser, what: str) -> None:
+    p.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help=f"where {what} runs; cuda raises without a GPU",
+    )
+
+
 def cmd_synth(args) -> int:
     from deepmod_tpu_torch.testing.synthetic import (
         SynthConfig,
@@ -228,11 +385,69 @@ def build_parser() -> argparse.ArgumentParser:
         help="1 (default): write the per-read predetail HDF5 and index "
         "files; 0: BEDs only (needs no h5py)",
     )
-    p.add_argument(
-        "--device", default="cuda", choices=["cuda", "cpu"],
-        help="where the classifier runs; cuda raises without a GPU",
-    )
+    _device_flag(p, "the classifier")
     p.set_defaults(func=cmd_detect)
+
+    p = sub.add_parser("train", help="Train a modification classifier")
+    _common_flags(p)
+    p.add_argument("--wrkBase2")
+    p.add_argument("--fnum", type=int, default=7)
+    p.add_argument("--hidden", type=int, default=100)
+    p.add_argument(
+        "--modfile", type=str, default=None,
+        help="resume from an .npz checkpoint (params and Adam slots)",
+    )
+    p.add_argument("--test", default=None)
+    p.add_argument("--outputlayer", default="", choices=["", "sigmoid"])
+    p.add_argument("--unbalanced", type=int, default=0, choices=[0, 1])
+    p.add_argument(
+        "--batchsize", type=int, default=2048,
+        help="train minibatch (the reference's 2048)",
+    )
+    p.add_argument(
+        "--epochs", type=int, default=4,
+        help="passes over the feature files (the reference's 4)",
+    )
+    p.add_argument(
+        "--trainPrecision", default="fp32", choices=["fp32", "bf16"],
+        help="bf16 stores the training kernels' residual and gradient "
+        "sequences in bfloat16 (fp32 weights, compute and weight "
+        "gradients); fp32 matches the reference's arithmetic",
+    )
+    _device_flag(p, "training")
+    p.set_defaults(func=cmd_train)
+
+    p = sub.add_parser("getfeatures", help="Extract training features")
+    _common_flags(p)
+    p.add_argument("--posneg", type=int, default=0, choices=[0, 1])
+    p.add_argument("--size_per_batch", type=float, default=1)
+    p.add_argument("--fnum", type=int, default=7)
+    p.add_argument("--region", type=str, default=None)
+    p.add_argument("--motifORPos", type=int, default=1)
+    p.add_argument("--motif", default="CG", type=str)
+    p.add_argument("--ModinMotif", default=0, type=int)
+    p.add_argument("--Ref")
+    p.add_argument("--fulmod", type=str)
+    p.add_argument("--anymod", type=str)
+    p.add_argument("--nomod", type=str)
+    p.add_argument(
+        "--basecalls", default=None, metavar="calls.bam",
+        help="dorado-style basecall BAM/SAM (mv:B:c + ts:i) enabling "
+        ".pod5 inputs under --wrkBase (same path as detect)",
+    )
+    p.add_argument(
+        "--save_format", default="xy.gz", choices=["xy.gz", "npz", "both"]
+    )
+    p.set_defaults(func=cmd_getfeatures)
+
+    p = sub.add_parser(
+        "predfeatures", help="Predict over feature files (tp/fp/fn/tn per file)"
+    )
+    _common_flags(p)
+    p.add_argument("--modfile", type=str, required=True)
+    p.add_argument("--test", default=None)
+    _device_flag(p, "the classifier")
+    p.set_defaults(func=cmd_predfeatures)
 
     p = sub.add_parser("synth", help="Generate a synthetic test dataset")
     p.add_argument("--out", required=True)

@@ -5,4 +5,8 @@ from .bilstm import (
     bilstm_logits,
     bilstm_probs,
     bilstm_predict,
+    bilstm_logits_trainable,
+    bilstm_loss,
+    count_params,
+    CLASS_WEIGHTS,
 )

@@ -13,10 +13,11 @@ myMultiBiRNN.py:21-91), as ``deepmod_tpu/models/bilstm.py`` defines them:
 
 Parameters keep the JAX package's dict layout: ``fw``/``bw`` lists of
 ``{kernel (in+H, 4H), bias (4H,)}`` plus ``out_w (2H, C)`` and
-``out_b (C,)``, as torch tensors. The recurrence runs in
-``ops.bilstm_fused`` (the CUDA kernel on the card, its plain version on
-the CPU); the projection, softmax and argmax are plain torch, as the JAX
-package leaves them to XLA outside its Pallas kernel.
+``out_b (C,)``, as torch tensors. Inference runs the recurrence in
+``ops.bilstm_fused`` (K1), training in ``ops.bilstm_fused_train`` (K2
+forward, K3 backward): the CUDA kernels on the card, their plain versions
+on the CPU. The projection, softmax, argmax and loss are plain torch, as
+the JAX package leaves them to XLA outside its Pallas kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from deepmod_tpu_torch.ops.bilstm_fused import (
     PackedBiLSTM,
     bilstm_center_features as _fused_center,
 )
+from deepmod_tpu_torch.ops.bilstm_fused_train import bilstm_center_train
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +130,53 @@ def bilstm_predict(
 ) -> torch.Tensor:
     """argmax class per window (mfpred, myMultiBiRNN.py:59-61)."""
     return torch.argmax(bilstm_logits(params, x, config, precision), dim=-1)
+
+
+def bilstm_logits_trainable(
+    params: Params, x: torch.Tensor, config: BiLSTMConfig,
+    precision: str = "fp32",
+) -> torch.Tensor:
+    """Differentiable logits: the recurrence runs through the training
+    kernels' autograd Function (K2 forward, K3 backward on the card; their
+    plain versions on the CPU). ``precision='bf16'`` stores the residual
+    and gradient sequences in bfloat16 with fp32 weights and compute; the
+    center features leave in that dtype and the projection runs in fp32."""
+    feats = bilstm_center_train(params, x, config, precision)
+    out = feats.to(torch.float32) @ params["out_w"] + params["out_b"]
+    if config.output_layer == "sigmoid":
+        out = torch.sigmoid(out)
+    return out
+
+
+# Class weights for unbalanced training (myMultiBiRNN.py:13).
+CLASS_WEIGHTS = (0.1, 0.9)
+
+
+def bilstm_example_losses(
+    params: Params, x: torch.Tensor, y: torch.Tensor, config: BiLSTMConfig,
+    unbalanced: bool = False, precision: str = "fp32",
+) -> torch.Tensor:
+    """(B,) softmax cross-entropy of each window on the trainable logits.
+    With ``unbalanced`` the LOGITS are scaled by the class weights before
+    the softmax, as the reference does (myMultiBiRNN.py:64-65)."""
+    logits = bilstm_logits_trainable(params, x, config, precision)
+    if unbalanced:
+        logits = logits * torch.tensor(CLASS_WEIGHTS, dtype=logits.dtype,
+                                       device=logits.device)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    return -torch.sum(y.to(log_probs.dtype) * log_probs, dim=-1)
+
+
+def bilstm_loss(
+    params: Params, x: torch.Tensor, y: torch.Tensor, config: BiLSTMConfig,
+    unbalanced: bool = False, precision: str = "fp32",
+) -> torch.Tensor:
+    """Mean softmax cross-entropy (``bilstm_example_losses`` averaged)."""
+    return bilstm_example_losses(params, x, y, config, unbalanced,
+                                 precision).mean()
+
+
+def count_params(params: Params) -> int:
+    leaves = [lp[k] for lane in ("fw", "bw") for lp in params[lane]
+              for k in ("kernel", "bias")] + [params["out_w"], params["out_b"]]
+    return sum(int(np.prod(tuple(p.shape))) for p in leaves)

@@ -4,8 +4,11 @@ The ``.npz`` layout is the JAX package's (``deepmod_tpu/models/
 tf_import.py::save_bilstm_npz``), so a model saved by either package
 loads in the other: ``meta/*`` scalars (``meta/output_layer`` a 0-d bytes
 array), ``{fw,bw}/<layer>/{kernel,bias}`` in TF's (in+H, 4H) i,j,f,o
-layout, ``out_w`` and ``out_b``. Adam slots that a training run stored
-(``adam/...``) are ignored here: training is not ported yet.
+layout, ``out_w`` and ``out_b``. A training run's checkpoints also carry
+the Adam slots in the JAX package's layout (``adam/count`` and
+``adam/{mu,nu}/<param key>``): ``save_bilstm_npz(..., opt_state=...)``
+writes them and ``load_adam_state`` reads them back, so a resume from a
+checkpoint of either package continues the run.
 
 Reading the reference's TF1 checkpoints is not ported yet either (it is a
 ROADMAP item of the port); ``load_model`` raises for them.
@@ -13,7 +16,7 @@ ROADMAP item of the port); ``load_model`` raises for them.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -37,13 +40,18 @@ def params_from_numpy(
     device: Union[str, torch.device] = "cuda",
     dtype: torch.dtype = torch.float32,
 ) -> Dict[str, Any]:
-    """A params tree of numpy arrays (or JAX arrays passed through numpy)
-    -> the same tree of torch tensors on ``device``."""
+    """A params tree of numpy arrays, JAX arrays passed through numpy, or
+    torch tensors -> the same tree of (new) torch tensors on ``device``."""
     from deepmod_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    return _map_params(tree, lambda a: torch.tensor(
-        np.asarray(a, np.float32), dtype=dtype, device=dev))
+
+    def conv(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().to(device=dev, dtype=dtype, copy=True)
+        return torch.tensor(np.asarray(a, np.float32), dtype=dtype, device=dev)
+
+    return _map_params(tree, conv)
 
 
 def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
@@ -56,10 +64,38 @@ def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     return _map_params(tree, conv)
 
 
-def save_bilstm_npz(path: str, params: Dict[str, Any],
-                    config: BiLSTMConfig) -> None:
-    """Persist a BiLSTM (torch or numpy tree) as a flat .npz."""
-    tree = params_to_numpy(params)
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    """A params-shaped tree -> the .npz key naming (Adam's mu/nu mirror
+    the params, so the same keys serve them under ``adam/{mu,nu}/``)."""
+    tree = params_to_numpy(tree)
+    flat = {prefix + "out_w": tree["out_w"], prefix + "out_b": tree["out_b"]}
+    for lane in ("fw", "bw"):
+        for layer, lp in enumerate(tree[lane]):
+            flat[f"{prefix}{lane}/{layer}/kernel"] = lp["kernel"]
+            flat[f"{prefix}{lane}/{layer}/bias"] = lp["bias"]
+    return flat
+
+
+def _unflatten(data, num_layers: int, prefix: str = "") -> Dict[str, Any]:
+    tree: Dict[str, Any] = {
+        lane: [{"kernel": data[f"{prefix}{lane}/{layer}/kernel"],
+                "bias": data[f"{prefix}{lane}/{layer}/bias"]}
+               for layer in range(num_layers)]
+        for lane in ("fw", "bw")
+    }
+    tree["out_w"] = data[prefix + "out_w"]
+    tree["out_b"] = data[prefix + "out_b"]
+    return tree
+
+
+def save_bilstm_npz(path: str, params: Dict[str, Any], config: BiLSTMConfig,
+                    opt_state: Optional[Dict[str, Any]] = None) -> None:
+    """Persist a BiLSTM (torch or numpy tree) as a flat .npz.
+
+    With ``opt_state`` (the trainer's Adam state: ``count``, ``mu``,
+    ``nu``) the slots ride along as ``adam/count`` (int32) and
+    ``adam/{mu,nu}/...``, the layout the JAX package's ``load_adam_state``
+    reads."""
     flat = {
         "meta/num_input": np.int64(config.num_input),
         "meta/num_hidden": np.int64(config.num_hidden),
@@ -67,14 +103,29 @@ def save_bilstm_npz(path: str, params: Dict[str, Any],
         "meta/num_layers": np.int64(config.num_layers),
         "meta/num_classes": np.int64(config.num_classes),
         "meta/output_layer": np.bytes_(config.output_layer.encode()),
-        "out_w": tree["out_w"],
-        "out_b": tree["out_b"],
     }
-    for lane in ("fw", "bw"):
-        for layer, lp in enumerate(tree[lane]):
-            flat[f"{lane}/{layer}/kernel"] = lp["kernel"]
-            flat[f"{lane}/{layer}/bias"] = lp["bias"]
+    flat.update(_flatten(params))
+    if opt_state is not None:
+        flat["adam/count"] = np.asarray(opt_state["count"], np.int32)
+        flat.update(_flatten(opt_state["mu"], "adam/mu/"))
+        flat.update(_flatten(opt_state["nu"], "adam/nu/"))
     np.savez(path, **flat)
+
+
+def load_adam_state(path: str, params: Dict[str, Any]) -> Optional[Dict[str, Any]]:
+    """The Adam state stored by either package's ``save_bilstm_npz``, on
+    the device of ``params`` (torch tensors); None for a params-only
+    checkpoint, whose callers start from fresh slots."""
+    data = np.load(path)
+    if "adam/count" not in data:
+        return None
+    num_layers = int(data["meta/num_layers"])
+    device = params["out_w"].device
+    return {
+        "count": int(data["adam/count"]),
+        "mu": params_from_numpy(_unflatten(data, num_layers, "adam/mu/"), device),
+        "nu": params_from_numpy(_unflatten(data, num_layers, "adam/nu/"), device),
+    }
 
 
 def load_bilstm_npz(path: str) -> Tuple[Dict[str, Any], BiLSTMConfig]:
@@ -89,15 +140,7 @@ def load_bilstm_npz(path: str) -> Tuple[Dict[str, Any], BiLSTMConfig]:
         num_classes=int(data["meta/num_classes"]),
         output_layer=data["meta/output_layer"].item().decode(),
     )
-    params: Dict[str, Any] = {
-        lane: [{"kernel": data[f"{lane}/{layer}/kernel"],
-                "bias": data[f"{lane}/{layer}/bias"]}
-               for layer in range(config.num_layers)]
-        for lane in ("fw", "bw")
-    }
-    params["out_w"] = data["out_w"]
-    params["out_b"] = data["out_b"]
-    return params, config
+    return _unflatten(data, config.num_layers), config
 
 
 def load_model(prefix: str) -> Tuple[Dict[str, Any], BiLSTMConfig]:

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels into one shared library, bound with ctypes.
 
-Every ``csrc/*.cu`` source is compiled by its own ``nvcc`` process (all
+Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
+K2, K3) is compiled by its own ``nvcc`` process (all
 started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -112,6 +113,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
         # hidden, num_layers, w, bias, forget_bias term, out, tile_b, stream
         fn.argtypes = [p, i, i, i, i, i, i, i, i, p, p, f, p, i, p]
+        fn.restype = ctypes.c_int
+    for name in ("dmt_bilstm_train_fwd_f32", "dmt_bilstm_train_fwd_bf16"):
+        fn = getattr(lib, name)
+        # xin, batch, steps, in_dim, hidden, num_layers, w, bias,
+        # forget_bias, hs, cs, tile_b, stream
+        fn.argtypes = [p, i, i, i, i, i, p, p, f, p, p, i, p]
+        fn.restype = ctypes.c_int
+    for name in ("dmt_bilstm_train_bwd_f32", "dmt_bilstm_train_bwd_bf16"):
+        fn = getattr(lib, name)
+        # xin, hs, cs, dh, w, wt, bias, forget_bias, dx, da, dw, partial,
+        # splits, batch, steps, in_dim, hidden, tile_b, stream
+        fn.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
     lib.dmt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dmt_cuda_error_string.restype = ctypes.c_char_p

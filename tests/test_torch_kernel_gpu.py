@@ -1,4 +1,5 @@
-"""The CUDA kernel K1 against its plain version, on the card.
+"""The CUDA kernels (K1; K2 and K3) against their plain versions, on the
+card.
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -88,3 +89,108 @@ def test_kernel_rejects_unported_windows(cuda):
     x = torch.zeros(4, 20, 7, device=cuda)
     with pytest.raises(NotImplementedError, match="K4"):
         ops.bilstm_center_features(params, x, cfg, "fp32")
+
+
+# ---------------------------------------------------------------- K2 / K3
+
+def _train_case(cuda, batch, timesteps, precision, seed):
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg = BiLSTMConfig(num_input=7, timesteps=timesteps)
+    params = init_bilstm_params(seed, cfg, device=cuda)
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    for lane in ("fw", "bw"):
+        for lp in params[lane]:
+            lp["bias"] = (0.1 * torch.randn(lp["bias"].shape, generator=gen)).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (batch, timesteps, 7), dtype=np.float32)).to(cuda)
+    steps, _, _ = tr.readout(timesteps)
+    xin = tr.layer_inputs(x.to(tr.storage_dtype(precision)), steps)
+    return cfg, params, x, xin, tr.stack_lanes(params)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("batch,timesteps", [(2083, 21), (37, 8), (5, 5)])
+def test_train_kernels_match_plain(cuda, precision, batch, timesteps):
+    """K2 (all layers) and K3 (each layer) against their plain versions.
+    fp32: sequences 2e-5 absolute, gradients rtol 5e-4 / atol 5e-5 (a
+    mean-scaled cotangent, as the trainer's masked mean gives); bf16:
+    sequences atol 2e-3 + rtol 2e-2 (a 1-ulp flip of a stored bf16 value),
+    the gradient tree within relative L2 1e-2 and cosine 0.9999."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg, params, _, xin, weights = _train_case(cuda, batch, timesteps,
+                                               precision, batch)
+    fb = cfg.forget_bias
+    before = dict(tr.LAUNCHES)
+    hs, cs = tr.train_fwd(xin, weights, fb)
+    torch.cuda.synchronize()
+    assert tr.LAUNCHES[f"fwd_{precision}"] == before[f"fwd_{precision}"] + 1
+    hs_p, cs_p = tr.train_fwd_plain(xin, weights, fb)
+    seq_tol = TOL[precision]
+    torch.testing.assert_close(hs.float(), hs_p.float(), **seq_tol)
+    torch.testing.assert_close(cs.float(), cs_p.float(), **seq_tol)
+
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    dh = (torch.randn(hs.shape[1:], generator=gen) / batch).to(cuda).to(hs.dtype)
+    got, want = [], []
+    for layer in range(cfg.num_layers):
+        layer_in = xin if layer == 0 else hs[layer - 1]
+        w, b = weights[layer]
+        got += tr.train_bwd(layer_in, hs[layer], cs[layer], dh, w, b, fb)
+        torch.cuda.synchronize()
+        want += tr.train_bwd_plain(layer_in, hs[layer], cs[layer], dh, w, b, fb)
+    assert tr.LAUNCHES[f"bwd_{precision}"] == (
+        before[f"bwd_{precision}"] + cfg.num_layers)
+    if precision == "fp32":
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
+        return
+    a = torch.cat([t.float().ravel() for t in got])
+    b = torch.cat([t.float().ravel() for t in want])
+    assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert float(a @ b / (a.norm() * b.norm())) >= 0.9999
+
+
+def test_train_bwd_is_deterministic(cuda):
+    """No float atomics: two K3 runs on the same inputs give the same bits."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg, _, _, xin, weights = _train_case(cuda, 2048, 21, "fp32", 3)
+    hs, cs = tr.train_fwd(xin, weights, cfg.forget_bias)
+    dh = torch.randn_like(hs[0]) / 2048
+    runs = [tr.train_bwd(hs[1], hs[2], cs[2], dh, *weights[2], cfg.forget_bias)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_train_function_cuda_matches_cpu(cuda, precision):
+    """The autograd Function on the card (K2/K3) against itself on the CPU
+    (the plain versions), features and every gradient."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg, params, x, _, _ = _train_case(cuda, 300, 21, precision, 5)
+
+    def run(dev):
+        p = {lane: [{k: v.detach().to(dev).requires_grad_(True)
+                     for k, v in lp.items()} for lp in params[lane]]
+             for lane in ("fw", "bw")}
+        xx = x.detach().to(dev).requires_grad_(True)
+        f = tr.bilstm_center_train(p, xx, cfg, precision).float()
+        loss = (0.5 * (f * f).sum() + f.sum()) / len(f)
+        leaves = tr._lstm_leaves(p) + [xx]
+        return f.detach().cpu(), [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+    f_gpu, g_gpu = run(cuda)
+    f_cpu, g_cpu = run("cpu")
+    torch.testing.assert_close(f_gpu, f_cpu, **TOL[precision])
+    if precision == "fp32":
+        for a, b in zip(g_gpu, g_cpu):
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
+    else:
+        a = torch.cat([t.ravel() for t in g_gpu[:-1]])
+        b = torch.cat([t.ravel() for t in g_cpu[:-1]])
+        assert float((a - b).norm() / b.norm()) <= 1e-2
