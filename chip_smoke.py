@@ -38,17 +38,41 @@ without printing the result line):
    epoch of train on the card at fp32 and at bf16 with K2/K3's launch
    counts read around those runs, a --device cpu fp32 run whose params
    must end within relative L2 1e-3 of the card's, and detect on the card
-   with the trained model.
+   with the trained model;
+9. the layered kernel K4 against its plain version at full width: T=20
+   and T=31 on 65,536 random windows and on the window view of a
+   262,144-row chunk, T=64 on 4,096 windows (fp32 2e-5, bf16 atol 2e-3 +
+   rtol 2e-2), K4 forced at T=21 against K1; kernel, plain and cuDNN
+   times at 262,144 windows beside the bound;
+10. the one-direction layer kernel K6 against its plain version (H=100,
+   T=21, both directions, 1e-5), its main path (the model's two
+   one-direction stacks) against K1's center features, and its times;
+11. the transcendental probe P1 against its plain loop at K=256 (fp32
+   rtol 1e-5, bf16 within one ulp), its entry point, its rates at K=256
+   and 2048 and the bound from the SASS step loop;
+12. detect through the CLI at --windowsize 20 and 31 over 20 reads, on
+   the card at bf16 and fp32 (K4 launched, K1 not) and on the cpu, with
+   phase 7's BED and window-level checks;
+13. train at --windowsize 20 on the card over phase 8's features (K2/K3
+   a step, evaluation through K4), then predfeatures and detect with the
+   trained model through K4.
 
 Prints the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. Every entry of the kernels line has
+the same eleven keys: ``name``, ``route``, ``source`` (the CUDA file's
+path in the repo), ``replaces`` (file:line of the TPU kernel),
+``launches`` (on its main path, counted from 0 just before it), and
+``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+``library_ms`` from this run.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import glob
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -66,6 +90,9 @@ PEAK_OPS = {"fp32": 67e12, "bf16": 989e12}
 PEAK_BYTES = 3.35e12
 CHECK_B = 65536
 TIME_B = 262144
+LONG_B = 4096          # windows of the T=64 and T=21 K4 checks
+LAYERED_T = (20, 31)   # window sizes the layered kernel (K4) serves
+DETECT_T_READS = 20    # reads of the K4 detect dataset
 TRAIN_B = 2048
 TRAIN_READS = 12
 SEED = 2024
@@ -102,8 +129,11 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
 
 
 def flops_per_window(cfg) -> int:
-    """Multiply-adds x2 over both lanes, T//2+1 steps, all layers."""
-    h, steps = cfg.num_hidden, cfg.timesteps // 2 + 1
+    """Multiply-adds x2 over both lanes and all layers, for the steps each
+    layer runs: T//2+1 for odd T (the readout cone), T for even T."""
+    from deepmod_tpu_torch.ops.bilstm_fused import readout
+
+    h, steps = cfg.num_hidden, readout(cfg.timesteps)[0]
     per_step = sum(
         2 * ((cfg.num_input if layer == 0 else h) + h) * 4 * h
         for layer in range(cfg.num_layers)
@@ -111,19 +141,32 @@ def flops_per_window(cfg) -> int:
     return 2 * steps * per_step
 
 
-def bound_ms(cfg, batch: int, precision: str, weight_bytes: int) -> tuple:
+def bound_ms(cfg, batch: int, precision: str, weight_bytes: int,
+             layered: bool = False) -> tuple:
+    """The larger of operations over the peak rate and bytes over HBM
+    bandwidth. The windows are read once and the (B, 2H) features written
+    once; the layered kernel (K4) also writes and reads back the (2,
+    steps, B, H) sequence of every layer but the last."""
+    from deepmod_tpu_torch.ops.bilstm_fused import readout
+
     size = 4 if precision == "fp32" else 2
     nbytes = (batch * cfg.timesteps * cfg.num_input * size
               + batch * 2 * cfg.num_hidden * 4 + weight_bytes)
+    if layered:
+        steps = readout(cfg.timesteps)[0]
+        nbytes += ((cfg.num_layers - 1) * 2 * (2 * steps * batch
+                                               * cfg.num_hidden * size))
     t_ops = flops_per_window(cfg) * batch / PEAK_OPS[precision]
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def cudnn_lstms(params, cfg, precision: str, device):
+def cudnn_lstms(params, cfg, precision: str, device, train: bool = False):
     """Two cuDNN nn.LSTM stacks (one per lane) holding the same weights:
     TF i,j,f,o columns mapped to torch's i,f,g,o rows, forget_bias folded
-    into the f bias. A yardstick only; the port never calls it."""
+    into the f bias. In eval mode unless ``train`` (training mode keeps
+    cuDNN's reserve for a backward: 33 GB at T=20 and 262,144 windows).
+    A yardstick only; the port never calls it."""
     h = cfg.num_hidden
     dtype = torch.float32 if precision == "fp32" else torch.bfloat16
     lstms = []
@@ -142,17 +185,22 @@ def cudnn_lstms(params, cfg, precision: str, device):
                 getattr(lstm, f"bias_ih_l{layer}").copy_(
                     torch.cat([bi, bf + cfg.forget_bias, bj, bo]))
                 getattr(lstm, f"bias_hh_l{layer}").zero_()
-        lstm = lstm.to(dtype)
+        lstm = lstm.to(dtype).train(train)
         lstm.flatten_parameters()
         lstms.append(lstm)
     return lstms
 
 
 def cudnn_center(lstms, x, cfg):
-    steps = cfg.timesteps // 2 + 1
+    """The center features from the two cuDNN stacks: T//2+1 steps for odd
+    T, all T for even T with fw read at T//2 and bw at T-1-T//2 of the
+    time-reversed lane."""
+    from deepmod_tpu_torch.ops.bilstm_fused import readout
+
+    steps, fw_step, bw_step = readout(cfg.timesteps)
     fw, _ = lstms[0](x[:, :steps])
     bw, _ = lstms[1](x.flip(1)[:, :steps])
-    return torch.cat([fw[:, -1], bw[:, -1]], dim=1).float()
+    return torch.cat([fw[:, fw_step], bw[:, bw_step]], dim=1).float()
 
 
 def phase_kernel(device) -> dict:
@@ -249,11 +297,310 @@ def phase_kernel(device) -> dict:
     return results
 
 
+def _close(got, want, precision: str) -> bool:
+    if precision == "fp32":
+        return float((got - want).abs().max()) <= 2e-5
+    return torch.allclose(got, want, rtol=2e-2, atol=2e-3)
+
+
+def phase_layered(device) -> dict:
+    """K4 against its plain version: T=20 and T=31 at full width on
+    CHECK_B random windows and on the window view of a TIME_B-row chunk,
+    T=64 on LONG_B windows, K4 forced at T=21 against K1; kernel, plain
+    and cuDNN times at TIME_B windows beside the bound."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    for precision in ("fp32", "bf16"):
+        dt = ops.seq_dtype(precision)
+        max_err = 0.0
+        times = {}
+        for timesteps in LAYERED_T:
+            cfg = BiLSTMConfig(timesteps=timesteps)
+            params = init_bilstm_params(SEED + timesteps, cfg, device=device)
+            packed = ops.pack_bilstm_params(params, cfg, precision)
+            rng = np.random.default_rng(SEED + timesteps)
+            x_all = torch.from_numpy(rng.standard_normal(
+                (TIME_B, timesteps, cfg.num_input), dtype=np.float32)).to(
+                    device).to(dt)
+            x = x_all[:CHECK_B]
+            before = dict(ops.LAUNCHES)
+            got = ops.bilstm_center_features(packed, x, cfg, precision)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES == before, "K1 ran where K4 should"
+            want = ops.bilstm_layered_plain(params, x, cfg, precision)
+            assert torch.isfinite(got).all(), f"K4 {precision} T={timesteps}"
+            err = float((got - want).abs().max())
+            assert _close(got, want, precision), (
+                f"K4 {precision} T={timesteps} vs plain: max abs {err}")
+            # the detect path's shape: the window view of one row chunk
+            rows = x_all[:, 0].contiguous()
+            view = rows.as_strided(
+                (TIME_B - timesteps + 1, timesteps, cfg.num_input),
+                (cfg.num_input, cfg.num_input, 1))
+            got_v = ops.bilstm_center_features(packed, view, cfg, precision)
+            torch.cuda.synchronize()
+            want_v = ops.bilstm_layered_plain(params, view, cfg, precision)
+            err_v = float((got_v - want_v).abs().max())
+            assert _close(got_v, want_v, precision), (
+                f"K4 {precision} T={timesteps} window view: max abs {err_v}")
+            max_err = max(max_err, err, err_v)
+            lib = cudnn_lstms(params, cfg, precision, device)
+            with torch.no_grad():
+                lib_err = float((cudnn_center(lib, x, cfg) - want).abs().max())
+            log(f"[K4 {precision}] T={timesteps} B={CHECK_B} max_abs_err="
+                f"{err:.3e}; window view of {TIME_B} rows {err_v:.3e}; "
+                f"cudnn-vs-plain max_abs={lib_err:.3e}")
+            del rows, view, got_v, want_v, got, want
+
+            ms = time_ms(lambda: ops.bilstm_center_features(
+                packed, x_all, cfg, precision))
+            plain_ms = time_ms(lambda: ops.bilstm_layered_plain(
+                params, x_all, cfg, precision), reps=3)
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: cudnn_center(lib, x_all, cfg))
+            ms2 = time_ms(lambda: ops.bilstm_center_features(
+                packed, x_all, cfg, precision))
+            w_bytes = (packed.w.numel() * packed.w.element_size()
+                       + packed.bias.numel() * 4)
+            b_ms, b_by = bound_ms(cfg, TIME_B, precision, w_bytes,
+                                  layered=True)
+            fl = flops_per_window(cfg)
+            log(f"[K4 {precision}] T={timesteps} B={TIME_B} kernel {ms:.3f} / "
+                f"{ms2:.3f} ms, plain {plain_ms:.3f} ms, cudnn {lib_ms:.3f} "
+                f"ms, bound {b_ms:.3f} ms ({b_by}); {fl} FLOP/window, "
+                f"{fl * TIME_B / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            times[timesteps] = dict(ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=b_ms,
+                                    bound_by=b_by)
+            del x_all, x, lib
+            torch.cuda.empty_cache()
+
+        # the step loop past 32 steps, and K4 forced where K1 runs
+        cfg = BiLSTMConfig(timesteps=64)
+        params = init_bilstm_params(SEED + 64, cfg, device=device)
+        x = torch.from_numpy(np.random.default_rng(SEED + 64).standard_normal(
+            (LONG_B, 64, cfg.num_input), dtype=np.float32)).to(device).to(dt)
+        got = ops.bilstm_center_features(params, x, cfg, precision)
+        torch.cuda.synchronize()
+        want = ops.bilstm_layered_plain(params, x, cfg, precision)
+        err64 = float((got - want).abs().max())
+        assert _close(got, want, precision), f"K4 {precision} T=64: {err64}"
+        cfg = BiLSTMConfig()
+        params = init_bilstm_params(SEED, cfg, device=device)
+        x = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+            (LONG_B, 21, cfg.num_input), dtype=np.float32)).to(device).to(dt)
+        k4 = ops.bilstm_center_features(params, x, cfg, precision, mono=False)
+        k1 = ops.bilstm_center_features(params, x, cfg, precision)
+        torch.cuda.synchronize()
+        err21 = float((k4 - k1).abs().max())
+        assert _close(k4, k1, precision), f"K4 vs K1 {precision} T=21: {err21}"
+        log(f"[K4 {precision}] T=64 B={LONG_B} max_abs_err={err64:.3e}; "
+            f"mono=False vs K1 at T=21: max abs {err21:.3e}")
+        results[precision] = dict(times[LAYERED_T[0]],
+                                  max_abs_err=max(max_err, err64))
+    return results
+
+
+def phase_lstm_layer(device) -> dict:
+    """K6 against its plain version at H=100, T=21, both directions; its
+    main path, the model's one-direction stacks (``_stack_direction``),
+    against K1's center features; times beside a one-layer cuDNN LSTM."""
+    from deepmod_tpu_torch.models import bilstm as model
+    from deepmod_tpu_torch.ops import bilstm_fused as k1
+    from deepmod_tpu_torch.ops import lstm_layer as k6
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = model.BiLSTMConfig()
+    params = model.init_bilstm_params(SEED + 6, cfg, device=device)
+    gen = torch.Generator().manual_seed(SEED + 6)
+    for lane in ("fw", "bw"):
+        for lp in params[lane]:
+            lp["bias"] = (0.1 * torch.randn(lp["bias"].shape, generator=gen)).to(device)
+    x = torch.from_numpy(np.random.default_rng(SEED + 6).standard_normal(
+        (TIME_B, cfg.timesteps, cfg.num_input), dtype=np.float32)).to(device)
+    lp = params["fw"][0]
+    w_h = lp["kernel"][cfg.num_input:].contiguous()
+    fb = cfg.forget_bias
+    err = 0.0
+    for reverse in (False, True):
+        xp = k6.project(lp["kernel"], lp["bias"], x[:CHECK_B])
+        got = k6.lstm_recurrence(xp, w_h, fb, reverse)
+        torch.cuda.synchronize()
+        want = k6.lstm_recurrence_plain(xp, w_h, fb, reverse)
+        e = float((got - want).abs().max())
+        assert torch.isfinite(got).all() and e <= 1e-5, (
+            f"K6 reverse={reverse} vs plain: max abs {e}")
+        err = max(err, e)
+
+    # the main path: counts from 0 just before, read just after
+    k6.reset_launch_counts()
+    xm = x[:CHECK_B]
+    fw = model._stack_direction(params["fw"], xm, fb, False)
+    bw = model._stack_direction(params["bw"], xm, fb, True)
+    torch.cuda.synchronize()
+    launches = k6.LAUNCHES["fp32"]
+    assert launches == 2 * cfg.num_layers, launches
+    c = cfg.center
+    feats = torch.cat([fw[:, c], bw[:, c]], dim=1)
+    ref = k1.bilstm_center_features(params, xm, cfg, "fp32")
+    torch.cuda.synchronize()
+    e_model = float((feats - ref).abs().max())
+    assert e_model <= 2e-5, f"stacks through K6 vs K1: max abs {e_model}"
+    log(f"[K6] T={cfg.timesteps} B={CHECK_B} max_abs_err={err:.3e} (both "
+        f"directions); main path: {launches} launches, stacks vs K1 "
+        f"center features max abs {e_model:.3e}")
+
+    xp = k6.project(lp["kernel"], lp["bias"], x)
+    ms = time_ms(lambda: k6.lstm_recurrence(xp, w_h, fb, False))
+    plain_ms = time_ms(lambda: k6.lstm_recurrence_plain(xp, w_h, fb, False))
+    lstm = torch.nn.LSTM(cfg.num_input, cfg.num_hidden, 1,
+                         batch_first=True).to(device).eval()
+    with torch.no_grad():
+        lib_ms = time_ms(lambda: lstm(x))
+    ms2 = time_ms(lambda: k6.lstm_recurrence(xp, w_h, fb, False))
+    h = cfg.num_hidden
+    flops = 2 * h * 4 * h * cfg.timesteps * TIME_B
+    nbytes = _nbytes(xp, w_h) + TIME_B * cfg.timesteps * h * 4
+    b_ms, b_by = train_bound_ms(flops, nbytes)
+    log(f"[K6] B={TIME_B} kernel {ms:.3f} / {ms2:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, cudnn 1-layer LSTM (projection included) "
+        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; ops "
+        f"{flops / PEAK_OPS['fp32'] * 1e3:.3f} ms, bytes "
+        f"{nbytes / PEAK_BYTES * 1e3:.3f} ms)")
+    return dict(max_abs_err=max(err, e_model), ms=ms, ms_repeat=ms2,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, launches=launches)
+
+
+def _sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def probe_loop_counts(lib_path: str) -> dict:
+    """Per probe kernel (mangled name), the SASS instructions of its step
+    loop and how many of them are MUFU (special-function unit) ops, from
+    ``cuobjdump -sass`` of the built library: the span from the target of
+    the last backward branch to that branch."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if "probe_kernel" not in name:
+            continue
+        instr = []
+        for line in block.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                instr.append((int(m.group(1), 16), m.group(2).strip()))
+        loop = None
+        for addr, text in instr:
+            m = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?(0x[0-9a-f]+)?", text)
+            if "BRA" in text and m and m.group(1):
+                target = int(m.group(1), 16)
+                if target < addr:
+                    loop = (target, addr)
+        if loop is None:
+            continue
+        body = [t for a, t in instr if loop[0] <= a <= loop[1]]
+        counts[name] = (len(body), sum("MUFU" in t for t in body))
+    return counts
+
+
+def phase_probe(device, lib_path: str) -> dict:
+    """P1 against its plain version at K=256 (fp32 rtol 1e-5, bf16 within
+    one bf16 ulp of the value); the probe's entry point as the main path;
+    tanh at K=2048 timed beside the plain loop and the bound that the
+    loop's SASS instruction count sets at the card's issue rates."""
+    from deepmod_tpu_torch.tools import probe_transcendental as p1
+
+    errs = {}
+    for precision in ("fp32", "bf16"):
+        errs[precision] = 0.0
+        for op in p1.OPS:
+            x = p1.probe_input(precision, device)
+            got = p1.probe(x, op, 256).float()
+            torch.cuda.synchronize()
+            want = p1.probe_plain(x, op, 256).float()
+            assert torch.isfinite(got).all(), (op, precision)
+            if precision == "fp32":
+                assert torch.allclose(got, want, rtol=1e-5, atol=0), (
+                    op, float((got - want).abs().max()))
+            else:
+                ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
+                assert bool(((got - want).abs() <= ulp).all()), (
+                    op, float((got - want).abs().max()))
+            errs[precision] = max(errs[precision],
+                                  float((got - want).abs().max()))
+    log("[P1] kernel vs plain at K=256: all ops, fp32 rtol 1e-5, bf16 "
+        "within 1 ulp")
+
+    # the main path: the probe's entry point, counts from 0 around it
+    p1.reset_launch_counts()
+    assert p1.main(["--reps", "5"]) == 0
+    torch.cuda.synchronize()
+    launches = dict(p1.LAUNCHES)
+    assert launches["fp32"] > 0 and launches["bf16"] > 0, launches
+    log(f"[P1] entry point launches: {launches}")
+
+    counts = probe_loop_counts(lib_path)
+    clock = _sm_clock_hz()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    log(f"[P1] SASS step loops (instructions, MUFU): {counts}; "
+        f"{sms} SMs at {clock / 1e6:.0f} MHz max")
+    results = {}
+    n = p1.SHAPE[0] * p1.SHAPE[1]
+    for precision in ("fp32", "bf16"):
+        rates = {op: {k: p1.rate(op, precision, k, device, reps=10)
+                      ["ops_per_s"] for k in p1.ITERS} for op in p1.OPS}
+        x = p1.probe_input(precision, device)
+        k = p1.ITERS[-1]
+        ms = time_ms(lambda: p1.probe(x, "tanh", k))
+        plain_ms = time_ms(lambda: p1.probe_plain(x, "tanh", k), reps=3)
+        code = "f" if precision == "fp32" else "13__nv_bfloat16"
+        key = next((name for name in counts
+                    if f"probe_kernelI{code}Li0E" in name), None)
+        assert key is not None, f"no tanh loop found in the SASS: {counts}"
+        n_instr, n_mufu = counts[key]
+        # issue: 4 warp-instructions a clock an SM (128 thread ops); MUFU:
+        # 16 lanes a clock an SM
+        cycles = max(n_instr / 128, n_mufu / 16)
+        b_ops = n * k * cycles / (sms * clock) * 1e3
+        b_bytes = 2 * x.numel() * x.element_size() / PEAK_BYTES * 1e3
+        log(f"[P1 {precision}] rates (Gop/s): " + "; ".join(
+            f"{op} " + " ".join(f"K={kk}: {r / 1e9:.2f}" for kk, r in rk.items())
+            for op, rk in rates.items())
+            + f"; tanh K={k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {max(b_ops, b_bytes):.4f} ms ({n_instr} instructions, "
+            f"{n_mufu} MUFU a step; bound rate {n * k / b_ops / 1e6:.2f} "
+            "Gop/s)")
+        results[precision] = dict(
+            max_abs_err=errs[precision], ms=ms, plain_ms=plain_ms,
+            library_ms=None,
+            bound_ms=max(b_ops, b_bytes),
+            bound_by="operations" if b_ops >= b_bytes else "bytes")
+    for precision in ("fp32", "bf16"):
+        results[precision]["launches"] = launches[precision]
+    return results
+
+
 def train_cost_per_window(cfg) -> tuple:
     """(K2, K3) FLOP per window: multiply-adds x2 over both lanes and the
     steps each layer runs. K3 counts the gate recompute, the dh/dx
     products and the [x; h; 1] x da weight-gradient product."""
-    from deepmod_tpu_torch.ops.bilstm_fused_train import readout
+    from deepmod_tpu_torch.ops.bilstm_fused import readout
 
     h = cfg.num_hidden
     k2 = k3 = 0
@@ -388,7 +735,7 @@ def phase_train_kernels(device) -> dict:
                                          weights, fb))
         k3_plain = time_ms(lambda: _bwd_all(tr.train_bwd_plain, xin, hs, cs,
                                             dh, weights, fb))
-        lib = cudnn_lstms(params, cfg, precision, device)
+        lib = cudnn_lstms(params, cfg, precision, device, train=True)
         xl = x.to(lib[0].weight_ih_l0.dtype).requires_grad_(True)
         lib_fwd_ms = time_ms(lambda: cudnn_center(lib, xl, cfg))
         out = cudnn_center(lib, xl, cfg)
@@ -458,7 +805,7 @@ def read_beds(folder: str) -> dict:
 
 
 def run_detect(ds: str, out: str, device: str, precision: str,
-               model: str = "") -> float:
+               model: str = "", windowsize: int = 21) -> float:
     from deepmod_tpu_torch.cli import main as cli_main
 
     t0 = time.perf_counter()
@@ -469,7 +816,7 @@ def run_detect(ds: str, out: str, device: str, precision: str,
         "--basecalls", os.path.join(ds, "calls.bam"),
         "--outFolder", out, "--alignStr", "builtin", "--Base", "C",
         "--precision", precision, "--device", device, "--outLevel", "0",
-        "--perRead", "0",
+        "--perRead", "0", "--windowsize", str(windowsize),
     ])
     wall = time.perf_counter() - t0
     assert rc == 0, f"detect {device}/{precision} exited {rc}"
@@ -478,22 +825,8 @@ def run_detect(ds: str, out: str, device: str, precision: str,
 
 
 def phase_detect(device, workdir: str) -> dict:
-    from deepmod_tpu_torch.engine.detect import (
-        DetectConfig,
-        WindowPredictor,
-        _host_options,
-    )
-    from deepmod_tpu_torch.engine.host_worker import (
-        host_process_files,
-        init_worker,
-    )
-    from deepmod_tpu_torch.engine.outputs import build_batch_request
-    from deepmod_tpu_torch.models.bilstm import (
-        BiLSTMConfig,
-        bilstm_logits,
-        init_bilstm_params,
-    )
-    from deepmod_tpu_torch.models.tf_import import load_model, save_bilstm_npz
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.models.tf_import import save_bilstm_npz
     from deepmod_tpu_torch.ops import bilstm_fused as ops
     from deepmod_tpu_torch.testing.synthetic import (
         SynthConfig,
@@ -523,38 +856,63 @@ def phase_detect(device, workdir: str) -> dict:
     launches = dict(ops.LAUNCHES)
     log(f"[detect] K1 launches on the main path: {launches}")
     assert launches["bf16"] > 0 and launches["fp32"] > 0, launches
+    assert not any(ops.LAYERED_LAUNCHES.values()), ops.LAYERED_LAUNCHES
 
     walls["cpu_fp32"] = run_detect(
         ds, os.path.join(workdir, "cpu_fp32"), "cpu", "fp32")
-    beds = {k: read_beds(os.path.join(workdir, k))
+    res = compare_devices(device, ds, workdir, "", 21)
+    return dict(res, launches=launches, walls=walls)
+
+
+def compare_devices(device, ds: str, workdir: str, prefix: str,
+                    windowsize: int) -> dict:
+    """The fp32 card run's BEDs against the cpu run's, with a window-level
+    trace of any difference: the same host features through both devices,
+    where every flipped prediction must be a near tie (|logit margin| at
+    most twice the two devices' logit difference)."""
+    from deepmod_tpu_torch.engine.detect import (
+        DetectConfig,
+        WindowPredictor,
+        _host_options,
+    )
+    from deepmod_tpu_torch.engine.host_worker import (
+        host_process_files,
+        init_worker,
+    )
+    from deepmod_tpu_torch.engine.outputs import build_batch_request
+    from deepmod_tpu_torch.models.bilstm import bilstm_logits
+    from deepmod_tpu_torch.models.tf_import import load_model
+
+    beds = {k: read_beds(os.path.join(workdir, prefix + k))
             for k in ("gpu_bf16", "gpu_fp32", "cpu_fp32")}
     for k, v in beds.items():
         assert v and all(len(b) > 0 for b in v.values()), f"{k}: empty BEDs"
     beds_equal = beds["gpu_fp32"] == beds["cpu_fp32"]
 
-    # window-level trace of any fp32 GPU/CPU difference: the same host
-    # features through both devices
     init_worker(_host_options(DetectConfig(
         wrk_base=os.path.join(ds, "pod5"), ref=os.path.join(ds, "ref.fa"),
         model_path="", out_folder="", align_str="builtin",
-        basecalls=os.path.join(ds, "calls.bam"),
+        basecalls=os.path.join(ds, "calls.bam"), window_size=windowsize,
     )))
     results, errors = host_process_files(
         sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5"))))
     feats, centers, _, _ = build_batch_request(results)
     params, mcfg = load_model(os.path.join(ds, "model.npz"))
+    mcfg = dataclasses.replace(mcfg, timesteps=windowsize)
     t0 = time.perf_counter()
     gpu = WindowPredictor(params, mcfg, device=device, precision="fp32")
-    p_gpu = gpu.predict_from_features(feats, centers, assume_packable=True)
+    p_gpu = gpu.predict_from_features(feats, centers, windowsize,
+                                      assume_packable=True)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     cpu = WindowPredictor(params, mcfg, device="cpu", precision="fp32")
-    p_cpu = cpu.predict_from_features(feats, centers, assume_packable=True)
+    p_cpu = cpu.predict_from_features(feats, centers, windowsize,
+                                      assume_packable=True)
     flips = np.flatnonzero(p_gpu != p_cpu)
     n_near_tie = 0
     if len(flips):
-        half = mcfg.timesteps // 2
-        view = np.lib.stride_tricks.sliding_window_view(feats, mcfg.timesteps, axis=0)
+        half = windowsize // 2
+        view = np.lib.stride_tricks.sliding_window_view(feats, windowsize, axis=0)
         win = np.ascontiguousarray(
             np.moveaxis(view[centers[flips] - half], 2, 1))
         lg = bilstm_logits(gpu._model, torch.from_numpy(win).to(device),
@@ -567,12 +925,59 @@ def phase_detect(device, workdir: str) -> dict:
             f"{len(flips) - n_near_tie} fp32 GPU/CPU prediction flips are "
             "not near ties")
     assert beds_equal or len(flips) > 0, "BEDs differ with no window flip"
-    log(f"[detect] windows={len(centers)} fp32 GPU/CPU window flips="
-        f"{len(flips)} (all near ties: {n_near_tie == len(flips)}), "
+    log(f"[detect T={windowsize}] windows={len(centers)} fp32 GPU/CPU window "
+        f"flips={len(flips)} (all near ties: {n_near_tie == len(flips)}), "
         f"BEDs equal={beds_equal}; GPU classify {gpu_s:.3f} s")
-    res = {"launches": launches, "walls": walls, "windows": int(len(centers)),
-           "flips": int(len(flips)), "beds_equal": beds_equal}
-    return res
+    return {"windows": int(len(centers)), "flips": int(len(flips)),
+            "beds_equal": beds_equal}
+
+
+def phase_detect_layered(device, workdir: str) -> dict:
+    """detect through the CLI at the window sizes K4 serves, over a
+    DETECT_T_READS-read subset of the detect dataset: on the card in bf16
+    and fp32 with K4 launched and K1 not, and on the cpu in fp32."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.models.tf_import import save_bilstm_npz
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.testing.synthetic import (
+        SynthConfig,
+        write_move_dataset_pod5,
+    )
+
+    ds = os.path.join(workdir, "ds_k4")
+    write_move_dataset_pod5(ds, SynthConfig(
+        genome_sizes={"chrS": 200_000}, num_reads=DETECT_T_READS,
+        read_length=(1500, 3000), seed=SEED, fast5_style="move",
+        mod_motif="CG", mod_level_shift=0.5,
+    ))
+    cfg = BiLSTMConfig()
+    save_bilstm_npz(os.path.join(ds, "model.npz"),
+                    init_bilstm_params(SEED + 1, cfg, device="cpu"), cfg)
+    out = {}
+    for windowsize in LAYERED_T:
+        prefix = f"w{windowsize}_"
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        walls = {}
+        for precision in ("bf16", "fp32"):
+            walls[precision] = run_detect(
+                ds, os.path.join(workdir, prefix + f"gpu_{precision}"),
+                "cuda", precision, windowsize=windowsize)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAYERED_LAUNCHES)
+        log(f"[detect T={windowsize}] K4 launches {launches}, K1 launches "
+            f"{dict(ops.LAUNCHES)}")
+        assert launches["bf16"] > 0 and launches["fp32"] > 0, launches
+        assert not any(ops.LAUNCHES.values()), ops.LAUNCHES
+        walls["cpu_fp32"] = run_detect(
+            ds, os.path.join(workdir, prefix + "cpu_fp32"), "cpu", "fp32",
+            windowsize=windowsize)
+        res = compare_devices(device, ds, workdir, prefix, windowsize)
+        for key, wall in walls.items():
+            log(f"[detect T={windowsize}] {key}: wall {wall:.2f} s, "
+                f"{res['windows'] / wall:.1f} windows/s end to end")
+        out[windowsize] = dict(res, launches=launches, walls=walls)
+    return out
 
 
 def run_cli(*args: str) -> float:
@@ -703,7 +1108,66 @@ def phase_train(device, workdir: str) -> dict:
     log(f"[train] detect with the trained model: {det_wall:.2f} s, "
         f"{len(beds)} BEDs, K1 launches {dict(k1.LAUNCHES)}")
     return {"launches": launches, "walls": walls, "samples": samples,
-            "steps": n_steps, "rel_cpu": rel, "losses": losses}
+            "steps": n_steps, "rel_cpu": rel, "losses": losses,
+            "feats": feats}
+
+
+def phase_train_layered(device, workdir: str, feats: dict) -> dict:
+    """train at the first of LAYERED_T on the card in fp32 over phase
+    train's feature files (they hold rows; the loader cuts the windows):
+    K2/K3 once a step, the periodic evaluation through K4; then
+    predfeatures and detect with the trained model through K4, K1 never
+    launched."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+    from deepmod_tpu_torch.train.loader import (
+        find_feature_files,
+        iterate_training_batches,
+    )
+
+    windowsize = LAYERED_T[0]
+    groups = [find_feature_files(feats["mod"]), find_feature_files(feats["ctl"])]
+    n_steps = sum(1 for step in iterate_training_batches(
+        groups, TRAIN_B, window_size=windowsize)
+        for mb in step if len(mb[1]))
+    out = os.path.join(workdir, f"train_out_w{windowsize}")
+    # the main path: counts from 0 just before, read just after
+    ops.reset_launch_counts()
+    tr.reset_launch_counts()
+    wall = run_cli("train", "--wrkBase", feats["mod"], "--wrkBase2",
+                   feats["ctl"], "--outFolder", out, "--epochs", "1",
+                   "--batchsize", str(TRAIN_B), "--trainPrecision", "fp32",
+                   "--device", "cuda", "--outLevel", "2",
+                   "--windowsize", str(windowsize))
+    torch.cuda.synchronize()
+    train_k4 = ops.LAYERED_LAUNCHES["fp32"]
+    log(f"[train T={windowsize}] wall {wall:.2f} s; K2/K3 launches "
+        f"{dict(tr.LAUNCHES)} ({n_steps} steps); evaluation K4 launches "
+        f"{dict(ops.LAYERED_LAUNCHES)}, K1 {dict(ops.LAUNCHES)}")
+    assert tr.LAUNCHES["fwd_fp32"] == n_steps, tr.LAUNCHES
+    assert tr.LAUNCHES["bwd_fp32"] == 3 * n_steps, tr.LAUNCHES
+    assert train_k4 > 0 and not any(ops.LAUNCHES.values()), (
+        ops.LAYERED_LAUNCHES, ops.LAUNCHES)
+    model = os.path.join(out, "1", "mod.npz")
+    assert np.isfinite(_flat_params(model)).all(), "non-finite params"
+
+    run_cli("predfeatures", "--wrkBase", feats["mod"], "--modfile", model,
+            "--outFolder", os.path.join(workdir, f"pred_w{windowsize}"),
+            "--windowsize", str(windowsize), "--device", "cuda")
+    det_dir = os.path.join(workdir, f"trained_detect_w{windowsize}")
+    det_wall = run_detect(os.path.join(workdir, "train_mod"), det_dir, "cuda",
+                          "fp32", model=model, windowsize=windowsize)
+    torch.cuda.synchronize()
+    beds = read_beds(det_dir)
+    assert beds and all(len(v) > 0 for v in beds.values()), "empty BEDs"
+    launches = ops.LAYERED_LAUNCHES["fp32"]
+    assert launches > train_k4 and not any(ops.LAUNCHES.values()), (
+        ops.LAYERED_LAUNCHES, ops.LAUNCHES)
+    log(f"[train T={windowsize}] predfeatures + detect with the trained "
+        f"model: detect {det_wall:.2f} s, {len(beds)} BEDs; K4 launches "
+        f"{train_k4} in train, {launches} with predfeatures and detect")
+    return {"launches": launches, "train_launches": train_k4, "wall": wall,
+            "steps": n_steps}
 
 
 def main() -> int:
@@ -713,7 +1177,6 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import deepmod_tpu_torch  # noqa: F401  (fails outside a checkout)
     from deepmod_tpu_torch.ops import _build
-    from deepmod_tpu_torch.ops import bilstm_fused as ops
 
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
@@ -722,7 +1185,7 @@ def main() -> int:
         f"cuda {torch.version.cuda} | count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    _build.library()
+    lib_path = _build.library()._name
     log(f"[build] {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_info['seconds']:.2f} s)")
     for line in _build.build_info["log"].splitlines():
@@ -731,39 +1194,59 @@ def main() -> int:
 
     kern = phase_kernel(device)
     tkern = phase_train_kernels(device)
+    layered = phase_layered(device)
+    k6 = phase_lstm_layer(device)
+    probe = phase_probe(device, lib_path)
     with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as workdir:
         det = phase_detect(device, workdir)
+        det_k4 = phase_detect_layered(device, workdir)
         trn = phase_train(device, workdir)
-    for precision in ("bf16", "fp32"):
-        log(f"[detect] {precision}: wall {det['walls'][precision]:.2f} s")
-    log(f"[detect] cpu fp32 wall {det['walls']['cpu_fp32']:.2f} s")
+        trn_k4 = phase_train_layered(device, workdir, trn["feats"])
     for key, wall in det["walls"].items():
-        log(f"[detect] {key}: {det['windows'] / wall:.1f} windows/s end to end")
+        log(f"[detect] {key}: wall {wall:.2f} s, "
+            f"{det['windows'] / wall:.1f} windows/s end to end")
 
-    def entry(name, precision, source, replaces, launches, k):
+    def entry(name, source, replaces, launches, k):
+        lib = k["library_ms"]
         return {
-            "name": name, "precision": precision, "route": "cuda",
-            "source": source, "replaces": replaces, "launches": launches,
-            "max_abs_err": float(f"{k['max_abs_err']:.3e}"),
-            "ms": round(k["ms"], 4), "plain_ms": round(k["plain_ms"], 4),
-            "bound_ms": round(k["bound_ms"], 4), "bound_by": k["bound_by"],
-            "library_ms": round(k["library_ms"], 4),
+            "name": name, "route": "cuda",
+            "source": "deepmod_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": float(f"{k['max_abs_err']:.2e}"),
+            "ms": round(k["ms"], 3), "plain_ms": round(k["plain_ms"], 3),
+            "bound_ms": round(k["bound_ms"], 3), "bound_by": k["bound_by"],
+            "library_ms": None if lib is None else round(lib, 3),
         }
 
+    # K4's main path: detect at every LAYERED_T window size
+    k4_launches = {p: sum(r["launches"][p] for r in det_k4.values())
+                   for p in ("fp32", "bf16")}
     kernels = []
     for precision in ("fp32", "bf16"):
         kernels.append(entry(
-            f"k1_center_{precision}", precision, "deepmod_tpu_torch/csrc/"
-            "bilstm_fused.cu", "deepmod_tpu/ops/bilstm_fused.py:551",
-            det["launches"][precision], kern[precision]))
+            f"k1_center_{precision}", "bilstm_fused.cu",
+            "deepmod_tpu/ops/bilstm_fused.py:551", det["launches"][precision],
+            kern[precision]))
         for kind, line in (("fwd", 101), ("bwd", 222)):
             kernels.append(entry(
                 f"k{2 if kind == 'fwd' else 3}_train_{kind}_{precision}",
-                precision, "deepmod_tpu_torch/csrc/bilstm_train.cu",
-                f"deepmod_tpu/ops/bilstm_fused_train.py:{line}",
+                "bilstm_train.cu", f"deepmod_tpu/ops/bilstm_fused_train.py:{line}",
                 trn["launches"][f"{kind}_{precision}"], tkern[precision][kind]))
+        kernels.append(entry(
+            f"k4_layer_{precision}", "bilstm_layer.cu",
+            "deepmod_tpu/ops/bilstm_fused.py:197", k4_launches[precision],
+            layered[precision]))
+    kernels.append(entry("k6_lstm_layer_fp32", "lstm_layer.cu",
+                         "deepmod_tpu/ops/lstm_pallas.py:74", k6["launches"], k6))
+    for precision in ("fp32", "bf16"):
+        kernels.append(entry(
+            f"p1_probe_{precision}", "probe_transcendental.cu",
+            "scripts/probe_transcendental.py:50",
+            probe[precision]["launches"], probe[precision]))
     line = json.dumps({"kernels": kernels}, separators=(",", ":"))
-    assert len(line) < 2000, len(line)
+    # eleven entries with all eleven keys: the keys alone take 1,837
+    # characters, keys and values about 3,000
+    assert len(line) < 4000, len(line)
     log(line)
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -50,92 +50,16 @@
 // later: wgmma on the tensor cores (a 64-window tile is one wgmma M), the
 // weights in shared memory, and a TMA ring for the inputs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "lstm_common.cuh"
 
 namespace {
 
-constexpr int kR = 8;  // windows per thread
-// at most 128 registers a thread: the 32 gate accumulators, 8 cell states
-// and the unrolled loads fit without spilling
-constexpr int kMaxThreads = 512;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// 8 consecutive values from shared memory (16-byte aligned) as floats
-__device__ __forceinline__ void load8(const float* p, float (&v)[kR]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[kR]) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[kR]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-__device__ __forceinline__ void store8(__nv_bfloat16* p,
-                                       const float (&v)[kR]) {
-  uint4 raw;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  }
-  *reinterpret_cast<uint4*>(p) = raw;
-}
-
-// acc[g][r] += sum_k src[k][r] * w[k][g*H + u] over `rows` rows
-template <typename T>
-__device__ __forceinline__ void accumulate(const T* __restrict__ src,
-                                           int src_stride,
-                                           const T* __restrict__ w, int rows,
-                                           int hidden, float (&acc)[4][kR]) {
-  const int gate = hidden;
-  const int row = 4 * hidden;
-#pragma unroll 4
-  for (int k = 0; k < rows; ++k) {
-    float xv[kR];
-    load8(src + static_cast<size_t>(k) * src_stride, xv);
-    const T* wk = w + static_cast<size_t>(k) * row;
-    const float wi = to_f(__ldg(wk));
-    const float wj = to_f(__ldg(wk + gate));
-    const float wf = to_f(__ldg(wk + 2 * gate));
-    const float wo = to_f(__ldg(wk + 3 * gate));
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      acc[0][r] = fmaf(wi, xv[r], acc[0][r]);
-      acc[1][r] = fmaf(wj, xv[r], acc[1][r]);
-      acc[2][r] = fmaf(wf, xv[r], acc[2][r]);
-      acc[3][r] = fmaf(wo, xv[r], acc[3][r]);
-    }
-  }
-}
+using dmt::accumulate;
+using dmt::from_f;
+using dmt::kMaxThreads;
+using dmt::kR;
+using dmt::store8;
+using dmt::to_f;
 
 template <typename T, bool kPrescaled>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -190,10 +114,7 @@ bilstm_center_mono_kernel(const T* __restrict__ x, long long stride_b,
 
     for (int t = 0; t < steps; ++t) {
       float acc[4][kR];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int r = 0; r < kR; ++r) acc[g][r] = 0.0f;
+      dmt::zero(acc);
       accumulate(src + static_cast<size_t>(t) * lin * tile_b + w0, tile_b,
                  wl + u, lin, hidden, acc);
       if (t > 0) {  // h_{-1} = 0 contributes nothing
@@ -206,22 +127,9 @@ bilstm_center_mono_kernel(const T* __restrict__ x, long long stride_b,
       float h[kR];
 #pragma unroll
       for (int r = 0; r < kR; ++r) {
-        const float gi = acc[0][r] + bi;
-        const float gj = acc[1][r] + bj;
-        const float gf = acc[2][r] + bf;
-        const float go = acc[3][r] + bo;
-        float si, sf, so;
-        if (kPrescaled) {
-          si = 0.5f * tanhf(gi) + 0.5f;
-          sf = 0.5f * tanhf(gf + fb_term) + 0.5f;
-          so = 0.5f * tanhf(go) + 0.5f;
-        } else {
-          si = 1.0f / (1.0f + expf(-gi));
-          sf = 1.0f / (1.0f + expf(-(gf + fb_term)));
-          so = 1.0f / (1.0f + expf(-go));
-        }
-        c[r] = c[r] * sf + si * tanhf(gj);
-        h[r] = tanhf(c[r]) * so;
+        h[r] = dmt::cell<kPrescaled>(acc[0][r] + bi, acc[1][r] + bj,
+                                     acc[2][r] + bf, acc[3][r] + bo, fb_term,
+                                     c[r]);
       }
       if (last && t == steps - 1) {
         // only the center row leaves the kernel

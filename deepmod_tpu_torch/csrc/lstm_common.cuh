@@ -1,0 +1,130 @@
+// Helpers shared by the inference LSTM kernels (bilstm_fused.cu: K1,
+// bilstm_layer.cu: K4, lstm_layer.cu: K6); probe_transcendental.cu (P1)
+// uses the storage-type conversions.
+//
+// Their thread layout is the same: thread (u, g) of a block owns hidden
+// unit u for the kR windows g*kR .. g*kR+kR-1, and shared memory holds a
+// block's sequences feature-major, [feature][window], so one thread reads
+// its kR windows of a feature as one 16-byte (bf16) or 32-byte (fp32)
+// vector.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace dmt {
+
+constexpr int kR = 8;  // windows per thread
+// at most 128 registers a thread: the 32 gate accumulators, 8 cell states
+// and the unrolled loads fit without spilling
+constexpr int kMaxThreads = 512;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 8 consecutive values from shared memory (16-byte aligned) as floats
+__device__ __forceinline__ void load8(const float* p, float (&v)[kR]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&v)[kR]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h2[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[kR]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+__device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                       const float (&v)[kR]) {
+  uint4 raw;
+  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    h2[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  }
+  *reinterpret_cast<uint4*>(p) = raw;
+}
+
+// acc[g][r] += sum_k src[k][r] * w[k][g*H + u] over `rows` rows; w points
+// at the thread's unit column of a TF (rows, 4H) gate-block kernel
+template <typename T>
+__device__ __forceinline__ void accumulate(const T* __restrict__ src,
+                                           int src_stride,
+                                           const T* __restrict__ w, int rows,
+                                           int hidden, float (&acc)[4][kR]) {
+  const int gate = hidden;
+  const int row = 4 * hidden;
+#pragma unroll 4
+  for (int k = 0; k < rows; ++k) {
+    float xv[kR];
+    load8(src + static_cast<size_t>(k) * src_stride, xv);
+    const T* wk = w + static_cast<size_t>(k) * row;
+    const float wi = to_f(__ldg(wk));
+    const float wj = to_f(__ldg(wk + gate));
+    const float wf = to_f(__ldg(wk + 2 * gate));
+    const float wo = to_f(__ldg(wk + 3 * gate));
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      acc[0][r] = fmaf(wi, xv[r], acc[0][r]);
+      acc[1][r] = fmaf(wj, xv[r], acc[1][r]);
+      acc[2][r] = fmaf(wf, xv[r], acc[2][r]);
+      acc[3][r] = fmaf(wo, xv[r], acc[3][r]);
+    }
+  }
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][kR]) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[g][r] = 0.0f;
+}
+
+// the TF1 BasicLSTMCell tail on fp32 gate pre-activations (bias added):
+// updates c, returns h. kPrescaled is the bf16 contract (i/f/o arrive
+// pre-halved, sigmoid as 0.5*tanh+0.5, fb_term = 0.5*forget_bias added in
+// the original association); otherwise exp-based sigmoids, fb_term =
+// forget_bias
+template <bool kPrescaled>
+__device__ __forceinline__ float cell(float gi, float gj, float gf, float go,
+                                      float fb_term, float& c) {
+  float si, sf, so;
+  if (kPrescaled) {
+    si = 0.5f * tanhf(gi) + 0.5f;
+    sf = 0.5f * tanhf(gf + fb_term) + 0.5f;
+    so = 0.5f * tanhf(go) + 0.5f;
+  } else {
+    si = 1.0f / (1.0f + expf(-gi));
+    sf = 1.0f / (1.0f + expf(-(gf + fb_term)));
+    so = 1.0f / (1.0f + expf(-go));
+  }
+  c = c * sf + si * tanhf(gj);
+  return tanhf(c) * so;
+}
+
+}  // namespace dmt

@@ -9,8 +9,9 @@ mPredict1 -> sum_handler, myDetect.py:1124-1263, 948-984, 392-465,
   (the numpy host layers, ``engine.host_worker``);
 - ALL windows of a file batch are classified in large bucketed chunks by
   ``WindowPredictor`` on one device: the BiLSTM center features come from
-  the CUDA kernel (``ops.bilstm_fused``) on the card, or from its plain
-  version on the CPU;
+  the CUDA kernels (``ops.bilstm_fused``: K1 for odd windows up to 25, K4
+  for every other size) on the card, or from their plain versions on the
+  CPU;
 - predictions are scattered back to base maps, written in the reference's
   on-disk formats (predetail HDF5 + index files) and accumulated into
   per-(chr, strand) counters for the BEDs.

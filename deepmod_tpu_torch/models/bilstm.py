@@ -14,16 +14,18 @@ myMultiBiRNN.py:21-91), as ``deepmod_tpu/models/bilstm.py`` defines them:
 Parameters keep the JAX package's dict layout: ``fw``/``bw`` lists of
 ``{kernel (in+H, 4H), bias (4H,)}`` plus ``out_w (2H, C)`` and
 ``out_b (C,)``, as torch tensors. Inference runs the recurrence in
-``ops.bilstm_fused`` (K1), training in ``ops.bilstm_fused_train`` (K2
-forward, K3 backward): the CUDA kernels on the card, their plain versions
-on the CPU. The projection, softmax, argmax and loss are plain torch, as
-the JAX package leaves them to XLA outside its Pallas kernels.
+``ops.bilstm_fused`` (K1 for odd T <= 25, K4 for every other T), training
+in ``ops.bilstm_fused_train`` (K2 forward, K3 backward): the CUDA kernels
+on the card, their plain versions on the CPU. ``_stack_direction`` runs
+one direction's stack layer by layer, through ``ops.lstm_layer`` (K6 on
+the card). The projection, softmax, argmax and loss are plain
+torch, as the JAX package leaves them to XLA outside its Pallas kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+from typing import Any, Dict, List, Union
 
 import numpy as np
 import torch
@@ -33,6 +35,7 @@ from deepmod_tpu_torch.ops.bilstm_fused import (
     bilstm_center_features as _fused_center,
 )
 from deepmod_tpu_torch.ops.bilstm_fused_train import bilstm_center_train
+from deepmod_tpu_torch.ops.lstm_layer import lstm_layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +93,22 @@ def init_bilstm_params(seed: int, config: BiLSTMConfig,
     tree["out_w"] = _truncated_normal(rng, (2 * h, config.num_classes))
     tree["out_b"] = _truncated_normal(rng, (config.num_classes,))
     return params_from_numpy(tree, device)
+
+
+def _stack_direction(layers: List[Dict[str, torch.Tensor]],
+                     x_seq: torch.Tensor, forget_bias: float,
+                     reverse: bool) -> torch.Tensor:
+    """One direction's stack over (B, T, F) -> (B, T, H), layer by layer
+    through ``ops.lstm_layer``: K6 on a CUDA tensor, its plain version on
+    the CPU (the JAX ``_stack_direction``; its ``use_pallas`` choice
+    between the scan and ``lstm_layer_pallas`` is the device here). With
+    ``reverse`` the steps run T-1..0 and each output stays at its own
+    index, the reverse-run-unreverse composition of
+    ``static_bidirectional_rnn`` (myMultiBiRNN.py:47)."""
+    out = x_seq
+    for lp in layers:
+        out = lstm_layer(lp["kernel"], lp["bias"], out, forget_bias, reverse)
+    return out
 
 
 def bilstm_center_features(

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels into one shared library, bound with ctypes.
 
 Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
-K2, K3) is compiled by its own ``nvcc`` process (all
-started together) for ``sm_90a``, and the objects are linked into
+K2, K3; ``bilstm_layer.cu``: K4; ``lstm_layer.cu``: K6;
+``probe_transcendental.cu``: P1) is compiled by its own ``nvcc`` process
+(all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
 a build takes seconds. The build runs at first use, from the sources in
@@ -31,6 +32,11 @@ BUILD_DIR = os.environ.get(
 LIB_NAME = "libdmt_torch_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# launch limits every wrapper checks before it launches: threads a block
+# (kMaxThreads in csrc/lstm_common.cuh and bilstm_train.cu) and the bytes
+# of shared memory a block may use on Hopper
+MAX_THREADS = 512
+MAX_SMEM = 232448
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -125,6 +131,24 @@ def _bind(lib: ctypes.CDLL) -> None:
         # xin, hs, cs, dh, w, wt, bias, forget_bias, dx, da, dw, partial,
         # splits, batch, steps, in_dim, hidden, tile_b, stream
         fn.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, i, i, p]
+        fn.restype = ctypes.c_int
+    q = ctypes.c_longlong
+    for name in ("dmt_bilstm_layer_f32", "dmt_bilstm_layer_bf16"):
+        fn = getattr(lib, name)
+        # in, s_lane, s_b, s_t, s_f, reverse_bw, batch, in_steps, steps,
+        # in_dim, hidden, w, w_lane, bias, b_lane, forget_bias term,
+        # seq_out, out, fw_step, bw_step, tile_b, stream
+        fn.argtypes = [p, q, q, q, q, i, i, i, i, i, i, p, q, p, q, f, p, p,
+                       i, i, i, p]
+        fn.restype = ctypes.c_int
+    # xp, wh, forget_bias, out, batch, timesteps, hidden, reverse, tile_b,
+    # stream
+    lib.dmt_lstm_layer_f32.argtypes = [p, p, f, p, i, i, i, i, i, p]
+    lib.dmt_lstm_layer_f32.restype = ctypes.c_int
+    for name in ("dmt_probe_f32", "dmt_probe_bf16"):
+        fn = getattr(lib, name)
+        # op, x, out, n, iters, stream
+        fn.argtypes = [i, p, p, i, i, p]
         fn.restype = ctypes.c_int
     lib.dmt_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dmt_cuda_error_string.restype = ctypes.c_char_p

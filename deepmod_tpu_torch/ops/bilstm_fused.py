@@ -1,18 +1,23 @@
-"""Whole-stack BiLSTM center features: the CUDA kernel and its plain version.
+"""BiLSTM center features: the CUDA kernels and their plain versions.
 
-Counterpart of ``deepmod_tpu/ops/bilstm_fused.py::bilstm_fused_center_mono``
-(Pallas ``_mono_kernel``). The kernel itself is
-``deepmod_tpu_torch/csrc/bilstm_fused.cu``; this module holds
+Counterpart of ``deepmod_tpu/ops/bilstm_fused.py::bilstm_fused_center``
+and its two kernels:
 
-- ``bilstm_center_plain``: the same function in plain PyTorch, step by
-  step, with the same readout-cone truncation, time-reversed bw read and
-  bf16 contract. The CPU path and the tests use it; the chip smoke test
-  holds the kernel against it on the card;
-- ``pack_bilstm_params``: the kernel's weight operand (TF ``(in+H, 4H)``
-  kernels of every layer and lane in one flat buffer, i/f/o columns
-  pre-halved in bf16 mode);
-- ``bilstm_center_features``: the public wrapper. A CPU tensor goes to the
-  plain version; a CUDA tensor launches the kernel or raises.
+- K1, ``bilstm_fused_center_mono`` (Pallas ``_mono_kernel``): the whole
+  stack in one launch, odd T <= 25. CUDA: ``csrc/bilstm_fused.cu``;
+  plain version ``bilstm_center_plain``;
+- K4, ``_run_layer`` (Pallas ``_layer_kernel``): one layer, both lanes, a
+  launch, for every other T or when the caller forces it. CUDA:
+  ``csrc/bilstm_layer.cu``; plain versions ``layer_plain`` (one layer)
+  and ``bilstm_layered_plain`` (the layer loop).
+
+This module also holds ``pack_bilstm_params`` (both kernels' weight
+operand: TF ``(in+H, 4H)`` kernels of every layer and lane in one flat
+buffer, i/f/o columns pre-halved in bf16 mode) and the public wrapper
+``bilstm_center_features``, which routes as the JAX package does. A CPU
+tensor goes to the plain version of the chosen kernel; a CUDA tensor
+launches the kernel or raises. The chip smoke test holds each kernel
+against its plain version on the card.
 
 The bf16 contract (one copy, shared by the plain version and the packing):
 bf16 x, weights and stored sequences, fp32 accumulation and fp32 cell
@@ -26,30 +31,57 @@ unscaled fp32 weights.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from ._build import MAX_SMEM, MAX_THREADS
+
 PRECISIONS = ("fp32", "bf16")
 _SEQ_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16}
-# largest T the kernel takes: odd T only, T//2+1 <= 13 steps (the TPU
-# package routes other T through its layered kernel, not ported yet)
+# largest T the mono kernel (K1) takes: odd T only, T//2+1 <= 13 steps.
+# Every other T goes to the layered kernel (K4), as in the TPU package
 MAX_TIMESTEPS = 25
 # default windows per block (a multiple of 8). chip_smoke.py's sweep on
 # an H100 at H=100 measured 24 fastest in fp32 and within 1% of the
 # fastest in bf16 (two blocks of 300 threads fit an SM)
 TILE_B = 24
-MAX_THREADS = 512    # kMaxThreads in the CUDA source
-MAX_SMEM = 232448    # bytes of shared memory a block may use on Hopper
 
-# kernel launches per precision: each wrapper call that launches the
-# CUDA kernel adds one; nothing else touches these
+# kernel launches per precision: each wrapper call that launches K1 adds
+# one to LAUNCHES, each K4 layer launch one to LAYERED_LAUNCHES; nothing
+# else touches these
 LAUNCHES: Dict[str, int] = {"fp32": 0, "bf16": 0}
+LAYERED_LAUNCHES: Dict[str, int] = {"fp32": 0, "bf16": 0}
 
 
 def reset_launch_counts() -> None:
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, LAYERED_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def use_mono(timesteps: int, mono: Optional[bool] = None) -> bool:
+    """The JAX package's route (``bilstm_fused_center``): K1 for odd T <=
+    25 unless ``mono`` is False; K4 otherwise. ``mono=True`` outside K1's
+    range raises."""
+    if mono is None:
+        return timesteps % 2 == 1 and timesteps <= MAX_TIMESTEPS
+    if mono and (timesteps % 2 == 0 or timesteps > MAX_TIMESTEPS):
+        raise ValueError(
+            f"the mono kernel takes odd T <= {MAX_TIMESTEPS}, got "
+            f"{timesteps}; pass mono=None or False for the layered kernel")
+    return bool(mono)
+
+
+def readout(timesteps: int) -> Tuple[int, int, int]:
+    """(steps run per layer, fw readout step, bw readout step): odd T runs
+    the T//2+1 steps of the readout cone and reads both lanes at the last;
+    even T runs all T steps and reads fw at T//2 and bw at T-1-T//2 of the
+    time-reversed lane."""
+    center = timesteps // 2
+    if timesteps % 2 == 1:
+        return center + 1, center, center
+    return timesteps, center, timesteps - 1 - center
 
 
 def seq_dtype(precision: str) -> torch.dtype:
@@ -82,63 +114,116 @@ def layer_weights(layer_params: Dict[str, torch.Tensor], precision: str):
     return w, bias * scale
 
 
+def _itemsize(precision: str) -> int:
+    return torch.finfo(seq_dtype(precision)).bits // 8
+
+
 def _forget_term(forget_bias: float, precision: str) -> float:
     return 0.5 * forget_bias if precision == "bf16" else forget_bias
+
+
+def _run_lane(rows, w: torch.Tensor, b: torch.Tensor, forget_bias: float,
+              precision: str):
+    """One layer of one lane over ``rows`` (a list of (B, in) steps in the
+    storage dtype) under the kernels' contract; returns the list of h rows
+    in the storage dtype."""
+    dt = seq_dtype(precision)
+    prescaled = precision == "bf16"
+    fb = _forget_term(forget_bias, precision)
+    in_dim = rows[0].shape[-1]
+    hidden = w.shape[1] // 4
+    w_x = w[:in_dim].to(torch.float32)
+    w_h = w[in_dim:].to(torch.float32)
+
+    def sig(v):
+        return 0.5 * torch.tanh(v) + 0.5 if prescaled else torch.sigmoid(v)
+
+    h = torch.zeros(rows[0].shape[0], hidden, dtype=torch.float32,
+                    device=rows[0].device)
+    c = torch.zeros_like(h)
+    out = []
+    for row in rows:
+        gates = (row.to(torch.float32) @ w_x
+                 + h.to(dt).to(torch.float32) @ w_h + b)
+        i, j, f, o = gates.split(hidden, dim=1)
+        c = c * sig(f + fb) + sig(i) * torch.tanh(j)
+        h = torch.tanh(c) * sig(o)
+        out.append(h.to(dt))
+    return out
 
 
 def bilstm_center_plain(
     params: Dict[str, Any], x: torch.Tensor, config, precision: str = "fp32"
 ) -> torch.Tensor:
-    """(B, T, F) -> (B, 2H) fp32 center features in plain PyTorch.
+    """K1's function: (B, T, F) -> (B, 2H) fp32 center features in plain
+    PyTorch, each lane through its whole stack in turn.
 
     Odd T runs every layer of each lane over steps 0..T//2 only (the
     readout cone) and reads the last step; even T runs all T steps and
     reads fw at T//2 and bw at T-1-T//2, as the JAX scan path does."""
-    dt = seq_dtype(precision)
-    prescaled = precision == "bf16"
+    x = x.to(seq_dtype(precision))
     timesteps = config.timesteps
-    hidden = config.num_hidden
-    fb = _forget_term(config.forget_bias, precision)
-    x = x.to(dt)
-    odd = timesteps % 2 == 1
-    steps = timesteps // 2 + 1 if odd else timesteps
-    center = timesteps // 2
-
-    def sig(v):
-        return 0.5 * torch.tanh(v) + 0.5 if prescaled else torch.sigmoid(v)
-
+    steps, fw_step, bw_step = readout(timesteps)
     feats = []
-    for lane in ("fw", "bw"):
-        seq = [
-            x[:, t] if lane == "fw" else x[:, timesteps - 1 - t]
-            for t in range(steps)
-        ]
+    for lane, step in (("fw", fw_step), ("bw", bw_step)):
+        seq = [x[:, t] if lane == "fw" else x[:, timesteps - 1 - t]
+               for t in range(steps)]
         for layer in range(config.num_layers):
             w, b = layer_weights(params[lane][layer], precision)
-            in_dim = seq[0].shape[-1]
-            w_x = w[:in_dim].to(torch.float32)
-            w_h = w[in_dim:].to(torch.float32)
-            h = torch.zeros(x.shape[0], hidden, dtype=torch.float32,
-                            device=x.device)
-            c = torch.zeros_like(h)
-            out = []
-            for t in range(steps):
-                gates = (
-                    seq[t].to(torch.float32) @ w_x
-                    + h.to(dt).to(torch.float32) @ w_h
-                    + b
-                )
-                i, j, f, o = gates.split(hidden, dim=1)
-                c = c * sig(f + fb) + sig(i) * torch.tanh(j)
-                h = torch.tanh(c) * sig(o)
-                out.append(h.to(dt))
-            seq = out
-        if odd:
-            feats.append(seq[-1])
-        else:
-            feats.append(seq[center] if lane == "fw"
-                         else seq[timesteps - 1 - center])
+            seq = _run_lane(seq, w, b, config.forget_bias, precision)
+        feats.append(seq[step])
     return torch.cat(feats, dim=1).to(torch.float32)
+
+
+def layer_plain(
+    in_fw: torch.Tensor, in_bw: torch.Tensor, weights, out_steps: int,
+    forget_bias: float, reverse_bw_read: bool, final: bool,
+    precision: str = "fp32",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's function for one layer and both lanes, in plain PyTorch (JAX
+    ``_run_layer`` / ``_layer_kernel``).
+
+    ``in_fw``, ``in_bw``: time-major (T_in, B, in) in the storage dtype;
+    ``weights``: (w_fw, b_fw, w_bw, b_bw) as ``layer_weights`` gives them.
+    Each lane runs ``out_steps`` steps; the bw lane reads step T_in-1-t
+    when ``reverse_bw_read``. Returns the (out_steps, B, H) sequences in
+    the storage dtype, or with ``final`` only their last row, (1, B, H)."""
+    w_fw, b_fw, w_bw, b_bw = weights
+    in_steps = in_bw.shape[0]
+    outs = []
+    for seq, w, b, rev in ((in_fw, w_fw, b_fw, False),
+                           (in_bw, w_bw, b_bw, reverse_bw_read)):
+        rows = [seq[in_steps - 1 - t] if rev else seq[t]
+                for t in range(out_steps)]
+        h = _run_lane(rows, w, b, forget_bias, precision)
+        outs.append(torch.stack(h[-1:] if final else h))
+    return outs[0], outs[1]
+
+
+def bilstm_layered_plain(
+    params: Dict[str, Any], x: torch.Tensor, config, precision: str = "fp32"
+) -> torch.Tensor:
+    """(B, T, F) -> (B, 2H) fp32 center features through the layer loop
+    of ``layer_plain`` (JAX ``bilstm_fused_center`` with ``mono=False``):
+    the bw lane keeps its time-reversed layout through the stack; odd T
+    runs T//2+1 steps a layer and the last layer keeps only its center
+    row; even T runs all T steps and reads fw at T//2, bw at T-1-T//2."""
+    timesteps = config.timesteps
+    steps, fw_step, bw_step = readout(timesteps)
+    odd = timesteps % 2 == 1
+    xt = x.to(seq_dtype(precision)).transpose(0, 1)  # (T, B, F) view
+    in_fw, in_bw = xt, xt
+    for layer in range(config.num_layers):
+        weights = (*layer_weights(params["fw"][layer], precision),
+                   *layer_weights(params["bw"][layer], precision))
+        final = odd and layer == config.num_layers - 1
+        in_fw, in_bw = layer_plain(in_fw, in_bw, weights, steps,
+                                   config.forget_bias, layer == 0, final,
+                                   precision)
+    if odd:
+        fw_step = bw_step = 0  # the last layer kept only the center row
+    return torch.cat([in_fw[fw_step], in_bw[bw_step]], dim=1).to(
+        torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,20 +254,12 @@ def pack_bilstm_params(params: Dict[str, Any], config,
     return PackedBiLSTM(w=w, bias=bias, precision=precision, params=params)
 
 
-def _launch_cuda(packed: PackedBiLSTM, x: torch.Tensor, config,
-                 tile_b: int = TILE_B) -> torch.Tensor:
-    from . import _build
-
-    precision = packed.precision
-    dt = seq_dtype(precision)
+def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
+                  tile_b: int, smem: int) -> torch.Tensor:
+    """Check what both kernels take; returns x in the storage dtype."""
+    dt = seq_dtype(packed.precision)
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
-    if timesteps % 2 == 0 or timesteps > MAX_TIMESTEPS:
-        raise NotImplementedError(
-            f"windowsize {timesteps}: the CUDA kernel takes odd T <= "
-            f"{MAX_TIMESTEPS}; the layered kernel for other T (TPU kernel "
-            "K4) is a ROADMAP item of the port"
-        )
     if x.dim() != 3 or x.shape[1] != timesteps or x.shape[2] != in_dim:
         raise ValueError(
             f"x must be (B, {timesteps}, {in_dim}), got {tuple(x.shape)}"
@@ -198,21 +275,40 @@ def _launch_cuda(packed: PackedBiLSTM, x: torch.Tensor, config,
                 f"packed {name} must be a contiguous {want} tensor on "
                 f"{x.device}"
             )
-    expected = 2 * ((in_dim + hidden) * 4 * hidden
-                    + (layers - 1) * 2 * hidden * 4 * hidden)
-    if packed.w.numel() != expected or packed.bias.numel() != 2 * layers * 4 * hidden:
+    if (packed.w.numel() != 2 * _lane_weights(config)
+            or packed.bias.numel() != 2 * layers * 4 * hidden):
         raise ValueError("packed weights do not match the model config")
     if tile_b <= 0 or tile_b % 8:
         raise ValueError(f"tile_b must be a positive multiple of 8: {tile_b}")
     threads = hidden * tile_b // 8
-    steps = timesteps // 2 + 1
-    smem = steps * (hidden + in_dim) * tile_b * x.element_size()
     if threads > MAX_THREADS or smem > MAX_SMEM:
         raise ValueError(
             f"hidden={hidden}, fnum={in_dim}, T={timesteps} need {threads} "
             f"threads and {smem} B of shared memory per block; the kernel "
             f"takes at most {MAX_THREADS} and {MAX_SMEM}"
         )
+    return x
+
+
+def _lane_weights(config) -> int:
+    """Elements of one lane's kernels, all layers, in the packed buffer."""
+    h = config.num_hidden
+    return ((config.num_input + h) * 4 * h
+            + (config.num_layers - 1) * 2 * h * 4 * h)
+
+
+def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
+                 tile_b: int = TILE_B) -> torch.Tensor:
+    """K1: the whole stack in one launch (odd T <= 25)."""
+    from . import _build
+
+    precision = packed.precision
+    timesteps, hidden = config.timesteps, config.num_hidden
+    in_dim, layers = config.num_input, config.num_layers
+    steps = timesteps // 2 + 1
+    x = _check_inputs(packed, x, config, tile_b,
+                      steps * (hidden + in_dim) * tile_b
+                      * _itemsize(precision))
     batch = x.shape[0]
     out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
                       device=x.device)
@@ -235,22 +331,79 @@ def _launch_cuda(packed: PackedBiLSTM, x: torch.Tensor, config,
     return out
 
 
+def _launch_layered(packed: PackedBiLSTM, x: torch.Tensor, config,
+                    tile_b: int = TILE_B) -> torch.Tensor:
+    """K4: one launch a layer, both lanes. Layer 0 reads the windows
+    through their strides; each later layer reads the (2, steps, B, H)
+    sequences of the one before; the last writes the (B, 2H) features."""
+    from . import _build
+
+    precision = packed.precision
+    timesteps, hidden = config.timesteps, config.num_hidden
+    in_dim, layers = config.num_input, config.num_layers
+    dt = seq_dtype(precision)
+    x = _check_inputs(packed, x, config, tile_b,
+                      (hidden + max(in_dim, hidden)) * tile_b
+                      * _itemsize(precision))
+    steps, fw_step, bw_step = readout(timesteps)
+    batch = x.shape[0]
+    out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
+                      device=x.device)
+    if batch == 0:
+        return out
+    lib = _build.library()
+    fn = (lib.dmt_bilstm_layer_bf16 if precision == "bf16"
+          else lib.dmt_bilstm_layer_f32)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    w_lane, b_lane = _lane_weights(config), layers * 4 * hidden
+    w_size = packed.w.element_size()
+    src, strides, in_steps = x, (0, *x.stride()), timesteps
+    w_off = 0
+    with torch.cuda.device(x.device):
+        for layer in range(layers):
+            lin = in_dim if layer == 0 else hidden
+            final = layer == layers - 1
+            seq = None if final else torch.empty(
+                2, steps, batch, hidden, dtype=dt, device=x.device)
+            status = fn(
+                src.data_ptr(), *strides, int(layer == 0), batch, in_steps,
+                steps, lin, hidden, packed.w.data_ptr() + w_off * w_size,
+                w_lane, packed.bias[0, layer].data_ptr(), b_lane,
+                _forget_term(config.forget_bias, precision),
+                None if final else seq.data_ptr(),
+                out.data_ptr() if final else None, fw_step, bw_step,
+                tile_b, stream,
+            )
+            _build.check(status, f"bilstm layer kernel launch (layer {layer})")
+            LAYERED_LAUNCHES[precision] += 1
+            w_off += (lin + hidden) * 4 * hidden
+            if not final:
+                # (lane, step, window, unit): the bw lane stays reversed
+                src, in_steps = seq, steps
+                strides = (steps * batch * hidden, hidden, batch * hidden, 1)
+    return out
+
+
 def bilstm_center_features(
     params: Union[Dict[str, Any], PackedBiLSTM],
     x: torch.Tensor,
     config,
     precision: str = "fp32",
     tile_b: int = TILE_B,
+    mono: Optional[bool] = None,
 ) -> torch.Tensor:
     """(B, T, F) windows -> (B, 2H) fp32 center [fw; bw] features.
 
     ``x`` may be any (B, T, F) view with non-negative strides — e.g. the
     overlapping window view of a (rows, F) feature block
-    (``as_strided((rows-T+1, T, F), (F, F, 1))``), which the kernel reads
-    in place. On the CPU this is the plain version; on a CUDA tensor it
-    launches the kernel (odd T <= 25) or raises. ``params`` may be
-    pre-packed (``pack_bilstm_params``) to skip the per-call packing.
-    ``tile_b`` is the kernel's windows per block (a multiple of 8)."""
+    (``as_strided((rows-T+1, T, F), (F, F, 1))``), which the kernels read
+    in place. ``mono`` routes as in the JAX package (``use_mono``): None
+    takes K1 for odd T <= 25 and K4 otherwise, False forces K4. On the
+    CPU this is the chosen kernel's plain version; on a CUDA tensor it
+    launches the kernel or raises. ``params`` may be pre-packed
+    (``pack_bilstm_params``) to skip the per-call packing. ``tile_b`` is
+    the kernel's windows per block (a multiple of 8)."""
+    mono = use_mono(config.timesteps, mono)
     if isinstance(params, PackedBiLSTM):
         if params.precision != precision:
             raise ValueError(
@@ -260,9 +413,11 @@ def bilstm_center_features(
     else:
         packed, raw = None, params
     if x.device.type == "cpu":
-        return bilstm_center_plain(raw, x, config, precision)
+        plain = bilstm_center_plain if mono else bilstm_layered_plain
+        return plain(raw, x, config, precision)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if packed is None:
         packed = pack_bilstm_params(raw, config, precision)
-    return _launch_cuda(packed, x, config, tile_b)
+    launch = _launch_mono if mono else _launch_layered
+    return launch(packed, x, config, tile_b)

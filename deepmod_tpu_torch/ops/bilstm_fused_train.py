@@ -42,14 +42,15 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import torch
 
+from ._build import MAX_SMEM, MAX_THREADS
+from .bilstm_fused import readout
+
 PRECISIONS = ("fp32", "bf16")
 _STORAGE = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # windows per block for both kernels; a thread owns one hidden unit for
 # KR of them (kR in the CUDA source): hidden * TILE_B / KR threads a block
 TILE_B = 16
 KR = 4
-MAX_THREADS = 512       # kMaxThreads in the CUDA source
-MAX_SMEM = 232448       # bytes of shared memory a block may use on Hopper
 # K3's weight-gradient product sums up to DW_SPLITS contiguous ranges of
 # the steps*B rows (at least DW_SPLIT_ROWS rows each) in separate blocks,
 # then adds the ranges in order: more blocks in flight, the same bits on
@@ -84,14 +85,6 @@ def _precision_of(dtype: torch.dtype) -> str:
         if dt == dtype:
             return name
     raise ValueError(f"sequences must be float32 or bfloat16, got {dtype}")
-
-
-def readout(timesteps: int) -> Tuple[int, int, int]:
-    """(steps run per layer, fw readout step, bw readout step)."""
-    center = timesteps // 2
-    if timesteps % 2 == 1:
-        return center + 1, center, center
-    return timesteps, center, timesteps - 1 - center
 
 
 def sigmoid(v: torch.Tensor) -> torch.Tensor:

@@ -173,8 +173,9 @@ def roc_auc(truth: np.ndarray, scores: np.ndarray) -> float:
 def batch_metrics(params, model_config, x, y) -> Dict[str, float]:
     """loss/acc/AUC/precision/recall on one batch (the reference's
     periodic sess.run of its metric ops, myMultiBiRNN.py:176-184), through
-    the inference path (K1 fp32 on the card). AUC is 0.0 when the batch
-    holds one class only, as in the JAX package."""
+    the inference path (K1 or K4 in fp32 on the card, by window size).
+    AUC is 0.0 when the batch holds one class only, as in the JAX
+    package."""
     device = params["out_w"].device
     with torch.no_grad():
         logits = bilstm_logits(params, torch.from_numpy(
@@ -307,8 +308,8 @@ def predict_feature_files(
     device: str = "cuda",
 ) -> Dict[str, Tuple[int, int, int, int]]:
     """Standalone prediction over feature files with tp/fp/fn/tn per file
-    (mPred, myMultiBiRNN.py:382-420), through the inference path (K1 fp32
-    on the card)."""
+    (mPred, myMultiBiRNN.py:382-420), through the inference path (K1 or
+    K4 in fp32 on the card, by window size)."""
     params = params_from_numpy(params, device)
     dev = params["out_w"].device
     results: Dict[str, Tuple[int, int, int, int]] = {}

@@ -85,6 +85,31 @@ def runs(tmp_path_factory):
     return root, common, res
 
 
+@pytest.fixture(scope="module")
+def runs_w20(runs):
+    """The same dataset and model through both packages at windowsize 20:
+    even T, the port's layered path (K4's plain version on the CPU)
+    against the JAX scan path."""
+    root, common, _ = runs
+    res = {
+        "jax_w20": _run_into(root, "jax_w20", jax_detect_run,
+                             JaxDetectConfig(**common, window_size=20)),
+        "torch_w20": _run_into(root, "torch_w20", detect_run, DetectConfig(
+            **common, window_size=20, device="cpu", precision="fp32")),
+    }
+    return root, res
+
+
+def test_windowsize20_outputs_byte_identical(runs_w20):
+    root, res = runs_w20
+    ra, rb = res["jax_w20"], res["torch_w20"]
+    assert rb.num_reads == ra.num_reads == 6
+    assert rb.num_windows == ra.num_windows > 0
+    assert rb.errors == ra.errors
+    _assert_same_bytes(root, "jax_w20", "torch_w20", "mod_pos.*.bed")
+    _assert_same_bytes(root, "jax_w20", "torch_w20", "mod/rnn.pred.ind.*")
+
+
 def test_counts_and_errors_equal(runs):
     _, _, res = runs
     for a, b in (("jax", "torch"), ("jax_t", "torch_t")):

@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1; K2 and K3) against their plain versions, on the
-card.
+"""The CUDA kernels (K1; K2 and K3; K4; K6; P1) against their plain
+versions, on the card.
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -83,12 +83,85 @@ def test_kernel_tiles_agree(cuda, tile_b):
     assert torch.equal(a, b)
 
 
-def test_kernel_rejects_unported_windows(cuda):
-    cfg = BiLSTMConfig(num_input=7, timesteps=20)
-    params = init_bilstm_params(5, cfg, device=cuda)
-    x = torch.zeros(4, 20, 7, device=cuda)
-    with pytest.raises(NotImplementedError, match="K4"):
-        ops.bilstm_center_features(params, x, cfg, "fp32")
+# ---------------------------------------------------------------- K4
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("timesteps,layers,hidden,batch", [
+    (20, 3, 100, 1000),   # even T: all steps, readout at 10 and 9
+    (31, 3, 100, 333),    # odd T past K1's range: the 16-step cone
+    (64, 2, 16, 77),      # a long runtime step loop
+])
+def test_layered_kernel_matches_plain(cuda, precision, timesteps, layers,
+                                      hidden, batch):
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=timesteps,
+                       num_layers=layers)
+    params = init_bilstm_params(timesteps, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(batch).standard_normal(
+        (batch, timesteps, 7), dtype=np.float32)).to(cuda)
+    x = x.to(ops.seq_dtype(precision))
+    before, k1 = ops.LAYERED_LAUNCHES[precision], dict(ops.LAUNCHES)
+    got = ops.bilstm_center_features(params, x, cfg, precision)
+    torch.cuda.synchronize()
+    assert ops.LAYERED_LAUNCHES[precision] == before + layers
+    assert ops.LAUNCHES == k1
+    want = ops.bilstm_layered_plain(params, x, cfg, precision)
+    torch.testing.assert_close(got, want, **TOL[precision])
+    # the detect path's overlapping window view, read in place
+    rows = x[:, 0].contiguous()
+    view = rows.as_strided((batch - timesteps + 1, timesteps, 7), (7, 7, 1))
+    a = ops.bilstm_center_features(params, view, cfg, precision)
+    b = ops.bilstm_center_features(params, view.contiguous(), cfg, precision)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_layered_kernel_forced_at_t21_matches_k1(cuda, precision):
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(6, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (500, 21, 7), dtype=np.float32)).to(cuda).to(ops.seq_dtype(precision))
+    k4 = ops.bilstm_center_features(params, x, cfg, precision, mono=False)
+    k1 = ops.bilstm_center_features(params, x, cfg, precision)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(k4, k1, **TOL[precision])
+
+
+# ---------------------------------------------------------------- K6, P1
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lstm_layer_kernel_matches_plain(cuda, reverse):
+    from deepmod_tpu_torch.ops import lstm_layer as k6
+
+    cfg = BiLSTMConfig(num_input=7)
+    lp = init_bilstm_params(7, cfg, device=cuda)["fw"][0]
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (1001, 21, 7), dtype=np.float32)).to(cuda)
+    xp = k6.project(lp["kernel"], lp["bias"], x)
+    w_h = lp["kernel"][7:].contiguous()
+    before = k6.LAUNCHES["fp32"]
+    got = k6.lstm_recurrence(xp, w_h, 1.0, reverse)
+    torch.cuda.synchronize()
+    assert k6.LAUNCHES["fp32"] == before + 1
+    want = k6.lstm_recurrence_plain(xp, w_h, 1.0, reverse)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("op", ["tanh", "pade", "mul"])
+def test_probe_kernel_matches_plain(cuda, op, precision):
+    """fp32 rtol 1e-5; bf16 within one bf16 ulp of the value."""
+    from deepmod_tpu_torch.tools import probe_transcendental as p1
+
+    x = p1.probe_input(precision, cuda)
+    got = p1.probe(x, op, 256).float()
+    torch.cuda.synchronize()
+    want = p1.probe_plain(x, op, 256).float()
+    if precision == "fp32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs())) - 7)
+        assert bool(((got - want).abs() <= ulp).all())
 
 
 # ---------------------------------------------------------------- K2 / K3

@@ -92,6 +92,27 @@ def test_compact_transfer_equals_window_transfer(params, precision):
     )
 
 
+@pytest.mark.parametrize("window", [20, 64])
+def test_compact_transfer_at_layered_window_sizes(window):
+    """Window sizes the layered path serves (even, and past the 32-step
+    unroll): the row-chunk arithmetic (chunk - T + 1 windows, centers at
+    T//2 of each) gives the predictions of materialized windows."""
+    cfg = tb.BiLSTMConfig(num_input=7, num_hidden=16, timesteps=window,
+                          num_layers=2)
+    p = params_to_numpy(tb.init_bilstm_params(window, cfg, device="cpu"))
+    kw = dict(buckets=(64, 256), device="cpu", precision="fp32")
+    ref = WindowPredictor(p, cfg, compact_transfer=False, **kw)
+    cmp = WindowPredictor(p, cfg, compact_transfer=True, **kw)
+    rng = np.random.default_rng(window)
+    feats = _engine_features(rng, 400)
+    half = window // 2
+    centers = np.arange(half, 400 - half, dtype=np.int64)
+    got = cmp.predict_from_features(feats, centers, window)
+    assert cmp.compact_modes == {"onehot"}
+    np.testing.assert_array_equal(
+        got, ref.predict_from_features(feats, centers, window))
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 def test_packed_compact_equals_unpacked(params, precision):
     rng = np.random.default_rng(11)
