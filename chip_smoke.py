@@ -55,7 +55,18 @@ without printing the result line):
    phase 7's BED and window-level checks;
 13. train at --windowsize 20 on the card over phase 8's features (K2/K3
    a step, evaluation through K4), then predfeatures and detect with the
-   trained model through K4.
+   trained model through K4;
+14. K1's three other schedules through ``bilstm_center_mono``'s flags:
+   K5a (merged [x; h] product), K5b (pre-projected gates, fp32 and bf16
+   gate store) and K5c (layer wavefront) against their plain versions at
+   full width on phase 3's inputs (65,536 random windows and the window
+   view of a 262,144-row chunk) in fp32 and bf16 (fp32 max abs 2e-5, bf16
+   atol 2e-3 + rtol 2e-2; a bf16 gate store at the bf16 tolerance in both
+   precisions), each against K1 on the same input; kernel and plain times
+   at 262,144 windows with a tile sweep, beside K1's bound and cuDNN time;
+   K5c's main path on the window view, and the probe tools (probe_mono,
+   probe_merged_gemm: K5a's main path, probe_pregemm: K5b's) at 32,768
+   windows with the launch counts read around each.
 
 Prints the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Every entry of the kernels line has
@@ -593,6 +604,136 @@ def phase_probe(device, lib_path: str) -> dict:
             bound_by="operations" if b_ops >= b_bytes else "bytes")
     for precision in ("fp32", "bf16"):
         results[precision]["launches"] = launches[precision]
+    return results
+
+
+# K5a-c through bilstm_center_mono's flags: (label, flags)
+SCHEDULE_CASES = (
+    ("merged", dict(merged_gemm=True)),
+    ("pregemm", dict(pregemm=True)),
+    ("pregemm bf16 gates", dict(pregemm=True, gate_store="bf16")),
+    ("wavefront", dict(wavefront=True)),
+)
+SCHEDULE_TILES = (8, 16, 24)
+PROBE_B = 32768  # --batch of the probe tools' runs
+
+
+def phase_schedules(device, k1: dict) -> dict:
+    """K5a, K5b (fp32 and bf16 gates) and K5c against their plain versions
+    at full width on CHECK_B random windows and on the window view of a
+    TIME_B-row chunk (phase 3's inputs), each against K1 on the same input;
+    kernel and plain times at TIME_B windows with a tile sweep, beside K1's
+    bound and cuDNN time (the same function); the main paths: K5c through
+    bilstm_center_mono(wavefront=True) on the window view, K5a and K5b
+    through their probe tools' main at PROBE_B windows."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.tools import probe_merged_gemm, probe_mono, probe_pregemm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = BiLSTMConfig()
+    params = init_bilstm_params(SEED, cfg, device=device)
+    x_all = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        (TIME_B, cfg.timesteps, cfg.num_input), dtype=np.float32)).to(device)
+    results = {}
+    for precision in ("fp32", "bf16"):
+        dt = ops.seq_dtype(precision)
+        packed = ops.pack_bilstm_params(params, cfg, precision)
+        rows = x_all[:, 0].to(dt).contiguous()
+        inputs = {
+            "random": x_all[:CHECK_B].to(dt).contiguous(),
+            "view": rows.as_strided(
+                (TIME_B - cfg.timesteps + 1, cfg.timesteps, cfg.num_input),
+                (cfg.num_input, cfg.num_input, 1)),
+        }
+        k1_out = {k: ops.bilstm_center_features(packed, v, cfg, precision)
+                  for k, v in inputs.items()}
+        wants = {}
+        res = results[precision] = {}
+        for label, flags in SCHEDULE_CASES:
+            gates = flags.get("gate_store", "fp32")
+            tol = "bf16" if gates == "bf16" else precision
+            err = vs_k1 = 0.0
+            for which, inp in inputs.items():
+                got = ops.bilstm_center_mono(packed, inp, cfg, precision, **flags)
+                torch.cuda.synchronize()
+                if (which, gates) not in wants:
+                    wants[which, gates] = ops.bilstm_center_plain(
+                        params, inp, cfg, precision, gate_store=gates)
+                want = wants[which, gates]
+                assert torch.isfinite(got).all(), f"{label} {precision}"
+                e = float((got - want).abs().max())
+                assert _close(got, want, tol), (
+                    f"{label} {precision} {which} vs plain: max abs {e}")
+                err = max(err, e)
+                vs_k1 = max(vs_k1, float((got - k1_out[which]).abs().max()))
+                del got
+            res[label] = dict(max_abs_err=err, vs_k1=vs_k1)
+            log(f"[K5 {precision}] {label}: max_abs_err vs plain {err:.3e} "
+                f"({tol} tolerance) on {CHECK_B} random windows and the "
+                f"window view of {TIME_B} rows; max abs vs K1 {vs_k1:.3e}")
+        del wants, k1_out
+
+        # the main path of K5c: its public entry point on the detect shape
+        ops.reset_launch_counts()
+        wave = ops.bilstm_center_mono(packed, inputs["view"], cfg, precision,
+                                      wavefront=True)
+        pred = torch.argmax(wave @ params["out_w"] + params["out_b"], dim=1)
+        torch.cuda.synchronize()
+        res["wavefront"]["launches"] = ops.MONO_SCHEDULE_LAUNCHES["wavefront"][precision]
+        assert res["wavefront"]["launches"] == 1, ops.MONO_SCHEDULE_LAUNCHES
+        assert pred.shape == (TIME_B - cfg.timesteps + 1,)
+        del inputs, rows, wave, pred
+
+        xt = x_all.to(dt).contiguous()
+        plain = {g: time_ms(lambda: ops.bilstm_center_plain(
+            params, xt, cfg, precision, gate_store=g), reps=3)
+            for g in ("fp32", "bf16")}
+        w_bytes = packed.w.numel() * packed.w.element_size() + packed.bias.numel() * 4
+        b_ms, b_by = bound_ms(cfg, TIME_B, precision, w_bytes)
+        for label, flags in SCHEDULE_CASES:
+            schedule = ops.mono_schedule(cfg, **flags)
+            ms = time_ms(lambda: ops.bilstm_center_mono(
+                packed, xt, cfg, precision, **flags))
+            tiles = {}
+            for tile in SCHEDULE_TILES:
+                threads, most, smem = ops.mono_block(cfg, schedule, tile, precision)
+                if threads <= most and smem <= ops.MAX_SMEM:
+                    tiles[tile] = round(time_ms(lambda: ops.bilstm_center_mono(
+                        packed, xt, cfg, precision, tile_b=tile, **flags)), 3)
+            plain_ms = plain[flags.get("gate_store", "fp32")]
+            res[label].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, library_ms=k1[precision]["library_ms"])
+            log(f"[K5 {precision}] {label} B={TIME_B} kernel {ms:.3f} ms at "
+                f"tile {ops.SCHEDULE_TILE_B[schedule]}, sweep (ms) {tiles}; plain "
+                f"{plain_ms:.3f} ms; K1 {k1[precision]['ms']:.3f} ms; bound "
+                f"{b_ms:.3f} ms ({b_by}) and cudnn "
+                f"{k1[precision]['library_ms']:.3f} ms are K1's (same function, "
+                f"cudnn from phase 3); "
+                f"{flops_per_window(cfg) * TIME_B / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        del xt
+        torch.cuda.empty_cache()
+
+    # the main paths of K5a and K5b: their probe tools, counts from 0 just
+    # before each, read just after
+    for tool, schedule in ((probe_merged_gemm, "merged"),
+                           (probe_pregemm, "pregemm"), (probe_mono, None)):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        assert tool.main(["--batch", str(PROBE_B)]) == 0
+        torch.cuda.synchronize()
+        counts = dict(ops.MONO_SCHEDULE_LAUNCHES[schedule]) if schedule else {
+            "K1": dict(ops.LAUNCHES), "K4": dict(ops.LAYERED_LAUNCHES)}
+        log(f"[K5] {tool.__name__.rsplit('.', 1)[1]} --batch {PROBE_B}: "
+            f"{time.perf_counter() - t0:.2f} s, launches {counts}")
+        if schedule is None:
+            assert all(counts["K1"].values()) and all(counts["K4"].values()), counts
+            continue
+        assert all(counts.values()), counts
+        for label, flags in SCHEDULE_CASES:
+            if ops.mono_schedule(cfg, **flags) == schedule:
+                for precision in ("fp32", "bf16"):
+                    results[precision][label]["launches"] = counts[precision]
     return results
 
 
@@ -1197,6 +1338,9 @@ def main() -> int:
     layered = phase_layered(device)
     k6 = phase_lstm_layer(device)
     probe = phase_probe(device, lib_path)
+    t_k5 = time.perf_counter()
+    sched = phase_schedules(device, kern)
+    log(f"[K5] phase: {time.perf_counter() - t_k5:.2f} s")
     with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as workdir:
         det = phase_detect(device, workdir)
         det_k4 = phase_detect_layered(device, workdir)
@@ -1243,10 +1387,23 @@ def main() -> int:
             f"p1_probe_{precision}", "probe_transcendental.cu",
             "scripts/probe_transcendental.py:50",
             probe[precision]["launches"], probe[precision]))
+    for precision in ("fp32", "bf16"):
+        k5 = sched[precision]
+        # K5b's error covers both gate stores; its times are fp32 gates'
+        k5b = dict(k5["pregemm"], max_abs_err=max(
+            k5["pregemm"]["max_abs_err"],
+            k5["pregemm bf16 gates"]["max_abs_err"]))
+        for kid, schedule, src_line, k in (
+                ("k5a", "merged", 317, k5["merged"]),
+                ("k5b", "pregemm", 392, k5b),
+                ("k5c", "wavefront", 480, k5["wavefront"])):
+            kernels.append(entry(
+                f"{kid}_{schedule}_{precision}", f"bilstm_mono_{schedule}.cu",
+                f"deepmod_tpu/ops/bilstm_fused.py:{src_line}", k["launches"],
+                k))
     line = json.dumps({"kernels": kernels}, separators=(",", ":"))
-    # eleven entries with all eleven keys: the keys alone take 1,837
-    # characters, keys and values about 3,000
-    assert len(line) < 4000, len(line)
+    # seventeen entries with all eleven keys: 4,663 characters on an H100
+    assert len(line) < 5500, len(line)
     log(line)
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ nothing of it. Host layers (io, align, features, aggregate, engine host
 stages, testing) are its own copies of the JAX package's numpy code; the
 BiLSTM classifier runs on ``torch`` with kernels hand-written in CUDA for
 Hopper (``csrc/bilstm_fused.cu`` and ``csrc/bilstm_layer.cu`` for
-inference, ``csrc/bilstm_train.cu`` for training, ``csrc/lstm_layer.cu``
+inference, ``csrc/bilstm_mono_*.cu`` for the mono kernel's other
+schedules, ``csrc/bilstm_train.cu`` for training, ``csrc/lstm_layer.cu``
 for one-direction layers, ``csrc/probe_transcendental.cu`` for the rate
 probe), built with nvcc at first use.
 
@@ -16,7 +17,7 @@ used only when asked for (``device="cpu"``, ``--device cpu``).
     deepmod_tpu_torch.ops     - the CUDA kernel wrappers and their plain versions
     deepmod_tpu_torch.engine  - the detect and getfeatures pipelines
     deepmod_tpu_torch.train   - feature-file loading and the trainer
-    deepmod_tpu_torch.tools   - the transcendental-rate probe
+    deepmod_tpu_torch.tools   - the transcendental-rate and mono-schedule probes
     deepmod_tpu_torch.io, align, features, aggregate, utils, testing
 """
 

@@ -1,6 +1,7 @@
 // Helpers shared by the inference LSTM kernels (bilstm_fused.cu: K1,
-// bilstm_layer.cu: K4, lstm_layer.cu: K6); probe_transcendental.cu (P1)
-// uses the storage-type conversions.
+// bilstm_mono_merged.cu, bilstm_mono_pregemm.cu, bilstm_mono_wavefront.cu:
+// K5a-c, bilstm_layer.cu: K4, lstm_layer.cu: K6); probe_transcendental.cu
+// (P1) uses the storage-type conversions.
 //
 // Their thread layout is the same: thread (u, g) of a block owns hidden
 // unit u for the kR windows g*kR .. g*kR+kR-1, and shared memory holds a
@@ -17,7 +18,8 @@ namespace dmt {
 
 constexpr int kR = 8;  // windows per thread
 // at most 128 registers a thread: the 32 gate accumulators, 8 cell states
-// and the unrolled loads fit without spilling
+// and the unrolled loads fit without spilling (K5c, one thread group a
+// layer, has its own bound)
 constexpr int kMaxThreads = 512;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -103,6 +105,45 @@ __device__ __forceinline__ void zero(float (&acc)[4][kR]) {
   for (int g = 0; g < 4; ++g)
 #pragma unroll
     for (int r = 0; r < kR; ++r) acc[g][r] = 0.0f;
+}
+
+// the mono kernels (K1, K5a-c): stage a lane's layer-0 inputs for the
+// block's tile_b windows from b0 on into xs[step][feature][window], reading
+// x through the caller's strides (the bw lane, lane 1, reads step T-1-t);
+// windows past the batch read zeros and are never written out
+template <typename T>
+__device__ __forceinline__ void stage_inputs(
+    const T* __restrict__ x, long long stride_b, long long stride_t,
+    long long stride_f, long long b0, int batch, int timesteps, int steps,
+    int in_dim, int tile_b, int lane, T* __restrict__ xs) {
+  const int n_stage = steps * in_dim * tile_b;
+  for (int i = threadIdx.x; i < n_stage; i += blockDim.x) {
+    const int wi = i % tile_b;
+    const int f = (i / tile_b) % in_dim;
+    const int t = i / (tile_b * in_dim);
+    const long long b = b0 + wi;
+    const int tt = lane == 0 ? t : timesteps - 1 - t;
+    T v = from_f<T>(0.0f);
+    if (b < batch) v = x[b * stride_b + tt * stride_t + f * stride_f];
+    xs[i] = v;
+  }
+}
+
+// the mono kernels: the center row of windows b0 .. b0+kR-1 of unit u into
+// out (B, 2H) at the lane's half, rounded through the storage type as the
+// TPU kernel's output block is; windows past the batch are not written
+template <typename T>
+__device__ __forceinline__ void store_center(float* __restrict__ out,
+                                             const float (&h)[kR],
+                                             long long b0, int batch,
+                                             int hidden, int lane, int u) {
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const long long b = b0 + r;
+    if (b < batch) {
+      out[b * 2 * hidden + lane * hidden + u] = to_f(from_f<T>(h[r]));
+    }
+  }
 }
 
 // the TF1 BasicLSTMCell tail on fp32 gate pre-activations (bias added):

@@ -1,8 +1,10 @@
 """Build the port's CUDA kernels into one shared library, bound with ctypes.
 
 Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
-K2, K3; ``bilstm_layer.cu``: K4; ``lstm_layer.cu``: K6;
-``probe_transcendental.cu``: P1) is compiled by its own ``nvcc`` process
+K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
+``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
+``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1) is compiled by its
+own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -37,6 +39,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # of shared memory a block may use on Hopper
 MAX_THREADS = 512
 MAX_SMEM = 232448
+# the wavefront kernel (K5c) runs one thread group a layer and is bounded
+# at this many threads instead (kWaveMaxThreads in bilstm_mono_wavefront.cu)
+WAVEFRONT_MAX_THREADS = 600
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -114,11 +119,20 @@ def build() -> str:
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("dmt_bilstm_center_f32", "dmt_bilstm_center_bf16"):
+    q = ctypes.c_longlong
+    for kernel in ("center", "merged", "wavefront"):  # K1, K5a, K5c
+        for suffix in ("f32", "bf16"):
+            fn = getattr(lib, f"dmt_bilstm_{kernel}_{suffix}")
+            # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
+            # hidden, num_layers, w, bias, forget_bias term, out, tile_b,
+            # stream
+            fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p]
+            fn.restype = ctypes.c_int
+    for name in ("dmt_bilstm_pregemm_f32", "dmt_bilstm_pregemm_bf16"):
         fn = getattr(lib, name)
-        # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
-        # hidden, num_layers, w, bias, forget_bias term, out, tile_b, stream
-        fn.argtypes = [p, i, i, i, i, i, i, i, i, p, p, f, p, i, p]
+        # K5b: K1's arguments, then the gate workspace and gate_bf16
+        # before out
+        fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p, i, p]
         fn.restype = ctypes.c_int
     for name in ("dmt_bilstm_train_fwd_f32", "dmt_bilstm_train_fwd_bf16"):
         fn = getattr(lib, name)
@@ -132,7 +146,6 @@ def _bind(lib: ctypes.CDLL) -> None:
         # splits, batch, steps, in_dim, hidden, tile_b, stream
         fn.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    q = ctypes.c_longlong
     for name in ("dmt_bilstm_layer_f32", "dmt_bilstm_layer_bf16"):
         fn = getattr(lib, name)
         # in, s_lane, s_b, s_t, s_f, reverse_bw, batch, in_steps, steps,

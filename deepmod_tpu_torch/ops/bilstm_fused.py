@@ -9,7 +9,15 @@ and its two kernels:
 - K4, ``_run_layer`` (Pallas ``_layer_kernel``): one layer, both lanes, a
   launch, for every other T or when the caller forces it. CUDA:
   ``csrc/bilstm_layer.cu``; plain versions ``layer_plain`` (one layer)
-  and ``bilstm_layered_plain`` (the layer loop).
+  and ``bilstm_layered_plain`` (the layer loop);
+- K5a-c, K1's function under the three other schedules of
+  ``bilstm_fused_center_mono``, reached through ``bilstm_center_mono``'s
+  flags as in JAX: ``merged_gemm`` (``_mono_merged_kernel``, CUDA
+  ``csrc/bilstm_mono_merged.cu``), ``pregemm`` with ``gate_store``
+  (``_mono_pregemm_kernel``, ``csrc/bilstm_mono_pregemm.cu``) and
+  ``wavefront`` (``_mono_wavefront_kernel``,
+  ``csrc/bilstm_mono_wavefront.cu``). Their plain version is K1's,
+  ``bilstm_center_plain``, with ``gate_store`` for K5b.
 
 This module also holds ``pack_bilstm_params`` (both kernels' weight
 operand: TF ``(in+H, 4H)`` kernels of every layer and lane in one flat
@@ -35,7 +43,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from ._build import MAX_SMEM, MAX_THREADS
+from ._build import MAX_SMEM, MAX_THREADS, WAVEFRONT_MAX_THREADS
 
 PRECISIONS = ("fp32", "bf16")
 _SEQ_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -46,16 +54,29 @@ MAX_TIMESTEPS = 25
 # an H100 at H=100 measured 24 fastest in fp32 and within 1% of the
 # fastest in bf16 (two blocks of 300 threads fit an SM)
 TILE_B = 24
+# the schedules of K1's function (JAX ``bilstm_fused_center_mono``'s
+# flags): "mono" is K1, the other three K5a-c
+SCHEDULES = ("mono", "merged", "pregemm", "wavefront")
+GATE_STORES = ("fp32", "bf16")
+# default windows per block of each schedule, the fastest in both
+# precisions in chip_smoke.py's sweep over 8/16/24 on an H100 at H=100,
+# 3 layers, T=21 (K5c takes 16 at most there: 600 threads)
+SCHEDULE_TILE_B = {"mono": TILE_B, "merged": 16, "pregemm": 8,
+                   "wavefront": 16}
 
 # kernel launches per precision: each wrapper call that launches K1 adds
-# one to LAUNCHES, each K4 layer launch one to LAYERED_LAUNCHES; nothing
-# else touches these
+# one to LAUNCHES, each K4 layer launch one to LAYERED_LAUNCHES, each K5
+# launch one to MONO_SCHEDULE_LAUNCHES[schedule]; nothing else touches
+# these
 LAUNCHES: Dict[str, int] = {"fp32": 0, "bf16": 0}
 LAYERED_LAUNCHES: Dict[str, int] = {"fp32": 0, "bf16": 0}
+MONO_SCHEDULE_LAUNCHES: Dict[str, Dict[str, int]] = {
+    schedule: {"fp32": 0, "bf16": 0} for schedule in SCHEDULES[1:]}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, LAYERED_LAUNCHES):
+    for counts in (LAUNCHES, LAYERED_LAUNCHES,
+                   *MONO_SCHEDULE_LAUNCHES.values()):
         for key in counts:
             counts[key] = 0
 
@@ -123,10 +144,12 @@ def _forget_term(forget_bias: float, precision: str) -> float:
 
 
 def _run_lane(rows, w: torch.Tensor, b: torch.Tensor, forget_bias: float,
-              precision: str):
+              precision: str, gate_store: str = "fp32"):
     """One layer of one lane over ``rows`` (a list of (B, in) steps in the
     storage dtype) under the kernels' contract; returns the list of h rows
-    in the storage dtype."""
+    in the storage dtype. ``gate_store="bf16"`` rounds each step's input
+    projection to bf16 before the h product and bias are added (K5b's bf16
+    gate buffer, JAX ``_mono_pregemm_kernel``)."""
     dt = seq_dtype(precision)
     prescaled = precision == "bf16"
     fb = _forget_term(forget_bias, precision)
@@ -143,8 +166,10 @@ def _run_lane(rows, w: torch.Tensor, b: torch.Tensor, forget_bias: float,
     c = torch.zeros_like(h)
     out = []
     for row in rows:
-        gates = (row.to(torch.float32) @ w_x
-                 + h.to(dt).to(torch.float32) @ w_h + b)
+        gx = row.to(torch.float32) @ w_x
+        if gate_store == "bf16":
+            gx = gx.to(torch.bfloat16).to(torch.float32)
+        gates = gx + h.to(dt).to(torch.float32) @ w_h + b
         i, j, f, o = gates.split(hidden, dim=1)
         c = c * sig(f + fb) + sig(i) * torch.tanh(j)
         h = torch.tanh(c) * sig(o)
@@ -153,10 +178,13 @@ def _run_lane(rows, w: torch.Tensor, b: torch.Tensor, forget_bias: float,
 
 
 def bilstm_center_plain(
-    params: Dict[str, Any], x: torch.Tensor, config, precision: str = "fp32"
+    params: Dict[str, Any], x: torch.Tensor, config, precision: str = "fp32",
+    gate_store: str = "fp32",
 ) -> torch.Tensor:
     """K1's function: (B, T, F) -> (B, 2H) fp32 center features in plain
-    PyTorch, each lane through its whole stack in turn.
+    PyTorch, each lane through its whole stack in turn. It is also the
+    plain version of K5a-c; ``gate_store="bf16"`` is K5b's bf16 gate
+    buffer (``_run_lane``).
 
     Odd T runs every layer of each lane over steps 0..T//2 only (the
     readout cone) and reads the last step; even T runs all T steps and
@@ -170,7 +198,8 @@ def bilstm_center_plain(
                for t in range(steps)]
         for layer in range(config.num_layers):
             w, b = layer_weights(params[lane][layer], precision)
-            seq = _run_lane(seq, w, b, config.forget_bias, precision)
+            seq = _run_lane(seq, w, b, config.forget_bias, precision,
+                            gate_store)
         feats.append(seq[step])
     return torch.cat(feats, dim=1).to(torch.float32)
 
@@ -255,8 +284,10 @@ def pack_bilstm_params(params: Dict[str, Any], config,
 
 
 def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
-                  tile_b: int, smem: int) -> torch.Tensor:
-    """Check what both kernels take; returns x in the storage dtype."""
+                  tile_b: int, smem: int, threads: Optional[int] = None,
+                  max_threads: int = MAX_THREADS) -> torch.Tensor:
+    """Check what the kernels take (``threads`` a block: H * tile_b / 8
+    unless given); returns x in the storage dtype."""
     dt = seq_dtype(packed.precision)
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
@@ -280,12 +311,13 @@ def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
         raise ValueError("packed weights do not match the model config")
     if tile_b <= 0 or tile_b % 8:
         raise ValueError(f"tile_b must be a positive multiple of 8: {tile_b}")
-    threads = hidden * tile_b // 8
-    if threads > MAX_THREADS or smem > MAX_SMEM:
+    if threads is None:
+        threads = hidden * tile_b // 8
+    if threads > max_threads or smem > MAX_SMEM:
         raise ValueError(
             f"hidden={hidden}, fnum={in_dim}, T={timesteps} need {threads} "
             f"threads and {smem} B of shared memory per block; the kernel "
-            f"takes at most {MAX_THREADS} and {MAX_SMEM}"
+            f"takes at most {max_threads} and {MAX_SMEM}"
         )
     return x
 
@@ -297,37 +329,66 @@ def _lane_weights(config) -> int:
             + (config.num_layers - 1) * 2 * h * 4 * h)
 
 
+def mono_block(config, schedule: str, tile_b: int,
+               precision: str) -> Tuple[int, int, int]:
+    """(threads, most threads the kernel takes, shared-memory bytes) of one
+    block of a mono schedule, as its CUDA launcher sizes it. K1 and K5b
+    hold the sequence and the staged inputs; K5a adds its [x; h] operand
+    buffer; K5c holds the staged inputs and a 2-row h ring a layer, with
+    one thread group a layer."""
+    h, f, layers = config.num_hidden, config.num_input, config.num_layers
+    steps = config.timesteps // 2 + 1
+    size = _itemsize(precision)
+    threads = h * tile_b // 8
+    if schedule == "wavefront":
+        return (layers * threads, WAVEFRONT_MAX_THREADS,
+                (steps * f + 2 * layers * h) * tile_b * size)
+    rows = steps * (h + f)
+    if schedule == "merged":
+        rows += max(f, h) + h
+    return threads, MAX_THREADS, rows * tile_b * size
+
+
 def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
-                 tile_b: int = TILE_B) -> torch.Tensor:
-    """K1: the whole stack in one launch (odd T <= 25)."""
+                 tile_b: int = TILE_B, schedule: str = "mono",
+                 gate_store: str = "fp32") -> torch.Tensor:
+    """K1 (``schedule="mono"``) or one of K5a-c: the whole stack in one
+    launch (odd T <= 25). K5b gets a device-memory gate workspace of
+    ``gate_store`` dtype, reused by every layer."""
     from . import _build
 
     precision = packed.precision
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
     steps = timesteps // 2 + 1
-    x = _check_inputs(packed, x, config, tile_b,
-                      steps * (hidden + in_dim) * tile_b
-                      * _itemsize(precision))
+    threads, max_threads, smem = mono_block(config, schedule, tile_b,
+                                            precision)
+    x = _check_inputs(packed, x, config, tile_b, smem, threads, max_threads)
     batch = x.shape[0]
     out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
                       device=x.device)
     if batch == 0:
         return out
     lib = _build.library()
-    fn = (lib.dmt_bilstm_center_bf16 if precision == "bf16"
-          else lib.dmt_bilstm_center_f32)
+    suffix = "bf16" if precision == "bf16" else "f32"
+    kernel = "center" if schedule == "mono" else schedule
+    fn = getattr(lib, f"dmt_bilstm_{kernel}_{suffix}")
+    args = [x.data_ptr(), *x.stride(), batch, timesteps, in_dim, hidden,
+            layers, packed.w.data_ptr(), packed.bias.data_ptr(),
+            _forget_term(config.forget_bias, precision)]
+    if schedule == "pregemm":
+        blocks = -(-batch // tile_b)
+        gx = torch.empty(blocks * tile_b * 2 * steps * 4 * hidden,
+                         dtype=_SEQ_DTYPE[gate_store], device=x.device)
+        args += [gx.data_ptr(), int(gate_store == "bf16")]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = fn(
-            x.data_ptr(), x.stride(0), x.stride(1), x.stride(2), batch,
-            timesteps, in_dim, hidden, layers, packed.w.data_ptr(),
-            packed.bias.data_ptr(),
-            _forget_term(config.forget_bias, precision), out.data_ptr(),
-            tile_b, stream,
-        )
-    _build.check(status, "bilstm_center kernel launch")
-    LAUNCHES[precision] += 1
+        status = fn(*args, out.data_ptr(), tile_b, stream)
+    _build.check(status, f"bilstm {schedule} kernel launch")
+    if schedule == "mono":
+        LAUNCHES[precision] += 1
+    else:
+        MONO_SCHEDULE_LAUNCHES[schedule][precision] += 1
     return out
 
 
@@ -384,6 +445,18 @@ def _launch_layered(packed: PackedBiLSTM, x: torch.Tensor, config,
     return out
 
 
+def _split_params(params: Union[Dict[str, Any], PackedBiLSTM],
+                  precision: str):
+    """(packed or None, the raw params dict)."""
+    if isinstance(params, PackedBiLSTM):
+        if params.precision != precision:
+            raise ValueError(
+                f"params packed for {params.precision}, called with {precision}"
+            )
+        return params, params.params
+    return None, params
+
+
 def bilstm_center_features(
     params: Union[Dict[str, Any], PackedBiLSTM],
     x: torch.Tensor,
@@ -404,14 +477,7 @@ def bilstm_center_features(
     (``pack_bilstm_params``) to skip the per-call packing. ``tile_b`` is
     the kernel's windows per block (a multiple of 8)."""
     mono = use_mono(config.timesteps, mono)
-    if isinstance(params, PackedBiLSTM):
-        if params.precision != precision:
-            raise ValueError(
-                f"params packed for {params.precision}, called with {precision}"
-            )
-        packed, raw = params, params.params
-    else:
-        packed, raw = None, params
+    packed, raw = _split_params(params, precision)
     if x.device.type == "cpu":
         plain = bilstm_center_plain if mono else bilstm_layered_plain
         return plain(raw, x, config, precision)
@@ -421,3 +487,73 @@ def bilstm_center_features(
         packed = pack_bilstm_params(raw, config, precision)
     launch = _launch_mono if mono else _launch_layered
     return launch(packed, x, config, tile_b)
+
+
+def mono_schedule(config, wavefront: bool = False, merged_gemm: bool = False,
+                  pregemm: bool = False, gate_store: str = "fp32") -> str:
+    """The schedule JAX ``bilstm_fused_center_mono`` picks from its flags,
+    with its checks: odd T (and the port's T <= 25), ``wavefront`` needs
+    ``num_layers <= 3`` and refuses ``merged_gemm``; then ``wavefront``,
+    ``merged_gemm``, ``pregemm`` in that order, else K1 ("mono")."""
+    timesteps = config.timesteps
+    if timesteps % 2 == 0 or timesteps > MAX_TIMESTEPS:
+        raise ValueError(
+            f"the mono kernel requires odd T <= {MAX_TIMESTEPS}, got "
+            f"{timesteps}")
+    if gate_store not in GATE_STORES:
+        raise ValueError(
+            f"gate_store must be one of {GATE_STORES}: {gate_store!r}")
+    if wavefront:
+        if config.num_layers > 3:
+            raise ValueError(
+                "the wavefront schedule needs num_layers <= 3, got "
+                f"{config.num_layers}")
+        if merged_gemm:
+            raise ValueError(
+                "merged_gemm probes the sequential schedule; it cannot be "
+                "combined with wavefront")
+        return "wavefront"
+    if merged_gemm:
+        return "merged"
+    return "pregemm" if pregemm else "mono"
+
+
+def bilstm_center_mono(
+    params: Union[Dict[str, Any], PackedBiLSTM],
+    x: torch.Tensor,
+    config,
+    precision: str = "fp32",
+    tile_b: Optional[int] = None,
+    wavefront: bool = False,
+    merged_gemm: bool = False,
+    pregemm: bool = False,
+    gate_store: str = "fp32",
+) -> torch.Tensor:
+    """(B, T, F) windows -> (B, 2H) fp32 center features, the whole stack
+    in one launch: JAX ``bilstm_fused_center_mono`` with its flags.
+
+    With no flag this is K1 (as ``bilstm_center_features`` routes odd T);
+    ``merged_gemm`` runs K5a (one product of [x_t; h] with [Wx; Wh] a
+    step), ``pregemm`` K5b (each layer's input projections first, into a
+    gate buffer of ``gate_store`` dtype, "fp32" or "bf16", in either
+    precision), ``wavefront`` K5c (layer L at step s - L, num_layers <= 3);
+    the precedence and checks are JAX's (``mono_schedule``). All four
+    schedules take odd T <= 25 (``MAX_TIMESTEPS``; shared memory bounds
+    the port's kernels, not JAX's 63), the same ``PackedBiLSTM`` and the
+    same x views as ``bilstm_center_features``. On the CPU this is the
+    plain version (``bilstm_center_plain``, with ``gate_store`` for K5b);
+    on a CUDA tensor it launches the chosen kernel or raises. ``tile_b``
+    defaults to the schedule's ``SCHEDULE_TILE_B``."""
+    schedule = mono_schedule(config, wavefront, merged_gemm, pregemm,
+                             gate_store)
+    gates = gate_store if schedule == "pregemm" else "fp32"
+    packed, raw = _split_params(params, precision)
+    if x.device.type == "cpu":
+        return bilstm_center_plain(raw, x, config, precision, gates)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if packed is None:
+        packed = pack_bilstm_params(raw, config, precision)
+    if tile_b is None:
+        tile_b = SCHEDULE_TILE_B[schedule]
+    return _launch_mono(packed, x, config, tile_b, schedule, gates)

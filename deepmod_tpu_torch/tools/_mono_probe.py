@@ -1,0 +1,79 @@
+"""What the mono-schedule probe tools share (``probe_mono``,
+``probe_merged_gemm``, ``probe_pregemm``): their command line, the model
+and windows they run, the output they chain, and the clock.
+
+As in the JAX scripts (``scripts/probe_*.py``): H=100, 3 layers, T=21,
+F=7, params from seed 0, windows standard normal from seed 1, 131,072 of
+them by default, and each timed call ends in ``argmax(center @ out_w +
+out_b)``, added into one int32 accumulator over ``ITERS`` chained calls.
+The TPU tiles are replaced by the port's tile sweep.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+BATCH = 131072
+ITERS = 16
+TILES = (8, 16, 24)  # the port's tile sweep (windows per block)
+
+
+def parse_args(prog: str, doc: str, argv: Optional[Sequence[str]]):
+    parser = argparse.ArgumentParser(prog=prog, description=doc)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the kernels) or cpu (the plain versions)")
+    parser.add_argument("--batch", type=int, default=BATCH)
+    return parser.parse_args(argv)
+
+
+def setup(device_name: str, batch: int):
+    """(device, config, params, fp32 windows) on the resolved device, and
+    prints the device line."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(device_name)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu (plain versions)")
+    print(f"device: {where}; batch {batch}", flush=True)
+    cfg = BiLSTMConfig(num_input=7, num_hidden=100, timesteps=21)
+    params = init_bilstm_params(0, cfg, device=device)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (batch, cfg.timesteps, cfg.num_input), dtype=np.float32)).to(device)
+    return device, cfg, params, x
+
+
+def classify(center: torch.Tensor, params) -> torch.Tensor:
+    """The scripts' output: int32 argmax of the logits."""
+    logits = center @ params["out_w"] + params["out_b"]
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def windows_per_s(fn: Callable[[], torch.Tensor], batch: int,
+                  device) -> float:
+    """Windows a second over ``ITERS`` chained calls of ``fn`` (each call's
+    int32 output added into one accumulator) after one warm-up call: CUDA
+    events on the card, the host clock on the CPU."""
+    acc = torch.zeros(batch, dtype=torch.int32, device=device)
+    acc += fn()
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    for _ in range(ITERS):
+        acc += fn()
+    if cuda:
+        end.record()
+        end.synchronize()
+        seconds = start.elapsed_time(end) / 1e3
+    else:
+        seconds = time.perf_counter() - t0
+    return batch * ITERS / seconds

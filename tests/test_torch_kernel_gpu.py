@@ -1,5 +1,5 @@
-"""The CUDA kernels (K1; K2 and K3; K4; K6; P1) against their plain
-versions, on the card.
+"""The CUDA kernels (K1; K2 and K3; K4; K5a-c; K6; P1) against their
+plain versions, on the card.
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -125,6 +125,97 @@ def test_layered_kernel_forced_at_t21_matches_k1(cuda, precision):
     k1 = ops.bilstm_center_features(params, x, cfg, precision)
     torch.cuda.synchronize()
     torch.testing.assert_close(k4, k1, **TOL[precision])
+
+
+# ---------------------------------------------------------------- K5a-c
+
+K5_FLAGS = {
+    "merged": dict(merged_gemm=True),
+    "pregemm": dict(pregemm=True),
+    "pregemm_bf16_gates": dict(pregemm=True, gate_store="bf16"),
+    "wavefront": dict(wavefront=True),
+}
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("label", list(K5_FLAGS))
+@pytest.mark.parametrize("timesteps,layers,hidden,batch", [
+    (21, 3, 100, 1000),   # production shape, ragged last tile
+    (5, 1, 16, 7),        # one partial tile
+    (9, 2, 40, 129),
+])
+def test_mono_schedule_matches_plain(cuda, label, precision, timesteps,
+                                     layers, hidden, batch):
+    """A bf16 gate store is held to the bf16 tolerance in both precisions
+    (a 1-ulp flip of a rounded projection propagates)."""
+    flags = K5_FLAGS[label]
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=timesteps,
+                       num_layers=layers)
+    params = init_bilstm_params(timesteps + layers, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(batch).standard_normal(
+        (batch, timesteps, 7), dtype=np.float32)).to(cuda)
+    x = x.to(ops.seq_dtype(precision))
+    schedule = ops.mono_schedule(cfg, **flags)
+    before, k1 = ops.MONO_SCHEDULE_LAUNCHES[schedule][precision], dict(ops.LAUNCHES)
+    got = ops.bilstm_center_mono(params, x, cfg, precision, **flags)
+    torch.cuda.synchronize()
+    assert ops.MONO_SCHEDULE_LAUNCHES[schedule][precision] == before + 1
+    assert ops.LAUNCHES == k1
+    gates = flags.get("gate_store", "fp32")
+    want = ops.bilstm_center_plain(params, x, cfg, precision, gate_store=gates)
+    torch.testing.assert_close(
+        got, want, **TOL["bf16" if gates == "bf16" else precision])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("label", list(K5_FLAGS))
+def test_mono_schedule_reads_overlapping_window_view(cuda, label, precision):
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(8, cfg, device=cuda)
+    rows = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (300, 7), dtype=np.float32)).to(cuda).to(ops.seq_dtype(precision))
+    view = rows.as_strided((300 - 21 + 1, 21, 7), (7, 7, 1))
+    flags = K5_FLAGS[label]
+    got = ops.bilstm_center_mono(params, view, cfg, precision, **flags)
+    want = ops.bilstm_center_mono(params, view.contiguous(), cfg, precision,
+                                  **flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("label", list(K5_FLAGS))
+def test_mono_schedule_tiles_agree(cuda, label):
+    cfg = BiLSTMConfig(num_input=7, num_layers=2)
+    params = init_bilstm_params(9, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (333, 21, 7), dtype=np.float32)).to(cuda)
+    outs = [ops.bilstm_center_mono(params, x, cfg, "fp32", tile_b=t,
+                                   **K5_FLAGS[label]) for t in (8, 16, 24)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("layers", [1, 2, 3])
+def test_wavefront_matches_k1(cuda, precision, layers):
+    """The one-barrier-a-step ring at every depth the schedule takes: the
+    same features as K1's sequential schedule."""
+    cfg = BiLSTMConfig(num_input=7, num_layers=layers)
+    params = init_bilstm_params(10 + layers, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(layers).standard_normal(
+        (777, 21, 7), dtype=np.float32)).to(cuda).to(ops.seq_dtype(precision))
+    wave = ops.bilstm_center_mono(params, x, cfg, precision, wavefront=True)
+    k1 = ops.bilstm_center_features(params, x, cfg, precision)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wave, k1, **TOL[precision])
+
+
+def test_wavefront_rejects_too_many_threads(cuda):
+    cfg = BiLSTMConfig(num_input=7)  # 3 layers x 100 units x 24/8 = 900
+    params = init_bilstm_params(0, cfg, device=cuda)
+    x = torch.zeros(8, 21, 7, device=cuda)
+    with pytest.raises(ValueError, match="threads"):
+        ops.bilstm_center_mono(params, x, cfg, wavefront=True, tile_b=24)
 
 
 # ---------------------------------------------------------------- K6, P1
