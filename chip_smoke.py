@@ -9,6 +9,9 @@ without printing the result line):
 
 1. the card's name and power limit;
 2. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
+   ptxas registers and spills of every kernel; the SASS of the bf16 K4
+   and K5a tensor-core kernels must hold HGMMA (wgmma), and no bf16
+   CUDA-core body of either may be left; their dynamic shared memory;
 3. the BiLSTM center kernel (K1) against its plain PyTorch version at
    full width (H=100, 3 layers, T=21, F=7) on 65,536 random windows and
    on the overlapping window view of a 262,144-row feature chunk (the
@@ -39,11 +42,12 @@ without printing the result line):
    counts read around those runs, a --device cpu fp32 run whose params
    must end within relative L2 1e-3 of the card's, and detect on the card
    with the trained model;
-9. the layered kernel K4 against its plain version at full width: T=20
-   and T=31 on 65,536 random windows and on the window view of a
-   262,144-row chunk, T=64 on 4,096 windows (fp32 2e-5, bf16 atol 2e-3 +
-   rtol 2e-2), K4 forced at T=21 against K1; kernel, plain and cuDNN
-   times at 262,144 windows beside the bound;
+9. the layered kernel K4 (bf16: the tensor-core kernel, 64 windows a
+   block) against its plain version at full width: T=20 and T=31 on
+   65,536 random windows and on the window view of a 262,144-row chunk,
+   T=64 on 4,096 windows (fp32 2e-5, bf16 atol 2e-3 + rtol 2e-2), K4
+   forced at T=21 against K1; kernel, plain and cuDNN times at 262,144
+   windows beside the bound;
 10. the one-direction layer kernel K6 against its plain version (H=100,
    T=21, both directions, 1e-5), its main path (the model's two
    one-direction stacks) against K1's center features, and its times;
@@ -57,13 +61,15 @@ without printing the result line):
    a step, evaluation through K4), then predfeatures and detect with the
    trained model through K4;
 14. K1's three other schedules through ``bilstm_center_mono``'s flags:
-   K5a (merged [x; h] product), K5b (pre-projected gates, fp32 and bf16
-   gate store) and K5c (layer wavefront) against their plain versions at
-   full width on phase 3's inputs (65,536 random windows and the window
-   view of a 262,144-row chunk) in fp32 and bf16 (fp32 max abs 2e-5, bf16
-   atol 2e-3 + rtol 2e-2; a bf16 gate store at the bf16 tolerance in both
-   precisions), each against K1 on the same input; kernel and plain times
-   at 262,144 windows with a tile sweep, beside K1's bound and cuDNN time;
+   K5a (merged [x; h] product; bf16: the tensor-core kernel), K5b
+   (pre-projected gates, fp32 and bf16 gate store) and K5c (layer
+   wavefront) against their plain versions at full width on phase 3's
+   inputs (65,536 random windows and the window view of a 262,144-row
+   chunk) in fp32 and bf16 (fp32 max abs 2e-5, bf16 atol 2e-3 + rtol
+   2e-2; a bf16 gate store at the bf16 tolerance in both precisions), and
+   against K1 on the same input at the same tolerances; kernel and plain
+   times at 262,144 windows with a tile sweep (not for the 64-window
+   tensor-core kernel), beside K1's bound and cuDNN time;
    K5c's main path on the window view, and the probe tools (probe_mono,
    probe_merged_gemm: K5a's main path, probe_pregemm: K5b's) at 32,768
    windows with the launch counts read around each.
@@ -308,6 +314,30 @@ def phase_kernel(device) -> dict:
     return results
 
 
+def tc_build_line(cfg) -> str:
+    """ptxas's spills and registers (``-Xptxas -v`` of this run's build)
+    of the two tensor-core kernels at the config's padded width, and the
+    dynamic shared memory their launchers ask for (nvcc reports only the
+    static)."""
+    import re
+
+    from deepmod_tpu_torch.ops import _build
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    hp = ops.tc_dims(1, cfg.num_hidden)[0]
+    lines = _build.build_info["log"].splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        m = re.search(r"bilstm_(merged|layer)_tc_kernelILi(\d+)E", line)
+        if m and "Compiling entry" in line and int(m.group(2)) == hp:
+            props = [t.split("ptxas info    :")[-1].strip()
+                     for t in lines[i + 1:i + 4]
+                     if "spill" in t or "registers" in t]
+            found.append(f"{m.group(1)}<{hp}>: " + "; ".join(props))
+    return (" | ".join(found) or "no ptxas log (cached build)") + (
+        f" | dynamic shared memory {ops.tc_smem(cfg)} B")
+
+
 def _close(got, want, precision: str) -> bool:
     if precision == "fp32":
         return float((got - want).abs().max()) <= 2e-5
@@ -530,6 +560,31 @@ def probe_loop_counts(lib_path: str) -> dict:
     return counts
 
 
+def tensor_core_sass(lib_path: str) -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each bf16 kernel of K4 and
+    K5a (``cuobjdump -sass`` of the built library), by mangled name; the
+    tensor-core kernels must issue them and no bf16 CUDA-core body of
+    either may be left."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        m = re.search(r"bilstm_(merged|layer)_(tc_kernelILi\d+E|kernelI13__nv)",
+                      name)
+        if m:
+            counts[m.group(1) + "_" + m.group(2)] = block.count("HGMMA")
+    old = [k for k in counts if "kernelI13__nv" in k]
+    assert not old, f"bf16 CUDA-core bodies left: {old}"
+    for kind in ("merged", "layer"):
+        tc = {k: v for k, v in counts.items() if k.startswith(kind + "_tc")}
+        assert tc and all(v > 0 for v in tc.values()), (kind, counts)
+    return counts
+
+
 def phase_probe(device, lib_path: str) -> dict:
     """P1 against its plain version at K=256 (fp32 rtol 1e-5, bf16 within
     one bf16 ulp of the value); the probe's entry point as the main path;
@@ -667,6 +722,8 @@ def phase_schedules(device, k1: dict) -> dict:
                     f"{label} {precision} {which} vs plain: max abs {e}")
                 err = max(err, e)
                 vs_k1 = max(vs_k1, float((got - k1_out[which]).abs().max()))
+                assert _close(got, k1_out[which], tol), (
+                    f"{label} {precision} {which} vs K1: max abs {vs_k1}")
                 del got
             res[label] = dict(max_abs_err=err, vs_k1=vs_k1)
             log(f"[K5 {precision}] {label}: max_abs_err vs plain {err:.3e} "
@@ -696,7 +753,9 @@ def phase_schedules(device, k1: dict) -> dict:
             ms = time_ms(lambda: ops.bilstm_center_mono(
                 packed, xt, cfg, precision, **flags))
             tiles = {}
-            for tile in SCHEDULE_TILES:
+            # the tensor-core kernel takes one tile, 64: no sweep
+            for tile in (() if ops.tensor_core(schedule, precision)
+                         else SCHEDULE_TILES):
                 threads, most, smem = ops.mono_block(cfg, schedule, tile, precision)
                 if threads <= most and smem <= ops.MAX_SMEM:
                     tiles[tile] = round(time_ms(lambda: ops.bilstm_center_mono(
@@ -705,7 +764,8 @@ def phase_schedules(device, k1: dict) -> dict:
             res[label].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                               bound_by=b_by, library_ms=k1[precision]["library_ms"])
             log(f"[K5 {precision}] {label} B={TIME_B} kernel {ms:.3f} ms at "
-                f"tile {ops.SCHEDULE_TILE_B[schedule]}, sweep (ms) {tiles}; plain "
+                f"tile {ops.SCHEDULE_TILE_B[schedule][precision]}, sweep (ms) "
+                f"{tiles}; plain "
                 f"{plain_ms:.3f} ms; K1 {k1[precision]['ms']:.3f} ms; bound "
                 f"{b_ms:.3f} ms ({b_by}) and cudnn "
                 f"{k1[precision]['library_ms']:.3f} ms are K1's (same function, "
@@ -1329,9 +1389,20 @@ def main() -> int:
     lib_path = _build.library()._name
     log(f"[build] {time.perf_counter() - t0:.2f} s "
         f"(nvcc {_build.build_info['seconds']:.2f} s)")
-    for line in _build.build_info["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+    build_log = _build.build_info["log"].splitlines()
+    for line in build_log:
+        if "Used " in line or "spill" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    injected = sum("C7519" in line for line in build_log)
+    log(f"[build] ptxas injected a warpgroup.arrive into a wgmma chain "
+        f"(C7519) {injected} times")
+    hgmma = tensor_core_sass(lib_path)
+    log(f"[build] HGMMA instructions in the SASS of the bf16 K4 / K5a "
+        f"kernels (one template a padded width): {hgmma}")
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
+
+    log(f"[build] the bf16 K4 / K5a tensor-core kernels at H=100: "
+        f"{tc_build_line(BiLSTMConfig())}")
 
     kern = phase_kernel(device)
     tkern = phase_train_kernels(device)

@@ -18,7 +18,17 @@
 //     fw_step and bw at step bw_step, into the (B, 2H) fp32 features
 //     (odd T: both the last step T//2; even T: T//2 and T-1-T//2).
 //
-// Design (simple first, fast later):
+// bf16 (the tensor-core kernel, csrc/lstm_tc.cuh): grid (ceil(B/64), 2),
+//   256 threads, lstm_tc.cuh::run_layer over the layer's padded,
+//   gate-permuted weights in shared memory (ops/bilstm_fused.py packs
+//   them), one [h_{t-1}; x_t] @ [Wh; Wx] wgmma chain a step; x_{t+1} is
+//   prefetched during step t (register loads through the caller's strides
+//   at layer 0, cp.async of one blocked row after it). Between layers the
+//   (2, steps, B, H) sequence is port-internal and blocked: (2, steps,
+//   ceil(B/64), 64 * Hp), each tile's row in lstm_tc.cuh's A-column
+//   layout, so a row is one contiguous 16-byte copy in and out.
+//
+// fp32 design (simple first, fast later):
 //   grid (ceil(B / tile_b), 2): blockIdx.y is the lane, one launch a
 //     layer serves both lanes, as the TPU kernel does.
 //   threads: hidden * tile_b / 8; thread (u, g) owns hidden unit u for 8
@@ -44,13 +54,12 @@
 // What bounds it on an H100: per window and layer it does 2 lanes x
 // steps x 2*(in+H)*4H FLOP (T=20, H=100, F=7: 16.2 MFLOP a window over 3
 // layers) and moves 2 x steps x H x 4 B of fp32 sequence between layers,
-// so it is bound by operations: fp32 FMAs on the CUDA cores in both
-// precisions here, and `steps` dependent steps a layer. Left for later:
-// tensor-core products (a 64-window tile is one wgmma M), the weights in
-// shared memory, prefetching x_{t+1} during step t, and stopping each
-// lane of every layer at its readout step (the readout cone for even T).
+// so it is bound by operations, with `steps` dependent steps a layer:
+// fp32 FMAs on the CUDA cores in fp32; in bf16 the cell's tanhf before the
+// tensor cores (lstm_tc.cuh). Left for later: stopping each lane of every
+// layer at its readout step (the readout cone for even T).
 
-#include "lstm_common.cuh"
+#include "lstm_tc.cuh"
 
 namespace {
 
@@ -170,6 +179,83 @@ int launch(const void* in, long long s_lane, long long s_b, long long s_t,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the bf16 tensor-core kernel: one layer of one lane for a 64-window tile
+template <int kHp>
+__global__ void __launch_bounds__(dmt::tc::kThreads, 1)
+bilstm_layer_tc_kernel(const __nv_bfloat16* __restrict__ x, long long s_b,
+                       long long s_t, long long s_f, int reverse_bw,
+                       const __nv_bfloat16* __restrict__ seq_in, int batch,
+                       int in_steps, int steps, int in_dim, int hidden,
+                       int nx, const __nv_bfloat16* __restrict__ w,
+                       const float* __restrict__ bias, float fb_term,
+                       __nv_bfloat16* __restrict__ seq_out,
+                       float* __restrict__ out, int fw_step, int bw_step) {
+  namespace tc = dmt::tc;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const int lane = blockIdx.y;  // 0 = fw, 1 = bw
+  const size_t w_bytes = tc::weight_bytes(kHp, in_dim);
+  const tc::Smem sm = tc::carve(tc_smem, kHp, nx, w_bytes);
+  // blocked rows: (2, steps, tiles, 64 * Hp); this block's row of step t
+  const long long row = static_cast<long long>(tc::kRows) * kHp;
+  const long long step_stride = static_cast<long long>(gridDim.x) * row;
+  const long long tile = static_cast<long long>(blockIdx.x) * row;
+
+  tc::Layer L;
+  L.w = w + lane * static_cast<long long>(w_bytes / 2);
+  L.bias = bias + lane * kHp * 4;
+  L.in_dim = in_dim;
+  L.hidden = hidden;
+  L.steps = steps;
+  L.batch = batch;
+  L.lane = lane;
+  L.b0 = static_cast<long long>(blockIdx.x) * tc::kRows;
+  L.fb = fb_term;
+  tc::LayerIO io;
+  io.x = x;
+  io.sb = s_b;
+  io.st = s_t;
+  io.sf = s_f;
+  io.reversed = lane == 1 && reverse_bw != 0;
+  io.in_steps = in_steps;
+  io.seq_in = seq_in == nullptr
+                  ? nullptr
+                  : seq_in + lane * in_steps * step_stride + tile;
+  io.seq_in_t = step_stride;
+  io.seq_out = seq_out == nullptr
+                   ? nullptr
+                   : seq_out + lane * steps * step_stride + tile;
+  io.seq_out_t = step_stride;
+  io.out = out;
+  io.out_step = lane == 0 ? fw_step : bw_step;
+  tc::run_layer<kHp>(sm, L, io);
+}
+
+template <int kHp>
+int launch_tc(const void* x, long long s_b, long long s_t, long long s_f,
+              int reverse_bw, const void* seq_in, int batch, int in_steps,
+              int steps, int in_dim, int hidden, const void* w,
+              const void* bias, float fb_term, void* seq_out, void* out,
+              int fw_step, int bw_step, void* stream) {
+  namespace tc = dmt::tc;
+  const int nx = tc::x_cols(in_dim);
+  const size_t smem =
+      tc::smem_bytes(kHp, nx, tc::weight_bytes(kHp, in_dim));
+  auto kernel = bilstm_layer_tc_kernel<kHp>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((batch + tc::kRows - 1) / tc::kRows, 2);
+  kernel<<<grid, tc::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), s_b, s_t, s_f, reverse_bw,
+      static_cast<const __nv_bfloat16*>(seq_in), batch, in_steps, steps,
+      in_dim, hidden, nx, static_cast<const __nv_bfloat16*>(w),
+      static_cast<const float*>(bias), fb_term,
+      static_cast<__nv_bfloat16*>(seq_out), static_cast<float*>(out),
+      fw_step, bw_step);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -194,20 +280,29 @@ int dmt_bilstm_layer_f32(const void* in, long long s_lane, long long s_b,
                               fw_step, bw_step, tile_b, stream);
 }
 
-// bf16 mode: in, w and seq_out are bf16, the i/f/o columns of w and bias
-// pre-halved; half_forget_bias is 0.5 * forget_bias
-int dmt_bilstm_layer_bf16(const void* in, long long s_lane, long long s_b,
-                          long long s_t, long long s_f, int reverse_bw,
+// bf16 mode, the tensor-core kernel, 64 windows a block. Layer 0 reads x
+// (bf16) at x[b*s_b + t*s_t + f*s_f], the bw lane at step in_steps-1-t
+// when reverse_bw, and seq_in is null; a later layer reads seq_in (the
+// blocked (2, in_steps, ceil(B/64), 64 * Hp) bf16 sequence) and x is
+// null. Exactly one of seq_out (blocked, `steps` rows) and out ((B, 2H)
+// fp32, the last layer) is non-null. w, bias: this layer's tensor-core
+// packing of ops/bilstm_fused.py for both lanes ([lane] the padded,
+// gate-permuted (Kp, 4Hp) bf16 weights in core columns; [lane] the (Hp, 4)
+// fp32 bias), i/f/o pre-halved; half_forget_bias is 0.5 * forget_bias. Hp
+// = hidden rounded up to 8, at most 104 (else cudaErrorInvalidValue)
+int dmt_bilstm_layer_bf16(const void* x, long long s_b, long long s_t,
+                          long long s_f, int reverse_bw, const void* seq_in,
                           int batch, int in_steps, int steps, int in_dim,
-                          int hidden, const void* w, long long w_lane,
-                          const void* bias, long long b_lane,
+                          int hidden, const void* w, const void* bias,
                           float half_forget_bias, void* seq_out, void* out,
-                          int fw_step, int bw_step, int tile_b,
-                          void* stream) {
-  return launch<__nv_bfloat16, true>(
-      in, s_lane, s_b, s_t, s_f, reverse_bw, batch, in_steps, steps, in_dim,
-      hidden, w, w_lane, bias, b_lane, half_forget_bias, seq_out, out,
-      fw_step, bw_step, tile_b, stream);
+                          int fw_step, int bw_step, void* stream) {
+#define DMT_LAUNCH(hp)                                                       \
+  return launch_tc<hp>(x, s_b, s_t, s_f, reverse_bw, seq_in, batch,         \
+                       in_steps, steps, in_dim, hidden, w, bias,            \
+                       half_forget_bias, seq_out, out, fw_step, bw_step,    \
+                       stream)
+  DMT_TC_DISPATCH(dmt::tc::padded_hidden(hidden), DMT_LAUNCH)
+#undef DMT_LAUNCH
 }
 
 }  // extern "C"

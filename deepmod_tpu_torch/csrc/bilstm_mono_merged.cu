@@ -5,13 +5,27 @@
 // (B, T, F) windows -> (B, 2H) fp32 [fw; bw] center features, odd T, every
 // layer of each lane stopping at step T//2 (the readout cone), the bw lane
 // reading x time-reversed. The TPU kernel issues ONE [x_t; h] @ [Wx; Wh]
-// product a step instead of two; here each step assembles the operand
-// [x_t; h_{t-1}] in shared memory and each thread runs ONE dot product over
-// its lin+H rows against its unit's column of the layer's whole TF
-// (lin+H, 4H) kernel, which is already [Wx; Wh] stacked, so the wrapper
-// packs nothing of its own.
+// product a step instead of two. Two modes:
 //
-// Design (K1's, csrc/bilstm_fused.cu, plus the operand buffer):
+// bf16 (the tensor-core kernel, csrc/lstm_tc.cuh): grid (ceil(B/64), 2),
+//   256 threads; each layer of the lane runs lstm_tc.cuh::run_layer, one
+//   [h_{t-1}; x_t] @ [Wh; Wx] wgmma chain a step with the layer's padded,
+//   gate-permuted weights in shared memory (ops/bilstm_fused.py packs
+//   them, [layer][lane]). The layer loop and the readout cone (T//2+1
+//   steps) stay inside the block; layer 0 reads x through the caller's
+//   strides; the inter-layer sequence (11 x 64 x 104 x 2 B = 146 KB at
+//   T=21, H=100) does not fit beside the weights, so it lives in a
+//   device-memory workspace from the wrapper, one blocked row a step,
+//   overwritten in place by the next layer: its step t+1 writes row t,
+//   which the prefetch of step t-1 read. 132 resident blocks x 146 KB stay
+//   in the 50 MB L2.
+//
+// fp32: each step assembles the operand [x_t; h_{t-1}] in shared memory
+// and each thread runs ONE dot product over its lin+H rows against its
+// unit's column of the layer's whole TF (lin+H, 4H) kernel, which is
+// already [Wx; Wh] stacked, so the wrapper packs nothing of its own.
+//
+// fp32 design (K1's, csrc/bilstm_fused.cu, plus the operand buffer):
 //   grid (ceil(B / tile_b), 2), blockIdx.y the lane; thread (u, g) owns
 //     unit u for the 8 windows g*8 .. g*8+7, all four gates, c in
 //     registers.
@@ -26,19 +40,21 @@
 //     overlapping window view of a feature block, read in place).
 //
 // Numerics: K1's contract (lstm_common.cuh's cell; fp32 exp sigmoids; bf16
-// storage with pre-halved i/f/o columns and tanh sigmoids). The FMA chain is
-// K1's: the x rows, then the h rows, into the same accumulators (at t=0 the
-// h rows are zeros and add exact zeros), so the result has K1's bits.
+// storage with pre-halved i/f/o columns and tanh sigmoids). In fp32 the FMA
+// chain is K1's: the x rows, then the h rows, into the same accumulators
+// (at t=0 the h rows are zeros and add exact zeros), so the result has K1's
+// bits. In bf16 the tensor cores sum in another order: K1's result within
+// the bf16 tolerance, not its bits.
 //
 // What bounds it on an H100: the same 8.92 MFLOP a window as K1 (operations,
-// not bytes), on the CUDA cores, with 33 dependent steps a lane. The copy
-// into xh adds (lin+H)*tile_b element moves a step and the buffer adds
-// (max(F,H)+H)*tile_b elements to K1's shared memory: 19.2 KB at tile 24
-// fp32 on top of 113 KB, so only one such block fits an SM; the default
-// tile comes from chip_smoke.py's sweep. Left for later: wgmma over the
-// merged operand, which is the form a tensor-core product wants.
+// not bytes), with 33 dependent steps a lane. fp32: on the CUDA cores; the
+// copy into xh adds (lin+H)*tile_b element moves a step and the buffer
+// adds (max(F,H)+H)*tile_b elements to K1's shared memory: 19.2 KB at tile
+// 24 on top of 113 KB, so only one such block fits an SM; the default tile
+// comes from chip_smoke.py's sweep. bf16: lstm_tc.cuh's note (the cell's
+// tanhf before the tensor cores).
 
-#include "lstm_common.cuh"
+#include "lstm_tc.cuh"
 
 namespace {
 
@@ -152,6 +168,86 @@ int launch(const void* x, long long stride_b, long long stride_t,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the bf16 tensor-core kernel: one lane of one 64-window tile, every layer
+template <int kHp>
+__global__ void __launch_bounds__(dmt::tc::kThreads, 1)
+bilstm_merged_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                        long long stride_b, long long stride_t,
+                        long long stride_f, int batch, int timesteps,
+                        int in_dim, int hidden, int num_layers, int nx_max,
+                        const __nv_bfloat16* __restrict__ w,
+                        const float* __restrict__ bias, float fb_term,
+                        __nv_bfloat16* __restrict__ ws,
+                        float* __restrict__ out) {
+  namespace tc = dmt::tc;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const int steps = timesteps / 2 + 1;
+  const int lane = blockIdx.y;  // 0 = fw, 1 = bw
+  const size_t w_max = tc::weight_bytes(kHp, in_dim > hidden ? in_dim : hidden);
+  const tc::Smem sm = tc::carve(tc_smem, kHp, nx_max, w_max);
+  // this block's rows of the workspace: (tiles, 2, steps, 64 * Hp)
+  const long long row = static_cast<long long>(tc::kRows) * kHp;
+  __nv_bfloat16* rows =
+      ws + (static_cast<long long>(blockIdx.x) * 2 + lane) * steps * row;
+
+  tc::Layer L;
+  L.w = w;
+  L.bias = bias;
+  L.hidden = hidden;
+  L.steps = steps;
+  L.batch = batch;
+  L.lane = lane;
+  L.b0 = static_cast<long long>(blockIdx.x) * tc::kRows;
+  L.fb = fb_term;
+  for (int layer = 0; layer < num_layers; ++layer) {
+    L.in_dim = layer == 0 ? in_dim : hidden;
+    const long long lane_w = tc::weight_bytes(kHp, L.in_dim) / 2;
+    const bool last = layer == num_layers - 1;
+    tc::LayerIO io;
+    io.x = layer == 0 ? x : nullptr;
+    io.sb = stride_b;
+    io.st = stride_t;
+    io.sf = stride_f;
+    io.reversed = lane == 1;
+    io.in_steps = timesteps;
+    io.seq_in = rows;
+    io.seq_in_t = row;
+    io.seq_out = last ? nullptr : rows;
+    io.seq_out_t = row;
+    io.out = last ? out : nullptr;
+    io.out_step = steps - 1;
+    tc::Layer here = L;
+    here.w += lane * lane_w;
+    here.bias += lane * kHp * 4;
+    tc::run_layer<kHp>(sm, here, io);
+    L.w += 2 * lane_w;  // [layer][lane]
+    L.bias += 2 * kHp * 4;
+  }
+}
+
+template <int kHp>
+int launch_tc(const void* x, long long stride_b, long long stride_t,
+              long long stride_f, int batch, int timesteps, int in_dim,
+              int hidden, int num_layers, const void* w, const void* bias,
+              float fb_term, void* ws, void* out, void* stream) {
+  namespace tc = dmt::tc;
+  const int nx_max = tc::x_cols(in_dim > hidden ? in_dim : hidden);
+  const size_t smem = tc::smem_bytes(
+      kHp, nx_max, tc::weight_bytes(kHp, in_dim > hidden ? in_dim : hidden));
+  auto kernel = bilstm_merged_tc_kernel<kHp>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((batch + tc::kRows - 1) / tc::kRows, 2);
+  kernel<<<grid, tc::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), stride_b, stride_t, stride_f,
+      batch, timesteps, in_dim, hidden, num_layers, nx_max,
+      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
+      fb_term, static_cast<__nv_bfloat16*>(ws), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -169,18 +265,25 @@ int dmt_bilstm_merged_f32(const void* x, long long stride_b,
                               static_cast<float*>(out), tile_b, stream);
 }
 
-// bf16 mode: x and w are bf16, i/f/o columns of w and bias pre-halved;
-// half_forget_bias is 0.5 * forget_bias
+// bf16 mode, the tensor-core kernel, 64 windows a block: x is bf16; w and
+// bias are the tensor-core packing of ops/bilstm_fused.py (per [layer][lane]
+// the padded, gate-permuted (Kp, 4Hp) bf16 weights in core columns and the
+// (Hp, 4) fp32 bias, i/f/o pre-halved); ws is a bf16 workspace of
+// ceil(B/64) * 2 * (T//2+1) * 64 * Hp elements; half_forget_bias is 0.5 *
+// forget_bias. Hp = hidden rounded up to 8, at most 104 (else
+// cudaErrorInvalidValue)
 int dmt_bilstm_merged_bf16(const void* x, long long stride_b,
                            long long stride_t, long long stride_f, int batch,
                            int timesteps, int in_dim, int hidden,
                            int num_layers, const void* w, const void* bias,
-                           float half_forget_bias, void* out, int tile_b,
+                           float half_forget_bias, void* ws, void* out,
                            void* stream) {
-  return launch<__nv_bfloat16, true>(
-      x, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
-      num_layers, w, static_cast<const float*>(bias), half_forget_bias,
-      static_cast<float*>(out), tile_b, stream);
+#define DMT_LAUNCH(hp)                                                      \
+  return launch_tc<hp>(x, stride_b, stride_t, stride_f, batch, timesteps,  \
+                       in_dim, hidden, num_layers, w, bias,                \
+                       half_forget_bias, ws, out, stream)
+  DMT_TC_DISPATCH(dmt::tc::padded_hidden(hidden), DMT_LAUNCH)
+#undef DMT_LAUNCH
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
 // Helpers shared by the inference LSTM kernels (bilstm_fused.cu: K1,
 // bilstm_mono_merged.cu, bilstm_mono_pregemm.cu, bilstm_mono_wavefront.cu:
 // K5a-c, bilstm_layer.cu: K4, lstm_layer.cu: K6); probe_transcendental.cu
-// (P1) uses the storage-type conversions.
+// (P1) uses the storage-type conversions, lstm_tc.cuh (the tensor-core
+// layer of K4 and K5a in bf16) the conversions and the cell.
 //
-// Their thread layout is the same: thread (u, g) of a block owns hidden
-// unit u for the kR windows g*kR .. g*kR+kR-1, and shared memory holds a
-// block's sequences feature-major, [feature][window], so one thread reads
-// its kR windows of a feature as one 16-byte (bf16) or 32-byte (fp32)
-// vector.
+// The CUDA-core kernels' thread layout is the same: thread (u, g) of a
+// block owns hidden unit u for the kR windows g*kR .. g*kR+kR-1, and
+// shared memory holds a block's sequences feature-major, [feature][window],
+// so one thread reads its kR windows of a feature as one 16-byte (bf16) or
+// 32-byte (fp32) vector.
 
 #pragma once
 

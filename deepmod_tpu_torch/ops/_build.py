@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
 K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
 ``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
-``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1) is compiled by its
-own ``nvcc`` process
+``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; K4 and K5a's bf16
+mode include ``lstm_tc.cuh``) is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -120,14 +120,20 @@ def build() -> str:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = ctypes.c_longlong
-    for kernel in ("center", "merged", "wavefront"):  # K1, K5a, K5c
-        for suffix in ("f32", "bf16"):
-            fn = getattr(lib, f"dmt_bilstm_{kernel}_{suffix}")
-            # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
-            # hidden, num_layers, w, bias, forget_bias term, out, tile_b,
-            # stream
-            fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p]
-            fn.restype = ctypes.c_int
+    for name in ("dmt_bilstm_center_f32", "dmt_bilstm_center_bf16",
+                 "dmt_bilstm_merged_f32", "dmt_bilstm_wavefront_f32",
+                 "dmt_bilstm_wavefront_bf16"):  # K1, K5a fp32, K5c
+        fn = getattr(lib, name)
+        # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
+        # hidden, num_layers, w, bias, forget_bias term, out, tile_b,
+        # stream
+        fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p]
+        fn.restype = ctypes.c_int
+    # K5a bf16 (tensor cores, 64 windows a block): K1's arguments with the
+    # tensor-core packing as w and bias, then the workspace, out, stream
+    lib.dmt_bilstm_merged_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
+                                           f, p, p, p]
+    lib.dmt_bilstm_merged_bf16.restype = ctypes.c_int
     for name in ("dmt_bilstm_pregemm_f32", "dmt_bilstm_pregemm_bf16"):
         fn = getattr(lib, name)
         # K5b: K1's arguments, then the gate workspace and gate_bf16
@@ -146,14 +152,18 @@ def _bind(lib: ctypes.CDLL) -> None:
         # splits, batch, steps, in_dim, hidden, tile_b, stream
         fn.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, i, i, p]
         fn.restype = ctypes.c_int
-    for name in ("dmt_bilstm_layer_f32", "dmt_bilstm_layer_bf16"):
-        fn = getattr(lib, name)
-        # in, s_lane, s_b, s_t, s_f, reverse_bw, batch, in_steps, steps,
-        # in_dim, hidden, w, w_lane, bias, b_lane, forget_bias term,
-        # seq_out, out, fw_step, bw_step, tile_b, stream
-        fn.argtypes = [p, q, q, q, q, i, i, i, i, i, i, p, q, p, q, f, p, p,
-                       i, i, i, p]
-        fn.restype = ctypes.c_int
+    # K4 fp32: in, s_lane, s_b, s_t, s_f, reverse_bw, batch, in_steps,
+    # steps, in_dim, hidden, w, w_lane, bias, b_lane, forget_bias term,
+    # seq_out, out, fw_step, bw_step, tile_b, stream
+    lib.dmt_bilstm_layer_f32.argtypes = [p, q, q, q, q, i, i, i, i, i, i, p,
+                                         q, p, q, f, p, p, i, i, i, p]
+    lib.dmt_bilstm_layer_f32.restype = ctypes.c_int
+    # K4 bf16 (tensor cores): x, s_b, s_t, s_f, reverse_bw, seq_in, batch,
+    # in_steps, steps, in_dim, hidden, w, bias, forget_bias term, seq_out,
+    # out, fw_step, bw_step, stream
+    lib.dmt_bilstm_layer_bf16.argtypes = [p, q, q, q, i, p, i, i, i, i, i, p,
+                                          p, f, p, p, i, i, p]
+    lib.dmt_bilstm_layer_bf16.restype = ctypes.c_int
     # xp, wh, forget_bias, out, batch, timesteps, hidden, reverse, tile_b,
     # stream
     lib.dmt_lstm_layer_f32.argtypes = [p, p, f, p, i, i, i, i, i, p]

@@ -19,9 +19,12 @@ and its two kernels:
   ``csrc/bilstm_mono_wavefront.cu``). Their plain version is K1's,
   ``bilstm_center_plain``, with ``gate_store`` for K5b.
 
-This module also holds ``pack_bilstm_params`` (both kernels' weight
-operand: TF ``(in+H, 4H)`` kernels of every layer and lane in one flat
-buffer, i/f/o columns pre-halved in bf16 mode) and the public wrapper
+In bf16, K4 and K5a are tensor-core kernels (``csrc/lstm_tc.cuh``: one
+``wgmma`` chain over [h; x] a step, 64 windows a block). This module also
+holds ``pack_bilstm_params`` (the weight operand of K1, K4 fp32 and K5:
+TF ``(in+H, 4H)`` kernels of every layer and lane in one flat buffer,
+i/f/o columns pre-halved in bf16 mode; in bf16 also the padded,
+gate-permuted tensor-core layout, ``tc_pack_layer``) and the public wrapper
 ``bilstm_center_features``, which routes as the JAX package does. A CPU
 tensor goes to the plain version of the chosen kernel; a CUDA tensor
 launches the kernel or raises. The chip smoke test holds each kernel
@@ -50,19 +53,34 @@ _SEQ_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # largest T the mono kernel (K1) takes: odd T only, T//2+1 <= 13 steps.
 # Every other T goes to the layered kernel (K4), as in the TPU package
 MAX_TIMESTEPS = 25
-# default windows per block (a multiple of 8). chip_smoke.py's sweep on
-# an H100 at H=100 measured 24 fastest in fp32 and within 1% of the
-# fastest in bf16 (two blocks of 300 threads fit an SM)
+# default windows per block of the CUDA-core kernels (a multiple of 8).
+# chip_smoke.py's sweep on an H100 at H=100 measured 24 fastest for K1 in
+# fp32 and within 1% of the fastest in bf16 (two blocks of 300 threads fit
+# an SM)
 TILE_B = 24
+# the bf16 tensor-core kernels (K4 and K5a, csrc/lstm_tc.cuh) take 64
+# windows a block (the wgmma M) and no other tile, with 256 threads (two
+# warpgroups); H is padded to Hp, a multiple of 8, at most TC_MAX_HP: a
+# layer's weights (16 Hp^2 bytes after layer 0) and the operand rings fill
+# one block's 227 KB
+TC_TILE_B = 64
+TC_THREADS = 256
+TC_MAX_HP = 104
 # the schedules of K1's function (JAX ``bilstm_fused_center_mono``'s
 # flags): "mono" is K1, the other three K5a-c
 SCHEDULES = ("mono", "merged", "pregemm", "wavefront")
 GATE_STORES = ("fp32", "bf16")
-# default windows per block of each schedule, the fastest in both
-# precisions in chip_smoke.py's sweep over 8/16/24 on an H100 at H=100,
-# 3 layers, T=21 (K5c takes 16 at most there: 600 threads)
-SCHEDULE_TILE_B = {"mono": TILE_B, "merged": 16, "pregemm": 8,
-                   "wavefront": 16}
+# default windows per block by kernel and precision: each schedule's, the
+# fastest in chip_smoke.py's sweep over 8/16/24 on an H100 at H=100, 3
+# layers, T=21 (K5c takes 16 at most there: 600 threads), K4's
+# ("layered") K1's, and TC_TILE_B, the only tile, for K5a and K4 in bf16
+SCHEDULE_TILE_B = {
+    "mono": {"fp32": TILE_B, "bf16": TILE_B},
+    "merged": {"fp32": 16, "bf16": TC_TILE_B},
+    "pregemm": {"fp32": 8, "bf16": 8},
+    "wavefront": {"fp32": 16, "bf16": 16},
+    "layered": {"fp32": TILE_B, "bf16": TC_TILE_B},
+}
 
 # kernel launches per precision: each wrapper call that launches K1 adds
 # one to LAUNCHES, each K4 layer launch one to LAYERED_LAUNCHES, each K5
@@ -72,6 +90,12 @@ LAUNCHES: Dict[str, int] = {"fp32": 0, "bf16": 0}
 LAYERED_LAUNCHES: Dict[str, int] = {"fp32": 0, "bf16": 0}
 MONO_SCHEDULE_LAUNCHES: Dict[str, Dict[str, int]] = {
     schedule: {"fp32": 0, "bf16": 0} for schedule in SCHEDULES[1:]}
+
+
+def tensor_core(kernel: str, precision: str) -> bool:
+    """Whether ``kernel`` (a schedule of ``SCHEDULES`` or "layered", K4)
+    runs on the tensor cores in ``precision``: K5a and K4 in bf16."""
+    return precision == "bf16" and kernel in ("merged", "layered")
 
 
 def reset_launch_counts() -> None:
@@ -255,18 +279,83 @@ def bilstm_layered_plain(
         torch.float32)
 
 
+def tc_dims(in_dim: int, hidden: int) -> Tuple[int, int, int]:
+    """(Hp, x core columns, k-tiles) of one layer of the tensor-core
+    kernels (``csrc/lstm_tc.cuh``): Hp is ``hidden`` rounded up to 8; the
+    operand [h; x] is Hp/8 + ceil(in/8) core columns of 8, taken 16 deep a
+    ``wgmma`` (a zero column pads an odd count)."""
+    hp = -(-hidden // 8) * 8
+    nx = -(-in_dim // 8)
+    return hp, nx, (hp // 8 + nx + 1) // 2
+
+
+def tc_gate_columns(hidden: int) -> torch.Tensor:
+    """(4Hp,) int64: the TF column (gate * H + unit) that each column of
+    the tensor-core weights holds, -1 for a padded unit. Warpgroup w owns
+    columns w*2Hp .. w*2Hp+2Hp-1 and units w*Hp/2 on; in each pair of
+    8-column chunks p, unit w*Hp/2 + 4p + q has its (i, j) at columns 2q,
+    2q+1 of the first chunk and its (f, o) at 2q, 2q+1 of the second: the
+    columns of one thread's wgmma accumulator fragment."""
+    hp = tc_dims(1, hidden)[0]
+    n = torch.arange(4 * hp)
+    wg, r = n // (2 * hp), n % (2 * hp)
+    chunk, within = r // 8, r % 8
+    unit = wg * (hp // 2) + 4 * (chunk // 2) + within // 2
+    gate = 2 * (chunk % 2) + within % 2
+    return torch.where(unit < hidden, gate * hidden + unit,
+                       torch.full_like(n, -1))
+
+
+def tc_pack_layer(w: torch.Tensor, b: torch.Tensor, in_dim: int,
+                  hidden: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer-lane's bf16 (w, b) as ``layer_weights`` gives them, in the
+    tensor-core layout: the K rows reordered [Wh; Wx] and zero-padded (Hp
+    h rows, 8*ceil(in/8) x rows, Kp = 16 * k-tiles in all), the columns
+    permuted by ``tc_gate_columns`` (zero for padded units), stored K-major
+    in core columns, [Kp/8][4Hp][8] flat; the bias as (Hp, 4) fp32, (i, j,
+    f, o) a unit, zero for padded units."""
+    hp, _, nk = tc_dims(in_dim, hidden)
+    kp = 16 * nk
+    rows = torch.zeros(kp, 4 * hidden, dtype=w.dtype, device=w.device)
+    rows[:hidden] = w[in_dim:]
+    rows[hp:hp + in_dim] = w[:in_dim]
+    cols = tc_gate_columns(hidden).to(w.device)
+    valid = cols >= 0
+    wp = torch.zeros(kp, 4 * hp, dtype=w.dtype, device=w.device)
+    wp[:, valid] = rows[:, cols[valid]]
+    core = wp.reshape(kp // 8, 8, 4 * hp).transpose(1, 2).contiguous()
+    bias = torch.zeros(hp, 4, dtype=torch.float32, device=b.device)
+    bias[:hidden] = b.reshape(4, hidden).t()
+    return core.reshape(-1), bias
+
+
+def tc_smem(config) -> int:
+    """Shared-memory bytes of a tensor-core block (``lstm_tc.cuh::
+    smem_bytes``): the h and x rings, the zero column, the widest layer's
+    weights and the bias."""
+    widest = max(config.num_input, config.num_hidden)
+    hp, nx, nk = tc_dims(widest, config.num_hidden)
+    col = TC_TILE_B * 8 * 2
+    return (2 * (hp // 8) * col + 2 * nx * col + col
+            + 16 * nk * 4 * hp * 2 + 16 * hp)
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedBiLSTM:
-    """A BiLSTM's recurrent weights in the CUDA kernel's operand layout.
+    """A BiLSTM's recurrent weights in the CUDA kernels' operand layouts.
 
     ``w``: flat, [lane][layer] TF kernels ``(in+H, 4H)`` in the sequence
-    dtype; ``bias``: ``(2, layers, 4H)`` fp32; ``params`` keeps the source
+    dtype; ``bias``: ``(2, layers, 4H)`` fp32; in bf16 also ``tc_w``:
+    flat, [layer][lane] ``tc_pack_layer`` weights, and ``tc_bias``:
+    ``(layers, 2, Hp, 4)`` fp32 (K4 and K5a); ``params`` keeps the source
     dict for the plain version."""
 
     w: torch.Tensor
     bias: torch.Tensor
     precision: str
     params: Dict[str, Any]
+    tc_w: Optional[torch.Tensor] = None
+    tc_bias: Optional[torch.Tensor] = None
 
 
 def pack_bilstm_params(params: Dict[str, Any], config,
@@ -280,7 +369,22 @@ def pack_bilstm_params(params: Dict[str, Any], config,
             bs.append(b)
     w = torch.cat(ws).contiguous()
     bias = torch.stack(bs).reshape(2, config.num_layers, -1).contiguous()
-    return PackedBiLSTM(w=w, bias=bias, precision=precision, params=params)
+    tc_w = tc_bias = None
+    if precision == "bf16":
+        tws, tbs = [], []
+        for layer in range(config.num_layers):
+            lin = config.num_input if layer == 0 else config.num_hidden
+            for lane in ("fw", "bw"):
+                tw, tb = tc_pack_layer(
+                    *layer_weights(params[lane][layer], precision), lin,
+                    config.num_hidden)
+                tws.append(tw)
+                tbs.append(tb)
+        tc_w = torch.cat(tws).contiguous()
+        tc_bias = torch.stack(tbs).reshape(
+            config.num_layers, 2, *tbs[0].shape).contiguous()
+    return PackedBiLSTM(w=w, bias=bias, precision=precision, params=params,
+                        tc_w=tc_w, tc_bias=tc_bias)
 
 
 def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
@@ -322,6 +426,29 @@ def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
     return x
 
 
+def _check_tc(packed: PackedBiLSTM, config, tile_b: int) -> None:
+    """What the bf16 tensor-core kernels (K4, K5a) take beyond
+    ``_check_inputs``: 64 windows a block and Hp <= TC_MAX_HP."""
+    if tile_b != TC_TILE_B:
+        raise ValueError(
+            f"the bf16 tensor-core kernels (K4, K5a) take tile_b="
+            f"{TC_TILE_B} only (the wgmma M), got {tile_b}")
+    hp = tc_dims(1, config.num_hidden)[0]
+    if hp > TC_MAX_HP:
+        raise ValueError(
+            f"the bf16 tensor-core kernels (K4, K5a) take hidden <= "
+            f"{TC_MAX_HP} (a layer's padded weights in one block's shared "
+            f"memory), got {config.num_hidden}")
+    layers = config.num_layers
+    want = 2 * sum(16 * tc_dims(config.num_input if layer == 0 else
+                                config.num_hidden, config.num_hidden)[2]
+                   * 4 * hp for layer in range(layers))
+    if (packed.tc_w is None or packed.tc_w.numel() != want
+            or packed.tc_bias.shape != (layers, 2, hp, 4)):
+        raise ValueError("packed tensor-core weights do not match the "
+                         "model config")
+
+
 def _lane_weights(config) -> int:
     """Elements of one lane's kernels, all layers, in the packed buffer."""
     h = config.num_hidden
@@ -334,8 +461,11 @@ def mono_block(config, schedule: str, tile_b: int,
     """(threads, most threads the kernel takes, shared-memory bytes) of one
     block of a mono schedule, as its CUDA launcher sizes it. K1 and K5b
     hold the sequence and the staged inputs; K5a adds its [x; h] operand
-    buffer; K5c holds the staged inputs and a 2-row h ring a layer, with
-    one thread group a layer."""
+    buffer in fp32 and is the tensor-core block (``tc_smem``, 64 windows,
+    any other ``tile_b`` refused) in bf16; K5c holds the staged inputs and
+    a 2-row h ring a layer, with one thread group a layer."""
+    if tensor_core(schedule, precision):
+        return TC_THREADS, TC_THREADS, tc_smem(config)
     h, f, layers = config.num_hidden, config.num_input, config.num_layers
     steps = config.timesteps // 2 + 1
     size = _itemsize(precision)
@@ -354,13 +484,18 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
                  gate_store: str = "fp32") -> torch.Tensor:
     """K1 (``schedule="mono"``) or one of K5a-c: the whole stack in one
     launch (odd T <= 25). K5b gets a device-memory gate workspace of
-    ``gate_store`` dtype, reused by every layer."""
+    ``gate_store`` dtype, reused by every layer; K5a in bf16 (tensor
+    cores) a bf16 workspace for the inter-layer rows, (ceil(B/64), 2,
+    steps, 64 * Hp), each layer overwriting the one before in place."""
     from . import _build
 
     precision = packed.precision
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
     steps = timesteps // 2 + 1
+    tc = tensor_core(schedule, precision)
+    if tc:
+        _check_tc(packed, config, tile_b)
     threads, max_threads, smem = mono_block(config, schedule, tile_b,
                                             precision)
     x = _check_inputs(packed, x, config, tile_b, smem, threads, max_threads)
@@ -373,17 +508,26 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
     suffix = "bf16" if precision == "bf16" else "f32"
     kernel = "center" if schedule == "mono" else schedule
     fn = getattr(lib, f"dmt_bilstm_{kernel}_{suffix}")
+    w, bias = (packed.tc_w, packed.tc_bias) if tc else (packed.w,
+                                                         packed.bias)
     args = [x.data_ptr(), *x.stride(), batch, timesteps, in_dim, hidden,
-            layers, packed.w.data_ptr(), packed.bias.data_ptr(),
+            layers, w.data_ptr(), bias.data_ptr(),
             _forget_term(config.forget_bias, precision)]
+    blocks = -(-batch // tile_b)
     if schedule == "pregemm":
-        blocks = -(-batch // tile_b)
         gx = torch.empty(blocks * tile_b * 2 * steps * 4 * hidden,
                          dtype=_SEQ_DTYPE[gate_store], device=x.device)
         args += [gx.data_ptr(), int(gate_store == "bf16")]
+    if tc:
+        ws = torch.empty(blocks * 2 * steps * tile_b
+                         * tc_dims(1, hidden)[0], dtype=torch.bfloat16,
+                         device=x.device)
+        args += [ws.data_ptr(), out.data_ptr()]
+    else:
+        args += [out.data_ptr(), tile_b]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = fn(*args, out.data_ptr(), tile_b, stream)
+        status = fn(*args, stream)
     _build.check(status, f"bilstm {schedule} kernel launch")
     if schedule == "mono":
         LAUNCHES[precision] += 1
@@ -396,9 +540,12 @@ def _launch_layered(packed: PackedBiLSTM, x: torch.Tensor, config,
                     tile_b: int = TILE_B) -> torch.Tensor:
     """K4: one launch a layer, both lanes. Layer 0 reads the windows
     through their strides; each later layer reads the (2, steps, B, H)
-    sequences of the one before; the last writes the (B, 2H) features."""
+    sequences of the one before; the last writes the (B, 2H) features.
+    bf16 goes to the tensor-core kernel (``_launch_layered_tc``)."""
     from . import _build
 
+    if tensor_core("layered", packed.precision):
+        return _launch_layered_tc(packed, x, config, tile_b)
     precision = packed.precision
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
@@ -445,6 +592,53 @@ def _launch_layered(packed: PackedBiLSTM, x: torch.Tensor, config,
     return out
 
 
+def _launch_layered_tc(packed: PackedBiLSTM, x: torch.Tensor, config,
+                       tile_b: int) -> torch.Tensor:
+    """K4 in bf16 on the tensor cores: one launch a layer, both lanes, 64
+    windows a block. Between layers the sequence is blocked, (2, steps,
+    ceil(B/64), 64 * Hp) bf16, each tile's row in the kernel's operand
+    layout (the bw lane kept time-reversed, as in fp32)."""
+    from . import _build
+
+    timesteps, hidden = config.timesteps, config.num_hidden
+    in_dim, layers = config.num_input, config.num_layers
+    _check_tc(packed, config, tile_b)
+    x = _check_inputs(packed, x, config, tile_b, tc_smem(config),
+                      TC_THREADS, TC_THREADS)
+    steps, fw_step, bw_step = readout(timesteps)
+    batch = x.shape[0]
+    out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
+                      device=x.device)
+    if batch == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    hp = tc_dims(1, hidden)[0]
+    tiles = -(-batch // TC_TILE_B)
+    src, in_steps, w_off = None, timesteps, 0
+    with torch.cuda.device(x.device):
+        for layer in range(layers):
+            lin = in_dim if layer == 0 else hidden
+            final = layer == layers - 1
+            seq = None if final else torch.empty(
+                2, steps, tiles, TC_TILE_B * hp, dtype=torch.bfloat16,
+                device=x.device)
+            status = lib.dmt_bilstm_layer_bf16(
+                x.data_ptr() if src is None else None, *x.stride(),
+                int(src is None), None if src is None else src.data_ptr(),
+                batch, in_steps, steps, lin, hidden,
+                packed.tc_w.data_ptr() + 2 * w_off,
+                packed.tc_bias[layer].data_ptr(),
+                _forget_term(config.forget_bias, "bf16"),
+                None if final else seq.data_ptr(),
+                out.data_ptr() if final else None, fw_step, bw_step, stream)
+            _build.check(status, f"bilstm layer kernel launch (layer {layer})")
+            LAYERED_LAUNCHES["bf16"] += 1
+            w_off += 2 * 16 * tc_dims(lin, hidden)[2] * 4 * hp
+            src, in_steps = seq, steps
+    return out
+
+
 def _split_params(params: Union[Dict[str, Any], PackedBiLSTM],
                   precision: str):
     """(packed or None, the raw params dict)."""
@@ -462,7 +656,7 @@ def bilstm_center_features(
     x: torch.Tensor,
     config,
     precision: str = "fp32",
-    tile_b: int = TILE_B,
+    tile_b: Optional[int] = None,
     mono: Optional[bool] = None,
 ) -> torch.Tensor:
     """(B, T, F) windows -> (B, 2H) fp32 center [fw; bw] features.
@@ -475,7 +669,8 @@ def bilstm_center_features(
     CPU this is the chosen kernel's plain version; on a CUDA tensor it
     launches the kernel or raises. ``params`` may be pre-packed
     (``pack_bilstm_params``) to skip the per-call packing. ``tile_b`` is
-    the kernel's windows per block (a multiple of 8)."""
+    the kernel's windows per block (a multiple of 8; K4 in bf16 takes 64
+    only), by default ``SCHEDULE_TILE_B`` of the kernel and precision."""
     mono = use_mono(config.timesteps, mono)
     packed, raw = _split_params(params, precision)
     if x.device.type == "cpu":
@@ -485,6 +680,8 @@ def bilstm_center_features(
         raise ValueError(f"unsupported device {x.device}")
     if packed is None:
         packed = pack_bilstm_params(raw, config, precision)
+    if tile_b is None:
+        tile_b = SCHEDULE_TILE_B["mono" if mono else "layered"][precision]
     launch = _launch_mono if mono else _launch_layered
     return launch(packed, x, config, tile_b)
 
@@ -543,7 +740,8 @@ def bilstm_center_mono(
     same x views as ``bilstm_center_features``. On the CPU this is the
     plain version (``bilstm_center_plain``, with ``gate_store`` for K5b);
     on a CUDA tensor it launches the chosen kernel or raises. ``tile_b``
-    defaults to the schedule's ``SCHEDULE_TILE_B``."""
+    defaults to ``SCHEDULE_TILE_B`` of the schedule and precision (K5a in
+    bf16 takes 64 only)."""
     schedule = mono_schedule(config, wavefront, merged_gemm, pregemm,
                              gate_store)
     gates = gate_store if schedule == "pregemm" else "fp32"
@@ -555,5 +753,5 @@ def bilstm_center_mono(
     if packed is None:
         packed = pack_bilstm_params(raw, config, precision)
     if tile_b is None:
-        tile_b = SCHEDULE_TILE_B[schedule]
+        tile_b = SCHEDULE_TILE_B[schedule][precision]
     return _launch_mono(packed, x, config, tile_b, schedule, gates)

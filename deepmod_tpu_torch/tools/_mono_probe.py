@@ -6,7 +6,9 @@ As in the JAX scripts (``scripts/probe_*.py``): H=100, 3 layers, T=21,
 F=7, params from seed 0, windows standard normal from seed 1, 131,072 of
 them by default, and each timed call ends in ``argmax(center @ out_w +
 out_b)``, added into one int32 accumulator over ``ITERS`` chained calls.
-The TPU tiles are replaced by the port's tile sweep.
+The TPU tiles are replaced by the port's tile sweep; the bf16
+tensor-core kernels (K4 and K5a) take one tile, 64 windows, and run at it
+alone.
 """
 
 from __future__ import annotations
@@ -21,6 +23,14 @@ import torch
 BATCH = 131072
 ITERS = 16
 TILES = (8, 16, 24)  # the port's tile sweep (windows per block)
+
+
+def tiles(kernel: str, precision: str):
+    """The tiles ``kernel`` (a mono schedule or "layered") runs at in the
+    sweep: TILES, or the one tile of a tensor-core kernel."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    return (ops.TC_TILE_B,) if ops.tensor_core(kernel, precision) else TILES
 
 
 def parse_args(prog: str, doc: str, argv: Optional[Sequence[str]]):

@@ -3,13 +3,13 @@
     python -m deepmod_tpu_torch.tools.probe_merged_gemm [--device cuda] [--batch N]
 
 Counterpart of ``scripts/probe_merged_gemm.py``. K1 runs two dot products
-a step (x_t against Wx, then h against Wh, from two buffers); K5a
-assembles [x_t; h] in shared memory and runs one over the stacked
-[Wx; Wh], the same FLOPs at the cost of a copy a step and a larger
-block. Both through ``bilstm_center_mono`` (``merged_gemm``), ending in
-the argmax of the logits, in bf16 and fp32 at each tile of the sweep, in
-the same process; prints windows/s. ``--device cpu`` times the plain
-versions instead.
+a step (x_t against Wx, then h against Wh, from two buffers); K5a runs
+one over the stacked [Wx; Wh]: in fp32 on the CUDA cores from an [x_t; h]
+buffer assembled in shared memory, in bf16 as one wgmma chain on the
+tensor cores. Both through ``bilstm_center_mono`` (``merged_gemm``),
+ending in the argmax of the logits, in bf16 and fp32 at each tile of the
+sweep (bf16 K5a at its one tile, 64), in the same process; prints
+windows/s. ``--device cpu`` times the plain versions instead.
 """
 
 from __future__ import annotations
@@ -30,17 +30,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for precision in ("bf16", "fp32"):
         packed = ops.pack_bilstm_params(params, cfg, precision)
         xp = x.to(ops.seq_dtype(precision))
-        for tile_b in common.TILES:
-            row = [f"{precision} tile_b={tile_b}:"]
-            for merged in (False, True):
+        for merged in (False, True):
+            schedule = "merged" if merged else "mono"
+            for tile_b in common.tiles(schedule, precision):
                 r = common.windows_per_s(
                     lambda: common.classify(ops.bilstm_center_mono(
                         packed, xp, cfg, precision, tile_b=tile_b,
                         merged_gemm=merged), params),
                     args.batch, device)
-                row.append(f"{'merged' if merged else 'twodot'}="
-                           f"{r / 1e6:.2f}M/s")
-            print(" ".join(row), flush=True)
+                print(f"{precision} {'merged' if merged else 'twodot'} "
+                      f"tile_b={tile_b}: {r / 1e6:.2f}M/s", flush=True)
     return 0
 
 

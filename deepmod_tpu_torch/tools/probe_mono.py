@@ -7,8 +7,9 @@ windows -> center features -> argmax of the logits, through the layered
 kernel (``bilstm_center_features(..., mono=False)``, a launch a layer,
 the inter-layer sequences in device memory) and through the mono kernel
 (``bilstm_center_mono``, one launch, the sequences in shared memory), in
-bf16 and fp32 at each tile of the sweep; prints windows/s. ``--device
-cpu`` times the plain versions instead.
+bf16 and fp32 at each tile of the sweep (the bf16 layered kernel at its
+one tile, 64); prints windows/s. ``--device cpu`` times the plain
+versions instead.
 """
 
 from __future__ import annotations
@@ -31,15 +32,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         kernels = (
             ("layered", lambda t: ops.bilstm_center_features(
                 packed, xp, cfg, precision, tile_b=t, mono=False)),
-            ("mono   ", lambda t: ops.bilstm_center_mono(
+            ("mono", lambda t: ops.bilstm_center_mono(
                 packed, xp, cfg, precision, tile_b=t)),
         )
         for name, center in kernels:
-            for tile_b in common.TILES:
+            for tile_b in common.tiles(name, precision):
                 r = common.windows_per_s(
                     lambda: common.classify(center(tile_b), params),
                     args.batch, device)
-                print(f"{precision} {name} tile_b={tile_b}: "
+                print(f"{precision} {name:7} tile_b={tile_b}: "
                       f"{r / 1e6:.3f}M windows/s", flush=True)
     return 0
 

@@ -1,5 +1,6 @@
 """The CUDA kernels (K1; K2 and K3; K4; K5a-c; K6; P1) against their
-plain versions, on the card.
+plain versions, on the card. In bf16, K4 and K5a are the tensor-core
+kernels (``csrc/lstm_tc.cuh``, 64 windows a block).
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -90,6 +91,8 @@ def test_kernel_tiles_agree(cuda, tile_b):
     (20, 3, 100, 1000),   # even T: all steps, readout at 10 and 9
     (31, 3, 100, 333),    # odd T past K1's range: the 16-step cone
     (64, 2, 16, 77),      # a long runtime step loop
+    (20, 2, 64, 128),     # a multiple of 64 windows
+    (22, 1, 40, 50),      # under one 64-window tile, the last layer first
 ])
 def test_layered_kernel_matches_plain(cuda, precision, timesteps, layers,
                                       hidden, batch):
@@ -143,6 +146,7 @@ K5_FLAGS = {
     (21, 3, 100, 1000),   # production shape, ragged last tile
     (5, 1, 16, 7),        # one partial tile
     (9, 2, 40, 129),
+    (13, 2, 64, 192),     # a multiple of 64 windows
 ])
 def test_mono_schedule_matches_plain(cuda, label, precision, timesteps,
                                      layers, hidden, batch):
@@ -208,6 +212,39 @@ def test_wavefront_matches_k1(cuda, precision, layers):
     k1 = ops.bilstm_center_features(params, x, cfg, precision)
     torch.cuda.synchronize()
     torch.testing.assert_close(wave, k1, **TOL[precision])
+
+
+@pytest.mark.parametrize("tile_b", [8, 24, 128])
+def test_tensor_core_kernels_take_tile_64_only(cuda, tile_b):
+    """K5a and K4 in bf16 run 64 windows a block (the wgmma M) and refuse
+    any other tile; the default is 64."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=16, num_layers=2)
+    params = init_bilstm_params(0, cfg, device=cuda)
+    x = torch.zeros(70, 21, 7, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tile_b=64"):
+        ops.bilstm_center_mono(params, x, cfg, "bf16", tile_b=tile_b,
+                               merged_gemm=True)
+    with pytest.raises(ValueError, match="tile_b=64"):
+        ops.bilstm_center_features(params, x, cfg, "bf16", tile_b=tile_b,
+                                   mono=False)
+    ops.bilstm_center_mono(params, x, cfg, "bf16", merged_gemm=True)
+    ops.bilstm_center_features(params, x, cfg, "bf16", mono=False)
+    torch.cuda.synchronize()
+
+
+def test_fp32_merged_and_layered_unchanged(cuda):
+    """The fp32 bodies of K5a and K4 are the CUDA-core kernels as before:
+    K5a gives K1's bits, K4 (forced at T=21) K1's features within 2e-5."""
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(12, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (1000, 21, 7), dtype=np.float32)).to(cuda)
+    k1 = ops.bilstm_center_features(params, x, cfg, "fp32")
+    k5a = ops.bilstm_center_mono(params, x, cfg, "fp32", merged_gemm=True)
+    k4 = ops.bilstm_center_features(params, x, cfg, "fp32", mono=False)
+    torch.cuda.synchronize()
+    assert torch.equal(k5a, k1)
+    torch.testing.assert_close(k4, k1, **TOL["fp32"])
 
 
 def test_wavefront_rejects_too_many_threads(cuda):

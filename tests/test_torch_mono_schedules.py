@@ -177,5 +177,8 @@ def test_probe_tool_runs_plain_versions(tool, capsys, monkeypatch):
     assert lines[0].startswith("device: cpu")
     rows = lines[1:]
     assert rows and all("tile_b=" in r and "/s" in r for r in rows)
-    # both precisions at both tiles (probe_mono: both kernels too)
-    assert len(rows) == (8 if tool == "probe_mono" else 4)
+    # both precisions at both tiles (probe_mono and probe_merged_gemm:
+    # both kernels too), the bf16 tensor-core kernels (K4, K5a) at 64 only
+    assert len(rows) == (4 if tool == "probe_pregemm" else 7)
+    if tool != "probe_pregemm":
+        assert sum("tile_b=64" in r for r in rows) == 1
