@@ -9,9 +9,10 @@ without printing the result line):
 
 1. the card's name and power limit;
 2. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
-   ptxas registers and spills of every kernel; the SASS of the bf16 K4
-   and K5a tensor-core kernels must hold HGMMA (wgmma), and no bf16
-   CUDA-core body of either may be left; their dynamic shared memory;
+   ptxas registers and spills of every kernel; the SASS of every bf16
+   template of K4 and K5a-c (the tensor-core kernels, Hp 8-128) must hold
+   HGMMA (wgmma), and no bf16 CUDA-core body of any of them may be left;
+   their dynamic shared memory;
 3. the BiLSTM center kernel (K1) against its plain PyTorch version at
    full width (H=100, 3 layers, T=21, F=7) on 65,536 random windows and
    on the overlapping window view of a 262,144-row feature chunk (the
@@ -69,12 +70,20 @@ without printing the result line):
    2e-2; a bf16 gate store at the bf16 tolerance in both precisions), and
    against K1 on the same input at the same tolerances; kernel and plain
    times at 262,144 windows with a tile sweep (not for the 64-window
-   tensor-core kernel), beside K1's bound and cuDNN time;
+   tensor-core kernels: K5a-c in bf16), beside K1's bound and cuDNN time;
+   bf16 K5b's persistent grid and workspace bytes, and the clusters of
+   K5a and K5c the card holds at once (cudaOccupancyMaxActiveClusters);
    K5c's main path on the window view, and the probe tools (probe_mono,
    probe_merged_gemm: K5a's main path, probe_pregemm: K5b's) at 32,768
-   windows with the launch counts read around each.
+   windows with the launch counts read around each;
+15. bf16 at hidden 128 (Hp 128: K4, K5a and K5c split each layer over a
+   2-CTA cluster): K4 at T=20 and forced at T=21, K5a, K5b (both gate
+   stores) and K5c at T=21, 3 layers, on 32,768 windows against their
+   plain versions (atol 2e-3 + rtol 2e-2), with kernel, plain and cuDNN
+   times at that width and the clusters resident.
 
-Prints the ``{"kernels": [...]}`` line, the nvidia-smi line and, last,
+Prints the ``{"kernels": [...]}`` line (a name ending in ``_tc``: a
+tensor-core kernel), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Every entry of the kernels line has
 the same eleven keys: ``name``, ``route``, ``source`` (the CUDA file's
 path in the repo), ``replaces`` (file:line of the TPU kernel),
@@ -316,7 +325,7 @@ def phase_kernel(device) -> dict:
 
 def tc_build_line(cfg) -> str:
     """ptxas's spills and registers (``-Xptxas -v`` of this run's build)
-    of the two tensor-core kernels at the config's padded width, and the
+    of the four tensor-core kernels at the config's padded width, and the
     dynamic shared memory their launchers ask for (nvcc reports only the
     static)."""
     import re
@@ -328,14 +337,19 @@ def tc_build_line(cfg) -> str:
     lines = _build.build_info["log"].splitlines()
     found = []
     for i, line in enumerate(lines):
-        m = re.search(r"bilstm_(merged|layer)_tc_kernelILi(\d+)E", line)
+        m = re.search(r"bilstm_(merged|layer|pregemm|wavefront)_tc_kernelILi"
+                      r"(\d+)E(Lb([01])E)?", line)
         if m and "Compiling entry" in line and int(m.group(2)) == hp:
             props = [t.split("ptxas info    :")[-1].strip()
                      for t in lines[i + 1:i + 4]
                      if "spill" in t or "registers" in t]
-            found.append(f"{m.group(1)}<{hp}>: " + "; ".join(props))
+            gates = ("" if m.group(3) is None else
+                     ", bf16 gates" if m.group(4) == "1" else ", fp32 gates")
+            found.append(f"{m.group(1)}<{hp}{gates}>: " + "; ".join(props))
     return (" | ".join(found) or "no ptxas log (cached build)") + (
-        f" | dynamic shared memory {ops.tc_smem(cfg)} B")
+        f" | dynamic shared memory {ops.tc_smem(cfg)} B a CTA (K5b "
+        f"{ops.tc_smem(cfg, 'pregemm')} B), {ops.tc_threads('merged', cfg.num_hidden)}"
+        f" threads (K5b {ops.tc_threads('pregemm', cfg.num_hidden)})")
 
 
 def _close(got, want, precision: str) -> bool:
@@ -560,11 +574,15 @@ def probe_loop_counts(lib_path: str) -> dict:
     return counts
 
 
+TC_KINDS = ("merged", "layer", "pregemm", "wavefront")  # K5a, K4, K5b, K5c
+TC_HP = tuple(range(8, 129, 8))  # the padded widths instantiated
+
+
 def tensor_core_sass(lib_path: str) -> dict:
     """HGMMA (wgmma) instructions in the SASS of each bf16 kernel of K4 and
-    K5a (``cuobjdump -sass`` of the built library), by mangled name; the
-    tensor-core kernels must issue them and no bf16 CUDA-core body of
-    either may be left."""
+    K5a-c (``cuobjdump -sass`` of the built library), by mangled name;
+    every template (Hp 8-128) of the tensor-core kernels must issue them
+    and no bf16 CUDA-core body of any of them may be left."""
     import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -573,15 +591,19 @@ def tensor_core_sass(lib_path: str) -> dict:
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        m = re.search(r"bilstm_(merged|layer)_(tc_kernelILi\d+E|kernelI13__nv)",
-                      name)
+        m = re.search(r"bilstm_(merged|layer|pregemm|wavefront)_"
+                      r"(tc_kernelILi\d+E(?:Lb[01]E)?|kernelI13__nv)", name)
         if m:
             counts[m.group(1) + "_" + m.group(2)] = block.count("HGMMA")
     old = [k for k in counts if "kernelI13__nv" in k]
     assert not old, f"bf16 CUDA-core bodies left: {old}"
-    for kind in ("merged", "layer"):
+    for kind in TC_KINDS:
         tc = {k: v for k, v in counts.items() if k.startswith(kind + "_tc")}
-        assert tc and all(v > 0 for v in tc.values()), (kind, counts)
+        # K5b: one template a gate dtype (Lb0E fp32, Lb1E bf16)
+        flags = ("Lb0E", "Lb1E") if kind == "pregemm" else ("",)
+        want = {f"{kind}_tc_kernelILi{hp}E{f}" for hp in TC_HP for f in flags}
+        assert set(tc) == want and all(v > 0 for v in tc.values()), (
+            kind, counts)
     return counts
 
 
@@ -741,6 +763,8 @@ def phase_schedules(device, k1: dict) -> dict:
         assert res["wavefront"]["launches"] == 1, ops.MONO_SCHEDULE_LAUNCHES
         assert pred.shape == (TIME_B - cfg.timesteps + 1,)
         del inputs, rows, wave, pred
+        if precision == "bf16":
+            log(f"[K5 bf16] {tc_shape_line(cfg, TIME_B, device)}")
 
         xt = x_all.to(dt).contiguous()
         plain = {g: time_ms(lambda: ops.bilstm_center_plain(
@@ -794,6 +818,91 @@ def phase_schedules(device, k1: dict) -> dict:
             if ops.mono_schedule(cfg, **flags) == schedule:
                 for precision in ("fp32", "bf16"):
                     results[precision][label]["launches"] = counts[precision]
+    return results
+
+
+def tc_shape_line(cfg, batch: int, device) -> str:
+    """bf16 K5b's persistent grid and its workspace bytes at ``batch``
+    windows (gate buffer in fp32 and in bf16, the inter-layer rows), and
+    cudaOccupancyMaxActiveClusters of bf16 K5a and K5c at ``cfg``."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    hp = ops.tc_dims(1, cfg.num_hidden)[0]
+    steps = cfg.timesteps // 2 + 1
+    slots = ops.pregemm_slots(batch, cfg.num_input, cfg.num_hidden, "fp32",
+                              device)
+    assert slots == ops.pregemm_slots(batch, cfg.num_input, cfg.num_hidden,
+                                      "bf16", device)
+    gates = slots * steps * ops.TC_THREADS * hp
+    rows = slots * steps * ops.TC_TILE_B * hp * 2
+    split = ops.tc_split(cfg.num_hidden)
+    return (f"H={cfg.num_hidden} B={batch}: K5b grid {slots} slots, gate "
+            f"workspace {gates * 4} B fp32 / {gates * 2} B bf16, rows "
+            f"{rows} B; clusters resident: K5a ({split} CTA a cluster) "
+            f"{ops.tc_clusters('merged', cfg, device)}, K5c "
+            f"({split * cfg.num_layers} CTAs a cluster) "
+            f"{ops.tc_clusters('wavefront', cfg, device)}")
+
+
+WIDE_B = 32768  # windows of the hidden-128 check
+
+
+def phase_hidden_128(device) -> dict:
+    """bf16 at hidden 128 (Hp 128: K4, K5a and K5c split each layer-lane
+    over a 2-CTA cluster; K5b keeps one weight resident): K4 at T=20 and
+    forced at T=21, K5a, K5b (both gate stores) and K5c at T=21, 3 layers,
+    WIDE_B windows, each against its plain version; kernel, plain and
+    cuDNN times at that width beside the bound."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for timesteps in (21, 20):
+        cfg = BiLSTMConfig(num_hidden=128, timesteps=timesteps)
+        params = init_bilstm_params(SEED + 128 + timesteps, cfg, device=device)
+        packed = ops.pack_bilstm_params(params, cfg, "bf16")
+        x = torch.from_numpy(np.random.default_rng(SEED + timesteps)
+                             .standard_normal((WIDE_B, timesteps,
+                                               cfg.num_input),
+                                              dtype=np.float32)).to(
+            device).bfloat16()
+        lib = cudnn_lstms(params, cfg, "bf16", device)
+        with torch.no_grad():
+            lib_ms = time_ms(lambda: cudnn_center(lib, x, cfg))
+        w_bytes = packed.w.numel() * 2 + packed.bias.numel() * 4
+        cases = [("K4", lambda: ops.bilstm_center_features(
+            packed, x, cfg, "bf16", mono=False),
+            lambda: ops.bilstm_layered_plain(params, x, cfg, "bf16"), True)]
+        if timesteps % 2 == 1:
+            for label, flags in SCHEDULE_CASES:
+                cases.append((label, lambda f=flags: ops.bilstm_center_mono(
+                    packed, x, cfg, "bf16", **f),
+                    lambda f=flags: ops.bilstm_center_plain(
+                        params, x, cfg, "bf16",
+                        gate_store=f.get("gate_store", "fp32")), False))
+        for label, kernel, plain, layered in cases:
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            assert torch.isfinite(got).all(), f"{label} H=128 T={timesteps}"
+            err = float((got - want).abs().max())
+            assert _close(got, want, "bf16"), (
+                f"{label} bf16 H=128 T={timesteps} vs plain: max abs {err}")
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain, reps=3)
+            b_ms, b_by = bound_ms(cfg, WIDE_B, "bf16", w_bytes,
+                                  layered=layered)
+            log(f"[H128 bf16] {label} T={timesteps} B={WIDE_B}: max_abs_err "
+                f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"cudnn {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+            results[label, timesteps] = dict(max_abs_err=err, ms=ms,
+                                             plain_ms=plain_ms,
+                                             library_ms=lib_ms, bound_ms=b_ms)
+        if timesteps == 21:
+            log(f"[H128 bf16] {tc_shape_line(cfg, WIDE_B, device)}")
+        del x, lib
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1397,12 +1506,13 @@ def main() -> int:
     log(f"[build] ptxas injected a warpgroup.arrive into a wgmma chain "
         f"(C7519) {injected} times")
     hgmma = tensor_core_sass(lib_path)
-    log(f"[build] HGMMA instructions in the SASS of the bf16 K4 / K5a "
+    log(f"[build] HGMMA instructions in the SASS of the bf16 K4 / K5a-c "
         f"kernels (one template a padded width): {hgmma}")
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
 
-    log(f"[build] the bf16 K4 / K5a tensor-core kernels at H=100: "
-        f"{tc_build_line(BiLSTMConfig())}")
+    for hidden in (100, 128):
+        log(f"[build] the bf16 K4 / K5a-c tensor-core kernels at "
+            f"H={hidden}: {tc_build_line(BiLSTMConfig(num_hidden=hidden))}")
 
     kern = phase_kernel(device)
     tkern = phase_train_kernels(device)
@@ -1412,6 +1522,9 @@ def main() -> int:
     t_k5 = time.perf_counter()
     sched = phase_schedules(device, kern)
     log(f"[K5] phase: {time.perf_counter() - t_k5:.2f} s")
+    t_wide = time.perf_counter()
+    phase_hidden_128(device)
+    log(f"[H128] phase: {time.perf_counter() - t_wide:.2f} s")
     with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as workdir:
         det = phase_detect(device, workdir)
         det_k4 = phase_detect_layered(device, workdir)
@@ -1447,8 +1560,10 @@ def main() -> int:
                 f"k{2 if kind == 'fwd' else 3}_train_{kind}_{precision}",
                 "bilstm_train.cu", f"deepmod_tpu/ops/bilstm_fused_train.py:{line}",
                 trn["launches"][f"{kind}_{precision}"], tkern[precision][kind]))
+        # a name ending in "_tc": a tensor-core (wgmma) kernel
         kernels.append(entry(
-            f"k4_layer_{precision}", "bilstm_layer.cu",
+            f"k4_layer_{precision}" + ("_tc" if precision == "bf16" else ""),
+            "bilstm_layer.cu",
             "deepmod_tpu/ops/bilstm_fused.py:197", k4_launches[precision],
             layered[precision]))
     kernels.append(entry("k6_lstm_layer_fp32", "lstm_layer.cu",
@@ -1468,8 +1583,9 @@ def main() -> int:
                 ("k5a", "merged", 317, k5["merged"]),
                 ("k5b", "pregemm", 392, k5b),
                 ("k5c", "wavefront", 480, k5["wavefront"])):
+            tc = "_tc" if precision == "bf16" else ""
             kernels.append(entry(
-                f"{kid}_{schedule}_{precision}", f"bilstm_mono_{schedule}.cu",
+                f"{kid}_{schedule}_{precision}{tc}", f"bilstm_mono_{schedule}.cu",
                 f"deepmod_tpu/ops/bilstm_fused.py:{src_line}", k["launches"],
                 k))
     line = json.dumps({"kernels": kernels}, separators=(",", ":"))

@@ -26,7 +26,9 @@
 //   at layer 0, cp.async of one blocked row after it). Between layers the
 //   (2, steps, B, H) sequence is port-internal and blocked: (2, steps,
 //   ceil(B/64), 64 * Hp), each tile's row in lstm_tc.cuh's A-column
-//   layout, so a row is one contiguous 16-byte copy in and out.
+//   layout, so a row is one contiguous 16-byte copy in and out. Hidden
+//   105-128 (Hp 112-128): a 2-CTA cluster a tile-lane, each CTA 128
+//   threads over its half of the units (lstm_tc.cuh, the split).
 //
 // fp32 design (simple first, fast later):
 //   grid (ceil(B / tile_b), 2): blockIdx.y is the lane, one launch a
@@ -180,8 +182,10 @@ int launch(const void* in, long long s_lane, long long s_b, long long s_t,
 }
 
 // the bf16 tensor-core kernel: one layer of one lane for a 64-window tile
+// (Hp > 104: this CTA's half of the units, a 2-CTA cluster a tile-lane)
 template <int kHp>
-__global__ void __launch_bounds__(dmt::tc::kThreads, 1)
+__global__ void __launch_bounds__(
+    dmt::tc::threads_of(dmt::tc::split_of(kHp)), 1)
 bilstm_layer_tc_kernel(const __nv_bfloat16* __restrict__ x, long long s_b,
                        long long s_t, long long s_f, int reverse_bw,
                        const __nv_bfloat16* __restrict__ seq_in, int batch,
@@ -191,14 +195,17 @@ bilstm_layer_tc_kernel(const __nv_bfloat16* __restrict__ x, long long s_b,
                        __nv_bfloat16* __restrict__ seq_out,
                        float* __restrict__ out, int fw_step, int bw_step) {
   namespace tc = dmt::tc;
+  constexpr int kSplit = tc::split_of(kHp);
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   const int lane = blockIdx.y;  // 0 = fw, 1 = bw
+  const int tiles = gridDim.x / kSplit;
+  const int tile_i = blockIdx.x / kSplit;
   const size_t w_bytes = tc::weight_bytes(kHp, in_dim);
-  const tc::Smem sm = tc::carve(tc_smem, kHp, nx, w_bytes);
-  // blocked rows: (2, steps, tiles, 64 * Hp); this block's row of step t
+  const tc::Smem sm = tc::carve(tc_smem, kHp, nx, w_bytes / kSplit);
+  // blocked rows: (2, steps, tiles, 64 * Hp); this tile's row of step t
   const long long row = static_cast<long long>(tc::kRows) * kHp;
-  const long long step_stride = static_cast<long long>(gridDim.x) * row;
-  const long long tile = static_cast<long long>(blockIdx.x) * row;
+  const long long step_stride = static_cast<long long>(tiles) * row;
+  const long long tile = static_cast<long long>(tile_i) * row;
 
   tc::Layer L;
   L.w = w + lane * static_cast<long long>(w_bytes / 2);
@@ -208,7 +215,7 @@ bilstm_layer_tc_kernel(const __nv_bfloat16* __restrict__ x, long long s_b,
   L.steps = steps;
   L.batch = batch;
   L.lane = lane;
-  L.b0 = static_cast<long long>(blockIdx.x) * tc::kRows;
+  L.b0 = static_cast<long long>(tile_i) * tc::kRows;
   L.fb = fb_term;
   tc::LayerIO io;
   io.x = x;
@@ -227,7 +234,7 @@ bilstm_layer_tc_kernel(const __nv_bfloat16* __restrict__ x, long long s_b,
   io.seq_out_t = step_stride;
   io.out = out;
   io.out_step = lane == 0 ? fw_step : bw_step;
-  tc::run_layer<kHp>(sm, L, io);
+  tc::run_layer<kHp, kSplit>(sm, L, io);
 }
 
 template <int kHp>
@@ -237,23 +244,34 @@ int launch_tc(const void* x, long long s_b, long long s_t, long long s_f,
               const void* bias, float fb_term, void* seq_out, void* out,
               int fw_step, int bw_step, void* stream) {
   namespace tc = dmt::tc;
+  constexpr int kSplit = tc::split_of(kHp);
   const int nx = tc::x_cols(in_dim);
   const size_t smem =
-      tc::smem_bytes(kHp, nx, tc::weight_bytes(kHp, in_dim));
+      tc::smem_bytes(kHp, nx, tc::weight_bytes(kHp, in_dim) / kSplit);
   auto kernel = bilstm_layer_tc_kernel<kHp>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + tc::kRows - 1) / tc::kRows, 2);
-  kernel<<<grid, tc::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), s_b, s_t, s_f, reverse_bw,
-      static_cast<const __nv_bfloat16*>(seq_in), batch, in_steps, steps,
-      in_dim, hidden, nx, static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(bias), fb_term,
-      static_cast<__nv_bfloat16*>(seq_out), static_cast<float*>(out),
-      fw_step, bw_step);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((batch + tc::kRows - 1) / tc::kRows * kSplit, 2);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* sib = static_cast<const __nv_bfloat16*>(seq_in);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  const auto* bb = static_cast<const float*>(bias);
+  auto* sob = static_cast<__nv_bfloat16*>(seq_out);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if constexpr (kSplit > 1) {
+    return static_cast<int>(tc::launch_cluster(
+        kernel, grid, tc::threads_of(kSplit), smem, st, kSplit, xb, s_b,
+        s_t, s_f, reverse_bw, sib, batch, in_steps, steps, in_dim, hidden,
+        nx, wb, bb, fb_term, sob, o, fw_step, bw_step));
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, tc::kThreads, smem, st>>>(
+        xb, s_b, s_t, s_f, reverse_bw, sib, batch, in_steps, steps, in_dim,
+        hidden, nx, wb, bb, fb_term, sob, o, fw_step, bw_step);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace
@@ -289,7 +307,9 @@ int dmt_bilstm_layer_f32(const void* in, long long s_lane, long long s_b,
 // packing of ops/bilstm_fused.py for both lanes ([lane] the padded,
 // gate-permuted (Kp, 4Hp) bf16 weights in core columns; [lane] the (Hp, 4)
 // fp32 bias), i/f/o pre-halved; half_forget_bias is 0.5 * forget_bias. Hp
-// = hidden rounded up to 8, at most 104 (else cudaErrorInvalidValue)
+// = hidden rounded up to 8, at most 128 (else cudaErrorInvalidValue);
+// Hp 112-128 launch 2-CTA clusters (cudaErrorLaunchOutOfResources where
+// none fits)
 int dmt_bilstm_layer_bf16(const void* x, long long s_b, long long s_t,
                           long long s_f, int reverse_bw, const void* seq_in,
                           int batch, int in_steps, int steps, int in_dim,

@@ -18,7 +18,9 @@
 //   device-memory workspace from the wrapper, one blocked row a step,
 //   overwritten in place by the next layer: its step t+1 writes row t,
 //   which the prefetch of step t-1 read. 132 resident blocks x 146 KB stay
-//   in the 50 MB L2.
+//   in the 50 MB L2. Hidden 105-128 (Hp 112-128): a 2-CTA cluster a
+//   tile-lane, each CTA 128 threads over its half of the units
+//   (lstm_tc.cuh, the split), the pair sharing the workspace rows.
 //
 // fp32: each step assembles the operand [x_t; h_{t-1}] in shared memory
 // and each thread runs ONE dot product over its lin+H rows against its
@@ -169,8 +171,10 @@ int launch(const void* x, long long stride_b, long long stride_t,
 }
 
 // the bf16 tensor-core kernel: one lane of one 64-window tile, every layer
+// (Hp > 104: this CTA's half of the units, a 2-CTA cluster a tile-lane)
 template <int kHp>
-__global__ void __launch_bounds__(dmt::tc::kThreads, 1)
+__global__ void __launch_bounds__(
+    dmt::tc::threads_of(dmt::tc::split_of(kHp)), 1)
 bilstm_merged_tc_kernel(const __nv_bfloat16* __restrict__ x,
                         long long stride_b, long long stride_t,
                         long long stride_f, int batch, int timesteps,
@@ -180,15 +184,18 @@ bilstm_merged_tc_kernel(const __nv_bfloat16* __restrict__ x,
                         __nv_bfloat16* __restrict__ ws,
                         float* __restrict__ out) {
   namespace tc = dmt::tc;
+  constexpr int kSplit = tc::split_of(kHp);
   extern __shared__ __align__(1024) unsigned char tc_smem[];
   const int steps = timesteps / 2 + 1;
   const int lane = blockIdx.y;  // 0 = fw, 1 = bw
-  const size_t w_max = tc::weight_bytes(kHp, in_dim > hidden ? in_dim : hidden);
+  const int tile = blockIdx.x / kSplit;
+  const size_t w_max =
+      tc::weight_bytes(kHp, in_dim > hidden ? in_dim : hidden) / kSplit;
   const tc::Smem sm = tc::carve(tc_smem, kHp, nx_max, w_max);
-  // this block's rows of the workspace: (tiles, 2, steps, 64 * Hp)
+  // this tile's rows of the workspace: (tiles, 2, steps, 64 * Hp)
   const long long row = static_cast<long long>(tc::kRows) * kHp;
   __nv_bfloat16* rows =
-      ws + (static_cast<long long>(blockIdx.x) * 2 + lane) * steps * row;
+      ws + (static_cast<long long>(tile) * 2 + lane) * steps * row;
 
   tc::Layer L;
   L.w = w;
@@ -197,7 +204,7 @@ bilstm_merged_tc_kernel(const __nv_bfloat16* __restrict__ x,
   L.steps = steps;
   L.batch = batch;
   L.lane = lane;
-  L.b0 = static_cast<long long>(blockIdx.x) * tc::kRows;
+  L.b0 = static_cast<long long>(tile) * tc::kRows;
   L.fb = fb_term;
   for (int layer = 0; layer < num_layers; ++layer) {
     L.in_dim = layer == 0 ? in_dim : hidden;
@@ -219,7 +226,7 @@ bilstm_merged_tc_kernel(const __nv_bfloat16* __restrict__ x,
     tc::Layer here = L;
     here.w += lane * lane_w;
     here.bias += lane * kHp * 4;
-    tc::run_layer<kHp>(sm, here, io);
+    tc::run_layer<kHp, kSplit>(sm, here, io);
     L.w += 2 * lane_w;  // [layer][lane]
     L.bias += 2 * kHp * 4;
   }
@@ -231,21 +238,46 @@ int launch_tc(const void* x, long long stride_b, long long stride_t,
               int hidden, int num_layers, const void* w, const void* bias,
               float fb_term, void* ws, void* out, void* stream) {
   namespace tc = dmt::tc;
-  const int nx_max = tc::x_cols(in_dim > hidden ? in_dim : hidden);
-  const size_t smem = tc::smem_bytes(
-      kHp, nx_max, tc::weight_bytes(kHp, in_dim > hidden ? in_dim : hidden));
+  constexpr int kSplit = tc::split_of(kHp);
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const int nx_max = tc::x_cols(widest);
+  const size_t smem =
+      tc::smem_bytes(kHp, nx_max, tc::weight_bytes(kHp, widest) / kSplit);
   auto kernel = bilstm_merged_tc_kernel<kHp>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + tc::kRows - 1) / tc::kRows, 2);
-  kernel<<<grid, tc::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), stride_b, stride_t, stride_f,
-      batch, timesteps, in_dim, hidden, num_layers, nx_max,
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(bias),
-      fb_term, static_cast<__nv_bfloat16*>(ws), static_cast<float*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const dim3 grid((batch + tc::kRows - 1) / tc::kRows * kSplit, 2);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  const auto* bb = static_cast<const float*>(bias);
+  auto* wsb = static_cast<__nv_bfloat16*>(ws);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if constexpr (kSplit > 1) {
+    return static_cast<int>(tc::launch_cluster(
+        kernel, grid, tc::threads_of(kSplit), smem, st, kSplit, xb,
+        stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
+        num_layers, nx_max, wb, bb, fb_term, wsb, o));
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, tc::kThreads, smem, st>>>(
+        xb, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
+        num_layers, nx_max, wb, bb, fb_term, wsb, o);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <int kHp>
+int clusters_tc(int in_dim, int hidden, int* clusters) {
+  namespace tc = dmt::tc;
+  constexpr int kSplit = tc::split_of(kHp);
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  return static_cast<int>(tc::cluster_occupancy(
+      bilstm_merged_tc_kernel<kHp>, tc::threads_of(kSplit),
+      tc::smem_bytes(kHp, tc::x_cols(widest),
+                     tc::weight_bytes(kHp, widest) / kSplit),
+      kSplit, clusters));
 }
 
 }  // namespace
@@ -270,8 +302,9 @@ int dmt_bilstm_merged_f32(const void* x, long long stride_b,
 // the padded, gate-permuted (Kp, 4Hp) bf16 weights in core columns and the
 // (Hp, 4) fp32 bias, i/f/o pre-halved); ws is a bf16 workspace of
 // ceil(B/64) * 2 * (T//2+1) * 64 * Hp elements; half_forget_bias is 0.5 *
-// forget_bias. Hp = hidden rounded up to 8, at most 104 (else
-// cudaErrorInvalidValue)
+// forget_bias. Hp = hidden rounded up to 8, at most 128 (else
+// cudaErrorInvalidValue); Hp 112-128 launch 2-CTA clusters
+// (cudaErrorLaunchOutOfResources where none fits)
 int dmt_bilstm_merged_bf16(const void* x, long long stride_b,
                            long long stride_t, long long stride_f, int batch,
                            int timesteps, int in_dim, int hidden,
@@ -284,6 +317,14 @@ int dmt_bilstm_merged_bf16(const void* x, long long stride_b,
                        half_forget_bias, ws, out, stream)
   DMT_TC_DISPATCH(dmt::tc::padded_hidden(hidden), DMT_LAUNCH)
 #undef DMT_LAUNCH
+}
+
+// cudaOccupancyMaxActiveClusters of the bf16 kernel at this shape (a
+// cluster of 1 CTA up to Hp = 104, of 2 beyond) into *clusters
+int dmt_bilstm_merged_bf16_clusters(int in_dim, int hidden, int* clusters) {
+#define DMT_CLUSTERS(hp) return clusters_tc<hp>(in_dim, hidden, clusters)
+  DMT_TC_DISPATCH(dmt::tc::padded_hidden(hidden), DMT_CLUSTERS)
+#undef DMT_CLUSTERS
 }
 
 }  // extern "C"

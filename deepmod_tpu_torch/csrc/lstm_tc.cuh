@@ -1,6 +1,8 @@
 // The tensor-core LSTM layer for Hopper (sm_90a): the bf16 mode of K5a
 // (bilstm_mono_merged.cu) and of K4 (bilstm_layer.cu) run one lane of one
-// layer over a 64-window tile through run_layer below.
+// layer over a 64-window tile through run_layer below; the bf16 modes of
+// K5b (bilstm_mono_pregemm.cu) and K5c (bilstm_mono_wavefront.cu) build
+// their own step loops from the same pieces.
 //
 // Numerics: K1's bf16 contract (lstm_common.cuh::cell<true>, unchanged):
 // bf16 x, weights and stored h; fp32 accumulation (the tensor cores' fp32
@@ -44,6 +46,22 @@
 //     64 x Hp block in the A-column layout, so a row is one contiguous
 //     copy in and out.
 //
+// Hp 112-128 (hidden 105-128, up to the JAX fused kernels' LANE = 128):
+// a layer's weights after the first are 16 Hp^2 = 262,144 B at Hp = 128,
+// more than one block's 232,448 B. The layer-lane is then split by units
+// over a 2-CTA thread-block cluster (kSplit = 2): CTA r holds exactly the
+// gate columns of warpgroup r above (Kp x 2Hp, 131,072 B at Hp = 128; the
+// packing is unchanged), runs ONE warpgroup (128 threads) with the
+// m64n(2Hp)k16 chain over the full [h_{t-1}; x_t] and the cell of its
+// Hp/2 units, and writes each h value into its own h ring and into the
+// peer's, through distributed shared memory. One cluster barrier
+// (barrier.cluster arrive.release / wait.acquire) ends the step; the
+// two-slot rings keep the one-barrier argument above across the pair,
+// since a CTA writes the peer's slot t&1 in the step in which both read
+// slot (t-1)&1. Why this and not Wx streamed by TMA with Wh resident: the
+// split keeps the packing, the step and its one barrier as they are and
+// halves each SM's chain, at the cost of a second SM a tile.
+//
 // What bounds it on an H100: the cell's tanhf (5 a unit and window, about
 // 3 us a step per SM at P1's measured rate) before the product (11 MFLOP a
 // step at Hp=104, ~1.5 us at the tensor cores' peak). Left for later: two
@@ -52,6 +70,8 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
+
 #include <cstdint>
 
 #include "lstm_common.cuh"
@@ -59,21 +79,32 @@
 namespace dmt {
 namespace tc {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;      // windows a block: the wgmma M
 constexpr int kThreads = 256;  // two consumer warpgroups
 constexpr int kColBytes = kRows * 8 * 2;  // one core column
-// largest padded hidden size: the weights of a layer after the first
-// (16 Hp^2 bytes) and the rings must fit the 227 KB of one block
-constexpr int kMaxHp = 104;
+// largest padded hidden size: the JAX fused kernels' LANE (128)
+constexpr int kMaxHp = 128;
+// largest Hp whose layer weights after the first (16 Hp^2 bytes) and rings
+// fit the 227 KB of one block; wider layers split over a 2-CTA cluster
+constexpr int kMaxHpOneBlock = 104;
 
-__host__ __device__ inline int padded_hidden(int hidden) {
+__host__ __device__ constexpr int padded_hidden(int hidden) {
   return (hidden + 7) / 8 * 8;
 }
+// CTAs that share one layer-lane's gate columns (split by units)
+__host__ __device__ constexpr int split_of(int hp) {
+  return hp > kMaxHpOneBlock ? 2 : 1;
+}
+// threads a CTA of a split: one warpgroup for each gate-column half it owns
+__host__ __device__ constexpr int threads_of(int split) {
+  return kThreads / split;
+}
 // core columns of the layer input, and k-tiles of [h; x] (16 wide)
-__host__ __device__ inline int x_cols(int in_dim) { return (in_dim + 7) / 8; }
-__host__ __device__ inline int k_tiles(int hp, int in_dim) {
+__host__ __device__ constexpr int x_cols(int in_dim) { return (in_dim + 7) / 8; }
+__host__ __device__ constexpr int k_tiles(int hp, int in_dim) {
   return (hp / 8 + x_cols(in_dim) + 1) / 2;
 }
 // bytes of one lane's layer weights: Kp x 4Hp bf16
@@ -140,6 +171,11 @@ __device__ __forceinline__ void wgmma_wait_all() {
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
+// the same for writes into any shared memory of the cluster (this thread's
+// stores into a peer CTA's rings through distributed shared memory)
+__device__ __forceinline__ void fence_async_all() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(smem)),
@@ -155,6 +191,20 @@ template <int R>
 __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the barrier that ends a step: the block's, or the whole cluster's
+// (barrier.cluster.arrive.release + wait.acquire: every CTA's shared-memory
+// writes before it, remote ones included, are seen by every CTA after it)
+template <bool kCluster>
+__device__ __forceinline__ void step_barrier() {
+  if constexpr (kCluster) {
+    fence_async_all();
+    cg::this_cluster().sync();
+  } else {
+    fence_async_smem();
+    __syncthreads();
+  }
 }
 
 // wgmma.m64nNk16.f32.bf16.bf16 with both operands in shared memory (K-major,
@@ -175,6 +225,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #define DMT_ACC_176 DMT_ACC_160, DMT_ACC8(80)
 #define DMT_ACC_192 DMT_ACC_176, DMT_ACC8(88)
 #define DMT_ACC_208 DMT_ACC_192, DMT_ACC8(96)
+#define DMT_ACC_224 DMT_ACC_208, DMT_ACC8(104)
+#define DMT_ACC_240 DMT_ACC_224, DMT_ACC8(112)
+#define DMT_ACC_256 DMT_ACC_240, DMT_ACC8(120)
 #define DMT_REG_16 "%0, %1, %2, %3, %4, %5, %6, %7"
 #define DMT_REG_32 DMT_REG_16 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define DMT_REG_48 DMT_REG_32 ", %16, %17, %18, %19, %20, %21, %22, %23"
@@ -188,6 +241,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #define DMT_REG_176 DMT_REG_160 ", %80, %81, %82, %83, %84, %85, %86, %87"
 #define DMT_REG_192 DMT_REG_176 ", %88, %89, %90, %91, %92, %93, %94, %95"
 #define DMT_REG_208 DMT_REG_192 ", %96, %97, %98, %99, %100, %101, %102, %103"
+#define DMT_REG_224 \
+  DMT_REG_208 ", %104, %105, %106, %107, %108, %109, %110, %111"
+#define DMT_REG_240 \
+  DMT_REG_224 ", %112, %113, %114, %115, %116, %117, %118, %119"
+#define DMT_REG_256 \
+  DMT_REG_240 ", %120, %121, %122, %123, %124, %125, %126, %127"
 // IA, IB, IS: the operand numbers of desc_a, desc_b and scale_d (N/2 ..)
 #define DMT_WGMMA_CASE(N, IA, IB, IS)                                       \
   if constexpr (kN == N) {                                                  \
@@ -218,9 +277,32 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[kN / 2],
   DMT_WGMMA_CASE(176, 88, 89, 90)
   DMT_WGMMA_CASE(192, 96, 97, 98)
   DMT_WGMMA_CASE(208, 104, 105, 106)
+  DMT_WGMMA_CASE(224, 112, 113, 114)
+  DMT_WGMMA_CASE(240, 120, 121, 122)
+  DMT_WGMMA_CASE(256, 128, 129, 130)
 }
 
 #undef DMT_WGMMA_CASE
+
+// One chain: acc (+)= sum over nk k-tiles of A(2j, 2j+1) @ B k-tile j.
+// col(c) is the shared address of A's core column c; B is [kc][n][8] from
+// w_base with w_lbo bytes between k core columns; scale0 == 0 overwrites
+// acc with the first product. Commits; the caller waits.
+template <int kN, typename ColFn>
+__device__ __forceinline__ void chain(float (&acc)[kN / 2], ColFn col,
+                                      uint32_t w_base, uint32_t w_lbo,
+                                      int nk, int scale0) {
+  fence_acc(acc);
+  wgmma_fence();
+  for (int j = 0; j < nk; ++j) {
+    const uint32_t a0 = col(2 * j);
+    const uint32_t a1 = col(2 * j + 1);
+    wgmma_bf16<kN>(acc, make_desc(a0, a1 - a0, 128),
+                   make_desc(w_base + 2 * j * w_lbo, w_lbo, 128),
+                   j > 0 || scale0 != 0);
+  }
+  wgmma_commit();
+}
 
 // ------------------------------------------------------------ one layer
 
@@ -273,6 +355,7 @@ __device__ __forceinline__ void put_window_value(unsigned char* slot, int s,
 constexpr int kXRegs = 4;  // layer-0 values a thread prefetches in registers
 
 // x_{t} into ring slot `slot`: issue (cp.async or register loads) ...
+template <int kT>
 __device__ __forceinline__ void x_issue(const LayerIO& io, const Layer& L,
                                         int t, unsigned char* slot, int nx,
                                         bf16 (&v)[kXRegs]) {
@@ -282,19 +365,20 @@ __device__ __forceinline__ void x_issue(const LayerIO& io, const Layer& L,
     const int tt = io.reversed ? io.in_steps - 1 - t : t;
 #pragma unroll
     for (int k = 0; k < kXRegs; ++k) {
-      const int s = tid + k * kThreads;
+      const int s = tid + k * kT;
       v[k] = s < kRows * width ? window_value(io, L, tt, s, width)
                                : from_f<bf16>(0.0f);
     }
   } else {
     const uint4* src = reinterpret_cast<const uint4*>(io.seq_in + t * io.seq_in_t);
     const int n16 = nx * kColBytes / 16;
-    for (int i = tid; i < n16; i += kThreads) {
+    for (int i = tid; i < n16; i += kT) {
       cp_async16(slot + 16 * i, src + i);
     }
   }
 }
 // ... and complete it (every thread, before the fence and the barrier)
+template <int kT>
 __device__ __forceinline__ void x_complete(const LayerIO& io, const Layer& L,
                                            int t, unsigned char* slot, int nx,
                                            const bf16 (&v)[kXRegs]) {
@@ -304,12 +388,12 @@ __device__ __forceinline__ void x_complete(const LayerIO& io, const Layer& L,
     const int n = kRows * width;
 #pragma unroll
     for (int k = 0; k < kXRegs; ++k) {
-      const int s = tid + k * kThreads;
+      const int s = tid + k * kT;
       if (s < n) put_window_value(slot, s, width, v[k]);
     }
     // inputs wider than the registers hold (in_dim > 16) load here
     const int tt = io.reversed ? io.in_steps - 1 - t : t;
-    for (int s = tid + kXRegs * kThreads; s < n; s += kThreads) {
+    for (int s = tid + kXRegs * kT; s < n; s += kT) {
       put_window_value(slot, s, width, window_value(io, L, tt, s, width));
     }
   } else {
@@ -317,55 +401,106 @@ __device__ __forceinline__ void x_complete(const LayerIO& io, const Layer& L,
   }
 }
 
-// copy the h ring slot (one blocked row, Hp/8 columns) to global memory
-template <int kHp>
-__device__ __forceinline__ void store_row(bf16* dst, const unsigned char* slot) {
+// copy the h ring slot (one blocked row, Hp/8 columns) to global memory;
+// the `parts` CTAs of a split each copy every parts-th 16-byte piece
+template <int kHp, int kT>
+__device__ __forceinline__ void store_row(bf16* dst, const unsigned char* slot,
+                                          int part = 0, int parts = 1) {
   const uint4* src = reinterpret_cast<const uint4*>(slot);
   uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < kHp / 8 * kColBytes / 16; i += kThreads) {
+  for (int i = part + parts * static_cast<int>(threadIdx.x);
+       i < kHp / 8 * kColBytes / 16; i += parts * kT) {
     d[i] = src[i];
   }
 }
 
-// One layer of one lane over L.steps steps for the block's 64 windows.
-// Starts and ends with every thread at a barrier; leaves shared memory free
-// for the next layer.
-template <int kHp>
+// cp.async core columns kc0 .. kc0+ncols-1 of a layer-lane's packed
+// weights ([kc][4Hp][8] bf16 in global memory) into dst as [kc][n][8],
+// taking the n = 4Hp/parts gate columns from part*n on (a CTA's half of
+// a split); with `pad` one zeroed core column follows (an odd count's
+// k-tile partner). 16-byte pieces: one gate column's 8 k values.
+template <int kT>
+__device__ __forceinline__ void load_weights(unsigned char* dst,
+                                             const bf16* w, int hp, int kc0,
+                                             int ncols, int part, int parts,
+                                             bool pad) {
+  const int n = 4 * hp / parts;
+  const uint4* src = reinterpret_cast<const uint4*>(w);
+  for (int i = threadIdx.x; i < ncols * n; i += kT) {
+    const int kc = i / n;
+    cp_async16(dst + 16 * i,
+               src + static_cast<long long>(kc0 + kc) * 4 * hp + part * n +
+                   (i - kc * n));
+  }
+  if (pad) {
+    uint4* z = reinterpret_cast<uint4*>(dst) + ncols * n;
+    for (int i = threadIdx.x; i < n; i += kT) z[i] = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// bf16 h of unit u for rows row and row + 8 into a ring slot
+__device__ __forceinline__ void put_h(unsigned char* slot, int u, int row,
+                                      bf16 v0, bf16 v1) {
+  bf16* col = reinterpret_cast<bf16*>(slot + (u >> 3) * kColBytes);
+  col[row * 8 + (u & 7)] = v0;
+  col[(row + 8) * 8 + (u & 7)] = v1;
+}
+
+// the cell of a thread's 4-unit group p: gates acc[8p..8p+7] (rows row0
+// and row0+8 of unit u) plus the bias; updates c0, c1, returns h in bf16
+__device__ __forceinline__ void cell_pair(float a0, float a1, float a2,
+                                          float a3, float a4, float a5,
+                                          float a6, float a7, float4 bb,
+                                          float fb, float& c0, float& c1,
+                                          bf16& v0, bf16& v1) {
+  v0 = from_f<bf16>(
+      cell<true>(a0 + bb.x, a1 + bb.y, a4 + bb.z, a5 + bb.w, fb, c0));
+  v1 = from_f<bf16>(
+      cell<true>(a2 + bb.x, a3 + bb.y, a6 + bb.z, a7 + bb.w, fb, c1));
+}
+
+// One layer of one lane over L.steps steps for the block's 64 windows
+// (kSplit = 2: this CTA's half of the units, the peer CTA of the cluster
+// holding the other). Starts and ends with every thread at a barrier;
+// leaves shared memory free for the next layer.
+template <int kHp, int kSplit>
 __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
                                           const LayerIO& io) {
+  constexpr int kT = threads_of(kSplit);
+  constexpr bool kCluster = kSplit > 1;
   constexpr int kN = 2 * kHp;       // gate columns a warpgroup
   constexpr int kGroups = kHp / 8;  // 4-unit groups a warpgroup
   constexpr int kNh = kHp / 8;      // core columns of h
   const int tid = threadIdx.x;
-  const int wg = tid >> 7;
+  const int rank = kCluster ? static_cast<int>(cg::this_cluster().block_rank())
+                            : 0;
+  const int half = kCluster ? rank : tid >> 7;  // tc_gate_columns' warpgroup
   const int row0 = ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
-  const int unit0 = wg * (kHp / 2) + (tid & 3);  // unit of group p: + 4p
+  const int unit0 = half * (kHp / 2) + (tid & 3);  // unit of group p: + 4p
   const int nx = x_cols(L.in_dim);
   const int nc = kNh + nx;  // core columns of [h; x]; one more is zero
   const int nk = k_tiles(kHp, L.in_dim);
-  const size_t w_bytes = weight_bytes(kHp, L.in_dim);
+  // the peer's h ring (distributed shared memory) in a split
+  unsigned char* peer_h =
+      kCluster ? cg::this_cluster().map_shared_rank(sm.h, rank ^ 1) : nullptr;
 
   // prologue: weights and bias of the layer, h_{-1} = 0, the zero column,
   // x_0
   {
-    const uint4* src = reinterpret_cast<const uint4*>(L.w);
-    for (int i = tid; i < static_cast<int>(w_bytes / 16); i += kThreads) {
-      cp_async16(sm.w + 16 * i, src + i);
-    }
+    load_weights<kT>(sm.w, L.w, kHp, 0, 2 * nk, rank, kSplit, false);
     const float4* b = reinterpret_cast<const float4*>(L.bias);
-    for (int u = tid; u < kHp; u += kThreads) sm.bias[u] = b[u];
+    for (int u = tid; u < kHp; u += kT) sm.bias[u] = b[u];
     const uint4 z = make_uint4(0, 0, 0, 0);
     uint4* h1 = reinterpret_cast<uint4*>(sm.h + sm.h_slot);
-    for (int i = tid; i < sm.h_slot / 16; i += kThreads) h1[i] = z;
-    for (int i = tid; i < kColBytes / 16; i += kThreads) {
+    for (int i = tid; i < sm.h_slot / 16; i += kT) h1[i] = z;
+    for (int i = tid; i < kColBytes / 16; i += kT) {
       reinterpret_cast<uint4*>(sm.zero)[i] = z;
     }
     bf16 v[kXRegs];
-    x_issue(io, L, 0, sm.x, nx, v);
-    x_complete(io, L, 0, sm.x, nx, v);
+    x_issue<kT>(io, L, 0, sm.x, nx, v);
+    x_complete<kT>(io, L, 0, sm.x, nx, v);
     cp_async_wait_all();
-    fence_async_smem();
-    __syncthreads();
+    step_barrier<kCluster>();
   }
 
   float c[2 * kGroups];
@@ -375,10 +510,10 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
 #pragma unroll
   for (int i = 0; i < kHp; ++i) acc[i] = 0.0f;
 
-  // this warpgroup's first n core (B is [kc][4Hp][8]: the next 8 columns
-  // 128 B on, the next k core 4Hp*16 B on)
-  const uint32_t w_lbo = 4 * kHp * 16;
-  const uint32_t w_base = smem_addr(sm.w) + wg * (kN / 8) * 128;
+  // this warpgroup's first n core (B is [kc][4Hp/kSplit][8]: the next 8
+  // columns 128 B on, the next k core 4Hp/kSplit*16 B on)
+  const uint32_t w_lbo = 4 * kHp / kSplit * 16;
+  const uint32_t w_base = smem_addr(sm.w) + (kCluster ? 0 : half) * (kN / 8) * 128;
   const uint32_t zero_col = smem_addr(sm.zero);
   const bool readout = io.out != nullptr;
 
@@ -387,30 +522,23 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
     const uint32_t h_prev = smem_addr(sm.h + (s ^ 1) * sm.h_slot);
     const uint32_t x_cur = smem_addr(sm.x + s * sm.x_slot);
 
-    fence_acc(acc);
-    wgmma_fence();
-    for (int j = 0; j < nk; ++j) {
-      uint32_t col[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int cc = 2 * j + e;
-        col[e] = cc < kNh  ? h_prev + cc * kColBytes
+    chain<kN>(
+        acc,
+        [&](int cc) {
+          return cc < kNh  ? h_prev + cc * kColBytes
                  : cc < nc ? x_cur + (cc - kNh) * kColBytes
                            : zero_col;
-      }
-      wgmma_bf16<kN>(acc, make_desc(col[0], col[1] - col[0], 128),
-                     make_desc(w_base + 2 * j * w_lbo, w_lbo, 128), j > 0);
-    }
-    wgmma_commit();
+        },
+        w_base, w_lbo, nk, 0);
 
     // while the tensor cores run: h_{t-1} out, x_{t+1} in
     if (io.seq_out != nullptr && t > 0) {
-      store_row<kHp>(io.seq_out + (t - 1) * io.seq_out_t,
-                     sm.h + (s ^ 1) * sm.h_slot);
+      store_row<kHp, kT>(io.seq_out + (t - 1) * io.seq_out_t,
+                         sm.h + (s ^ 1) * sm.h_slot, rank, kSplit);
     }
     bf16 xv[kXRegs];
     unsigned char* x_next = sm.x + (s ^ 1) * sm.x_slot;
-    if (t + 1 < L.steps) x_issue(io, L, t + 1, x_next, nx, xv);
+    if (t + 1 < L.steps) x_issue<kT>(io, L, t + 1, x_next, nx, xv);
 
     wgmma_wait_all();
     fence_acc(acc);
@@ -421,21 +549,15 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
 #pragma unroll
     for (int p = 0; p < kGroups; ++p) {
       const int u = unit0 + 4 * p;
-      float h0 = 0.0f, h1 = 0.0f;
-      if (wg * (kHp / 2) + 4 * p < L.hidden) {  // warp-uniform
-        const float4 bb = sm.bias[u];
-        h0 = cell<true>(acc[8 * p] + bb.x, acc[8 * p + 1] + bb.y,
-                        acc[8 * p + 4] + bb.z, acc[8 * p + 5] + bb.w, L.fb,
-                        c[2 * p]);
-        h1 = cell<true>(acc[8 * p + 2] + bb.x, acc[8 * p + 3] + bb.y,
-                        acc[8 * p + 6] + bb.z, acc[8 * p + 7] + bb.w, L.fb,
-                        c[2 * p + 1]);
+      bf16 v0 = from_f<bf16>(0.0f), v1 = from_f<bf16>(0.0f);
+      if (half * (kHp / 2) + 4 * p < L.hidden) {  // warp-uniform
+        cell_pair(acc[8 * p], acc[8 * p + 1], acc[8 * p + 2], acc[8 * p + 3],
+                  acc[8 * p + 4], acc[8 * p + 5], acc[8 * p + 6],
+                  acc[8 * p + 7], sm.bias[u], L.fb, c[2 * p], c[2 * p + 1],
+                  v0, v1);
       }
-      const bf16 v0 = from_f<bf16>(h0);
-      const bf16 v1 = from_f<bf16>(h1);
-      bf16* col = reinterpret_cast<bf16*>(h_cur + (u >> 3) * kColBytes);
-      col[row0 * 8 + (u & 7)] = v0;
-      col[(row0 + 8) * 8 + (u & 7)] = v1;
+      put_h(h_cur, u, row0, v0, v1);
+      if (kCluster) put_h(peer_h + s * sm.h_slot, u, row0, v0, v1);
       if (emit && u < L.hidden) {
         const long long b = L.b0 + row0;
         float* o = io.out + L.lane * L.hidden + u;
@@ -444,25 +566,80 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
       }
     }
 
-    if (t + 1 < L.steps) x_complete(io, L, t + 1, x_next, nx, xv);
-    fence_async_smem();
-    __syncthreads();
+    if (t + 1 < L.steps) x_complete<kT>(io, L, t + 1, x_next, nx, xv);
+    step_barrier<kCluster>();
   }
 
   if (io.seq_out != nullptr) {
-    store_row<kHp>(io.seq_out + (L.steps - 1) * io.seq_out_t,
-                   sm.h + ((L.steps - 1) & 1) * sm.h_slot);
+    store_row<kHp, kT>(io.seq_out + (L.steps - 1) * io.seq_out_t,
+                       sm.h + ((L.steps - 1) & 1) * sm.h_slot, rank, kSplit);
   }
+  // the next layer's prologue rewrites this CTA's buffers only; a peer
+  // writes into them again after that prologue's cluster barrier
   __syncthreads();
 }
 
-// runtime Hp -> the kernel instantiated for it: F(kHp) for Hp = 8 .. 104
+// ------------------------------------------------------------ launching
+
+// the launch configuration of a grid in clusters of (cluster, 1, 1) CTAs
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(dim3 grid, int threads, size_t smem, cudaStream_t stream,
+                int cluster)
+      : cfg{} {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// how many clusters of `cluster` CTAs of `kernel` the card holds at once
+// (cudaOccupancyMaxActiveClusters), into *clusters
+template <typename... Params>
+inline cudaError_t cluster_occupancy(void (*kernel)(Params...), int threads,
+                                     size_t smem, int cluster,
+                                     int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const ClusterLaunch c(dim3(cluster), threads, smem, nullptr, cluster);
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &c.cfg);
+}
+
+// a launch in clusters of (cluster, 1, 1); a cluster shape the card cannot
+// place (no cluster fits an SM group) is refused with
+// cudaErrorLaunchOutOfResources before the launch, never run another way
+template <typename... Params, typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), dim3 grid,
+                                  int threads, size_t smem,
+                                  cudaStream_t stream, int cluster,
+                                  Args... args) {
+  int clusters = 0;
+  cudaError_t err = cluster_occupancy(kernel, threads, smem, cluster,
+                                      &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  const ClusterLaunch c(grid, threads, smem, stream, cluster);
+  return cudaLaunchKernelEx(&c.cfg, kernel, static_cast<Params>(args)...);
+}
+
+// runtime Hp -> the kernel instantiated for it: F(kHp) for Hp = 8 .. 128
 #define DMT_TC_DISPATCH(hp, F)                                         \
   switch (hp) {                                                        \
     case 8: F(8); case 16: F(16); case 24: F(24); case 32: F(32);      \
     case 40: F(40); case 48: F(48); case 56: F(56); case 64: F(64);    \
     case 72: F(72); case 80: F(80); case 88: F(88); case 96: F(96);    \
-    case 104: F(104);                                                  \
+    case 104: F(104); case 112: F(112); case 120: F(120);              \
+    case 128: F(128);                                                  \
     default: return static_cast<int>(cudaErrorInvalidValue);           \
   }
 

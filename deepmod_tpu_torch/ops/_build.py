@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
 K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
 ``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
-``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; K4 and K5a's bf16
-mode include ``lstm_tc.cuh``) is compiled by its own ``nvcc`` process
+``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; the bf16 modes of
+K4 and K5a-c include ``lstm_tc.cuh``) is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -39,8 +39,9 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # of shared memory a block may use on Hopper
 MAX_THREADS = 512
 MAX_SMEM = 232448
-# the wavefront kernel (K5c) runs one thread group a layer and is bounded
-# at this many threads instead (kWaveMaxThreads in bilstm_mono_wavefront.cu)
+# the fp32 wavefront kernel (K5c) runs one thread group a layer and is
+# bounded at this many threads instead (kWaveMaxThreads in
+# bilstm_mono_wavefront.cu)
 WAVEFRONT_MAX_THREADS = 600
 
 _lock = threading.Lock()
@@ -120,9 +121,10 @@ def build() -> str:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = ctypes.c_longlong
+    n = ctypes.POINTER(ctypes.c_int)
     for name in ("dmt_bilstm_center_f32", "dmt_bilstm_center_bf16",
-                 "dmt_bilstm_merged_f32", "dmt_bilstm_wavefront_f32",
-                 "dmt_bilstm_wavefront_bf16"):  # K1, K5a fp32, K5c
+                 "dmt_bilstm_merged_f32",
+                 "dmt_bilstm_wavefront_f32"):  # K1, K5a fp32, K5c fp32
         fn = getattr(lib, name)
         # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
         # hidden, num_layers, w, bias, forget_bias term, out, tile_b,
@@ -134,11 +136,31 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dmt_bilstm_merged_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
                                            f, p, p, p]
     lib.dmt_bilstm_merged_bf16.restype = ctypes.c_int
-    for name in ("dmt_bilstm_pregemm_f32", "dmt_bilstm_pregemm_bf16"):
-        fn = getattr(lib, name)
-        # K5b: K1's arguments, then the gate workspace and gate_bf16
-        # before out
-        fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p, i, p]
+    # K5b fp32: K1's arguments, then the gate workspace and gate_bf16
+    # before out
+    lib.dmt_bilstm_pregemm_f32.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
+                                           f, p, i, p, i, p]
+    lib.dmt_bilstm_pregemm_f32.restype = ctypes.c_int
+    # K5b bf16 (tensor cores, persistent grid): K1's arguments with the
+    # tensor-core packing, then gx, gate_bf16, the row workspace, the
+    # grid's slots, out, stream
+    lib.dmt_bilstm_pregemm_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
+                                            f, p, i, p, i, p, p]
+    lib.dmt_bilstm_pregemm_bf16.restype = ctypes.c_int
+    # K5c bf16 (tensor cores, a cluster a tile-lane): K1's arguments with
+    # the tensor-core packing, no tile
+    lib.dmt_bilstm_wavefront_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p,
+                                              p, f, p, p]
+    lib.dmt_bilstm_wavefront_bf16.restype = ctypes.c_int
+    # shape queries: K5b's grid (batch, in_dim, hidden, gate_bf16), the
+    # clusters of K5a (in_dim, hidden) and K5c (in_dim, hidden, layers)
+    # resident at once
+    lib.dmt_bilstm_pregemm_bf16_slots.argtypes = [i, i, i, i, n]
+    lib.dmt_bilstm_merged_bf16_clusters.argtypes = [i, i, n]
+    lib.dmt_bilstm_wavefront_bf16_clusters.argtypes = [i, i, i, n]
+    for fn in (lib.dmt_bilstm_pregemm_bf16_slots,
+               lib.dmt_bilstm_merged_bf16_clusters,
+               lib.dmt_bilstm_wavefront_bf16_clusters):
         fn.restype = ctypes.c_int
     for name in ("dmt_bilstm_train_fwd_f32", "dmt_bilstm_train_fwd_bf16"):
         fn = getattr(lib, name)

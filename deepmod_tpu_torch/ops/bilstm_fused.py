@@ -19,8 +19,9 @@ and its two kernels:
   ``csrc/bilstm_mono_wavefront.cu``). Their plain version is K1's,
   ``bilstm_center_plain``, with ``gate_store`` for K5b.
 
-In bf16, K4 and K5a are tensor-core kernels (``csrc/lstm_tc.cuh``: one
-``wgmma`` chain over [h; x] a step, 64 windows a block). This module also
+In bf16, K4 and K5a-c are tensor-core kernels (``csrc/lstm_tc.cuh``:
+``wgmma`` chains on the tensor cores, 64 windows a tile; hidden 105-128
+over thread-block clusters, see ``TC_MAX_HP``). This module also
 holds ``pack_bilstm_params`` (the weight operand of K1, K4 fp32 and K5:
 TF ``(in+H, 4H)`` kernels of every layer and lane in one flat buffer,
 i/f/o columns pre-halved in bf16 mode; in bf16 also the padded,
@@ -58,27 +59,33 @@ MAX_TIMESTEPS = 25
 # fp32 and within 1% of the fastest in bf16 (two blocks of 300 threads fit
 # an SM)
 TILE_B = 24
-# the bf16 tensor-core kernels (K4 and K5a, csrc/lstm_tc.cuh) take 64
-# windows a block (the wgmma M) and no other tile, with 256 threads (two
-# warpgroups); H is padded to Hp, a multiple of 8, at most TC_MAX_HP: a
-# layer's weights (16 Hp^2 bytes after layer 0) and the operand rings fill
-# one block's 227 KB
+# the bf16 tensor-core kernels (K4 and K5a-c, csrc/lstm_tc.cuh) take 64
+# windows a tile (the wgmma M) and no other tile, with 256 threads (two
+# warpgroups) a block; H is padded to Hp, a multiple of 8, at most
+# TC_MAX_HP = 128, the JAX fused kernels' LANE. Up to TC_ONE_BLOCK_HP a
+# layer's weights (16 Hp^2 bytes after layer 0) and the operand rings fit
+# one block's 227 KB; beyond it K4, K5a and K5c split each layer-lane by
+# units over a 2-CTA thread-block cluster of 128 threads a CTA
+# (``tc_split``). K5b keeps one weight resident at a time (8 Hp^2 bytes)
+# and needs no cluster. K5c runs one CTA (or split pair) a layer, a
+# cluster a tile-lane
 TC_TILE_B = 64
 TC_THREADS = 256
-TC_MAX_HP = 104
+TC_MAX_HP = 128
+TC_ONE_BLOCK_HP = 104
 # the schedules of K1's function (JAX ``bilstm_fused_center_mono``'s
 # flags): "mono" is K1, the other three K5a-c
 SCHEDULES = ("mono", "merged", "pregemm", "wavefront")
 GATE_STORES = ("fp32", "bf16")
 # default windows per block by kernel and precision: each schedule's, the
 # fastest in chip_smoke.py's sweep over 8/16/24 on an H100 at H=100, 3
-# layers, T=21 (K5c takes 16 at most there: 600 threads), K4's
-# ("layered") K1's, and TC_TILE_B, the only tile, for K5a and K4 in bf16
+# layers, T=21 (fp32 K5c takes 16 at most there: 600 threads), K4's
+# ("layered") K1's, and TC_TILE_B, the only tile, for K4 and K5a-c in bf16
 SCHEDULE_TILE_B = {
     "mono": {"fp32": TILE_B, "bf16": TILE_B},
     "merged": {"fp32": 16, "bf16": TC_TILE_B},
-    "pregemm": {"fp32": 8, "bf16": 8},
-    "wavefront": {"fp32": 16, "bf16": 16},
+    "pregemm": {"fp32": 8, "bf16": TC_TILE_B},
+    "wavefront": {"fp32": 16, "bf16": TC_TILE_B},
     "layered": {"fp32": TILE_B, "bf16": TC_TILE_B},
 }
 
@@ -94,8 +101,9 @@ MONO_SCHEDULE_LAUNCHES: Dict[str, Dict[str, int]] = {
 
 def tensor_core(kernel: str, precision: str) -> bool:
     """Whether ``kernel`` (a schedule of ``SCHEDULES`` or "layered", K4)
-    runs on the tensor cores in ``precision``: K5a and K4 in bf16."""
-    return precision == "bf16" and kernel in ("merged", "layered")
+    runs on the tensor cores in ``precision``: K4 and K5a-c in bf16."""
+    return precision == "bf16" and kernel in ("merged", "pregemm",
+                                              "wavefront", "layered")
 
 
 def reset_launch_counts() -> None:
@@ -329,15 +337,34 @@ def tc_pack_layer(w: torch.Tensor, b: torch.Tensor, in_dim: int,
     return core.reshape(-1), bias
 
 
-def tc_smem(config) -> int:
-    """Shared-memory bytes of a tensor-core block (``lstm_tc.cuh::
-    smem_bytes``): the h and x rings, the zero column, the widest layer's
-    weights and the bias."""
+def tc_split(hidden: int) -> int:
+    """CTAs that share one layer-lane's gate columns in K4, K5a and K5c
+    (``lstm_tc.cuh::split_of``): 1 up to Hp = ``TC_ONE_BLOCK_HP``, else a
+    2-CTA cluster, CTA r holding ``tc_gate_columns``' warpgroup r."""
+    return 1 if tc_dims(1, hidden)[0] <= TC_ONE_BLOCK_HP else 2
+
+
+def tc_smem(config, schedule: str = "merged") -> int:
+    """Shared-memory bytes of one CTA of a tensor-core kernel
+    (``lstm_tc.cuh::smem_bytes``): the h and x rings, the zero column, the
+    resident weights and the bias. K4, K5a and K5c hold the widest layer's
+    [Wh; Wx] (their CTA's half in a split); K5b one of Wx and Wh at a
+    time, the wider in core columns rounded up to even."""
     widest = max(config.num_input, config.num_hidden)
     hp, nx, nk = tc_dims(widest, config.num_hidden)
     col = TC_TILE_B * 8 * 2
-    return (2 * (hp // 8) * col + 2 * nx * col + col
-            + 16 * nk * 4 * hp * 2 + 16 * hp)
+    if schedule == "pregemm":
+        cols = max(hp // 8, nx)
+        w_bytes = (cols + cols % 2) * 4 * hp * 16
+    else:
+        w_bytes = 16 * nk * 4 * hp * 2 // tc_split(config.num_hidden)
+    return 2 * (hp // 8) * col + 2 * nx * col + col + w_bytes + 16 * hp
+
+
+def tc_threads(schedule: str, hidden: int) -> int:
+    """Threads a CTA of a tensor-core kernel: 256 (two warpgroups), 128 in
+    a split CTA of K4, K5a or K5c; K5b always 256."""
+    return TC_THREADS // (1 if schedule == "pregemm" else tc_split(hidden))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,7 +374,7 @@ class PackedBiLSTM:
     ``w``: flat, [lane][layer] TF kernels ``(in+H, 4H)`` in the sequence
     dtype; ``bias``: ``(2, layers, 4H)`` fp32; in bf16 also ``tc_w``:
     flat, [layer][lane] ``tc_pack_layer`` weights, and ``tc_bias``:
-    ``(layers, 2, Hp, 4)`` fp32 (K4 and K5a); ``params`` keeps the source
+    ``(layers, 2, Hp, 4)`` fp32 (K4 and K5a-c); ``params`` keeps the source
     dict for the plain version."""
 
     w: torch.Tensor
@@ -427,18 +454,18 @@ def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
 
 
 def _check_tc(packed: PackedBiLSTM, config, tile_b: int) -> None:
-    """What the bf16 tensor-core kernels (K4, K5a) take beyond
-    ``_check_inputs``: 64 windows a block and Hp <= TC_MAX_HP."""
+    """What the bf16 tensor-core kernels (K4, K5a-c) take beyond
+    ``_check_inputs``: 64 windows a tile and Hp <= TC_MAX_HP."""
     if tile_b != TC_TILE_B:
         raise ValueError(
-            f"the bf16 tensor-core kernels (K4, K5a) take tile_b="
+            f"the bf16 tensor-core kernels (K4, K5a-c) take tile_b="
             f"{TC_TILE_B} only (the wgmma M), got {tile_b}")
     hp = tc_dims(1, config.num_hidden)[0]
     if hp > TC_MAX_HP:
         raise ValueError(
-            f"the bf16 tensor-core kernels (K4, K5a) take hidden <= "
-            f"{TC_MAX_HP} (a layer's padded weights in one block's shared "
-            f"memory), got {config.num_hidden}")
+            f"the bf16 tensor-core kernels (K4, K5a-c) take hidden <= "
+            f"{TC_MAX_HP} (the JAX fused kernels' padded width), got "
+            f"{config.num_hidden}")
     layers = config.num_layers
     want = 2 * sum(16 * tc_dims(config.num_input if layer == 0 else
                                 config.num_hidden, config.num_hidden)[2]
@@ -459,13 +486,15 @@ def _lane_weights(config) -> int:
 def mono_block(config, schedule: str, tile_b: int,
                precision: str) -> Tuple[int, int, int]:
     """(threads, most threads the kernel takes, shared-memory bytes) of one
-    block of a mono schedule, as its CUDA launcher sizes it. K1 and K5b
-    hold the sequence and the staged inputs; K5a adds its [x; h] operand
-    buffer in fp32 and is the tensor-core block (``tc_smem``, 64 windows,
-    any other ``tile_b`` refused) in bf16; K5c holds the staged inputs and
-    a 2-row h ring a layer, with one thread group a layer."""
+    block of a mono schedule, as its CUDA launcher sizes it. In bf16, K5a-c
+    are tensor-core kernels (one CTA's ``tc_threads`` and ``tc_smem``, 64
+    windows, any other ``tile_b`` refused). In fp32, K1 and K5b hold the
+    sequence and the staged inputs; K5a adds its [x; h] operand buffer; K5c
+    holds the staged inputs and a 2-row h ring a layer, with one thread
+    group a layer."""
     if tensor_core(schedule, precision):
-        return TC_THREADS, TC_THREADS, tc_smem(config)
+        threads = tc_threads(schedule, config.num_hidden)
+        return threads, threads, tc_smem(config, schedule)
     h, f, layers = config.num_hidden, config.num_input, config.num_layers
     steps = config.timesteps // 2 + 1
     size = _itemsize(precision)
@@ -484,9 +513,11 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
                  gate_store: str = "fp32") -> torch.Tensor:
     """K1 (``schedule="mono"``) or one of K5a-c: the whole stack in one
     launch (odd T <= 25). K5b gets a device-memory gate workspace of
-    ``gate_store`` dtype, reused by every layer; K5a in bf16 (tensor
-    cores) a bf16 workspace for the inter-layer rows, (ceil(B/64), 2,
-    steps, 64 * Hp), each layer overwriting the one before in place."""
+    ``gate_store`` dtype, reused by every layer: in fp32 one a block, in
+    bf16 (tensor cores, a persistent grid) one a resident slot, with a
+    bf16 workspace for the inter-layer rows beside it; K5a in bf16 a bf16
+    workspace for the inter-layer rows, (ceil(B/64), 2, steps, 64 * Hp),
+    each layer overwriting the one before in place."""
     from . import _build
 
     precision = packed.precision
@@ -514,15 +545,27 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
             layers, w.data_ptr(), bias.data_ptr(),
             _forget_term(config.forget_bias, precision)]
     blocks = -(-batch // tile_b)
-    if schedule == "pregemm":
-        gx = torch.empty(blocks * tile_b * 2 * steps * 4 * hidden,
-                         dtype=_SEQ_DTYPE[gate_store], device=x.device)
-        args += [gx.data_ptr(), int(gate_store == "bf16")]
-    if tc:
-        ws = torch.empty(blocks * 2 * steps * tile_b
-                         * tc_dims(1, hidden)[0], dtype=torch.bfloat16,
+    hp = tc_dims(1, hidden)[0]
+    gate_dtype = _SEQ_DTYPE[gate_store]
+    if schedule == "pregemm" and tc:
+        slots = pregemm_slots(batch, in_dim, hidden, gate_store, x.device)
+        gx = torch.empty(slots * steps * TC_THREADS * hp, dtype=gate_dtype,
                          device=x.device)
+        rows = torch.empty(slots * steps * TC_TILE_B * hp,
+                           dtype=torch.bfloat16, device=x.device)
+        args += [gx.data_ptr(), int(gate_store == "bf16"), rows.data_ptr(),
+                 slots, out.data_ptr()]
+    elif schedule == "pregemm":
+        gx = torch.empty(blocks * tile_b * 2 * steps * 4 * hidden,
+                         dtype=gate_dtype, device=x.device)
+        args += [gx.data_ptr(), int(gate_store == "bf16"), out.data_ptr(),
+                 tile_b]
+    elif schedule == "merged" and tc:
+        ws = torch.empty(blocks * 2 * steps * tile_b * hp,
+                         dtype=torch.bfloat16, device=x.device)
         args += [ws.data_ptr(), out.data_ptr()]
+    elif tc:  # K5c: clusters, no workspace, no tile argument
+        args += [out.data_ptr()]
     else:
         args += [out.data_ptr(), tile_b]
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -534,6 +577,46 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
     else:
         MONO_SCHEDULE_LAUNCHES[schedule][precision] += 1
     return out
+
+
+def pregemm_slots(batch: int, in_dim: int, hidden: int, gate_store: str,
+                  device) -> int:
+    """The persistent grid of bf16 K5b at this shape and gate store: the
+    card's SMs times the kernel's blocks an SM, at most the (tile, lane)
+    items; each slot gets its own gate and row workspace."""
+    import ctypes
+
+    from . import _build
+
+    slots = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = _build.library().dmt_bilstm_pregemm_bf16_slots(
+            batch, in_dim, hidden, int(gate_store == "bf16"),
+            ctypes.byref(slots))
+    _build.check(status, "bilstm pregemm slots")
+    return slots.value
+
+
+def tc_clusters(schedule: str, config, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of bf16 K5a (a cluster of
+    ``tc_split`` CTAs) or K5c (``tc_split`` x num_layers CTAs) at this
+    config: how many such clusters the card holds at once."""
+    import ctypes
+
+    from . import _build
+
+    lib = _build.library()
+    n = ctypes.c_int(0)
+    dims = (config.num_input, config.num_hidden)
+    with torch.cuda.device(device):
+        if schedule == "wavefront":
+            status = lib.dmt_bilstm_wavefront_bf16_clusters(
+                *dims, config.num_layers, ctypes.byref(n))
+        else:
+            status = lib.dmt_bilstm_merged_bf16_clusters(*dims,
+                                                         ctypes.byref(n))
+    _build.check(status, f"bilstm {schedule} cluster occupancy")
+    return n.value
 
 
 def _launch_layered(packed: PackedBiLSTM, x: torch.Tensor, config,
@@ -603,8 +686,9 @@ def _launch_layered_tc(packed: PackedBiLSTM, x: torch.Tensor, config,
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
     _check_tc(packed, config, tile_b)
-    x = _check_inputs(packed, x, config, tile_b, tc_smem(config),
-                      TC_THREADS, TC_THREADS)
+    threads = tc_threads("layered", hidden)
+    x = _check_inputs(packed, x, config, tile_b, tc_smem(config), threads,
+                      threads)
     steps, fw_step, bw_step = readout(timesteps)
     batch = x.shape[0]
     out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
@@ -670,7 +754,8 @@ def bilstm_center_features(
     launches the kernel or raises. ``params`` may be pre-packed
     (``pack_bilstm_params``) to skip the per-call packing. ``tile_b`` is
     the kernel's windows per block (a multiple of 8; K4 in bf16 takes 64
-    only), by default ``SCHEDULE_TILE_B`` of the kernel and precision."""
+    only), by default ``SCHEDULE_TILE_B`` of the kernel and precision.
+    Hidden > ``TC_MAX_HP`` (128) raises in bf16."""
     mono = use_mono(config.timesteps, mono)
     packed, raw = _split_params(params, precision)
     if x.device.type == "cpu":
@@ -740,8 +825,8 @@ def bilstm_center_mono(
     same x views as ``bilstm_center_features``. On the CPU this is the
     plain version (``bilstm_center_plain``, with ``gate_store`` for K5b);
     on a CUDA tensor it launches the chosen kernel or raises. ``tile_b``
-    defaults to ``SCHEDULE_TILE_B`` of the schedule and precision (K5a in
-    bf16 takes 64 only)."""
+    defaults to ``SCHEDULE_TILE_B`` of the schedule and precision (K5a-c
+    in bf16, the tensor-core kernels, take 64 only)."""
     schedule = mono_schedule(config, wavefront, merged_gemm, pregemm,
                              gate_store)
     gates = gate_store if schedule == "pregemm" else "fp32"

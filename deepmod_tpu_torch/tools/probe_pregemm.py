@@ -9,8 +9,10 @@ halves that buffer's traffic and rounds the stored projections. Through
 ``bilstm_center_mono`` (``pregemm``, ``gate_store``), ending in the
 argmax of the logits, at each tile of the sweep, in the same process,
 with the script's variants: bf16 twodot / pre-f32 / pre-bf16, fp32
-twodot / pre-f32; prints windows/s. ``--device cpu`` times the plain
-versions instead.
+twodot / pre-f32; prints windows/s, one line a precision and tile. Each
+variant runs at the tiles its kernel takes: bf16 K5b, the tensor-core
+kernel, at its one tile, 64, on a line of its own. ``--device cpu`` times
+the plain versions instead.
 """
 
 from __future__ import annotations
@@ -38,9 +40,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     for precision, variants in VARIANTS:
         packed = ops.pack_bilstm_params(params, cfg, precision)
         xp = x.to(ops.seq_dtype(precision))
-        for tile_b in common.TILES:
+        takes = {label: common.tiles("pregemm" if pregemm else "mono",
+                                     precision)
+                 for label, pregemm, _ in variants}
+        for tile_b in sorted(set().union(*takes.values())):
             row = [f"{precision} tile_b={tile_b}:"]
             for label, pregemm, gate_store in variants:
+                if tile_b not in takes[label]:
+                    continue
                 r = common.windows_per_s(
                     lambda: common.classify(ops.bilstm_center_mono(
                         packed, xp, cfg, precision, tile_b=tile_b,

@@ -1,6 +1,7 @@
 """The CUDA kernels (K1; K2 and K3; K4; K5a-c; K6; P1) against their
-plain versions, on the card. In bf16, K4 and K5a are the tensor-core
-kernels (``csrc/lstm_tc.cuh``, 64 windows a block).
+plain versions, on the card. In bf16, K4 and K5a-c are the tensor-core
+kernels (``csrc/lstm_tc.cuh``, 64 windows a tile; hidden 105-128 over
+2-CTA clusters in K4, K5a and K5c, K5c a cluster of one CTA a layer).
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -216,20 +217,115 @@ def test_wavefront_matches_k1(cuda, precision, layers):
 
 @pytest.mark.parametrize("tile_b", [8, 24, 128])
 def test_tensor_core_kernels_take_tile_64_only(cuda, tile_b):
-    """K5a and K4 in bf16 run 64 windows a block (the wgmma M) and refuse
+    """K4 and K5a-c in bf16 run 64 windows a tile (the wgmma M) and refuse
     any other tile; the default is 64."""
     cfg = BiLSTMConfig(num_input=7, num_hidden=16, num_layers=2)
     params = init_bilstm_params(0, cfg, device=cuda)
     x = torch.zeros(70, 21, 7, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="tile_b=64"):
-        ops.bilstm_center_mono(params, x, cfg, "bf16", tile_b=tile_b,
-                               merged_gemm=True)
+    for flags in (dict(merged_gemm=True), dict(pregemm=True),
+                  dict(wavefront=True)):
+        with pytest.raises(ValueError, match="tile_b=64"):
+            ops.bilstm_center_mono(params, x, cfg, "bf16", tile_b=tile_b,
+                                   **flags)
+        ops.bilstm_center_mono(params, x, cfg, "bf16", **flags)
     with pytest.raises(ValueError, match="tile_b=64"):
         ops.bilstm_center_features(params, x, cfg, "bf16", tile_b=tile_b,
                                    mono=False)
-    ops.bilstm_center_mono(params, x, cfg, "bf16", merged_gemm=True)
     ops.bilstm_center_features(params, x, cfg, "bf16", mono=False)
     torch.cuda.synchronize()
+
+
+# (label, flags, layers) of the bf16 tensor-core K5b and K5c cases
+TC_SCHEDULES = [
+    ("pregemm", dict(pregemm=True), 3),
+    ("pregemm_bf16_gates", dict(pregemm=True, gate_store="bf16"), 3),
+    ("wavefront_1", dict(wavefront=True), 1),
+    ("wavefront_2", dict(wavefront=True), 2),
+    ("wavefront_3", dict(wavefront=True), 3),
+]
+
+
+@pytest.mark.parametrize("hidden", [100, 128])
+@pytest.mark.parametrize("timesteps", [5, 21, 25])
+@pytest.mark.parametrize("label,flags,layers", TC_SCHEDULES,
+                         ids=[c[0] for c in TC_SCHEDULES])
+def test_tc_schedules_match_plain(cuda, label, flags, layers, timesteps,
+                                  hidden):
+    """bf16 K5b (persistent grid, both gate stores) and K5c (a cluster of
+    one CTA a layer, two at hidden 128) against their plain versions on
+    333 windows (a ragged last tile) and on the window view of a row
+    block, read in place."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=timesteps,
+                       num_layers=layers)
+    params = init_bilstm_params(timesteps + hidden, cfg, device=cuda)
+    rows = torch.from_numpy(np.random.default_rng(hidden).standard_normal(
+        (333 + timesteps - 1, 7), dtype=np.float32)).to(cuda).bfloat16()
+    view = rows.as_strided((333, timesteps, 7), (7, 7, 1))
+    x = torch.from_numpy(np.random.default_rng(timesteps).standard_normal(
+        (333, timesteps, 7), dtype=np.float32)).to(cuda).bfloat16()
+    schedule = ops.mono_schedule(cfg, **flags)
+    gates = flags.get("gate_store", "fp32")
+    for inp in (x, view):
+        before = ops.MONO_SCHEDULE_LAUNCHES[schedule]["bf16"]
+        got = ops.bilstm_center_mono(params, inp, cfg, "bf16", **flags)
+        torch.cuda.synchronize()
+        assert ops.MONO_SCHEDULE_LAUNCHES[schedule]["bf16"] == before + 1
+        want = ops.bilstm_center_plain(params, inp, cfg, "bf16",
+                                       gate_store=gates)
+        torch.testing.assert_close(got, want, **TOL["bf16"])
+
+
+@pytest.mark.parametrize("hidden", [112, 128])
+@pytest.mark.parametrize("kernel,timesteps", [("merged", 21),
+                                              ("layered", 20),
+                                              ("layered", 31)])
+def test_split_kernels_match_plain(cuda, kernel, timesteps, hidden):
+    """bf16 K5a and K4 at hidden 112 and 128 (the 2-CTA split) against
+    their plain versions on 333 windows and on the window view."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=timesteps)
+    params = init_bilstm_params(timesteps + hidden, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(hidden).standard_normal(
+        (333, timesteps, 7), dtype=np.float32)).to(cuda).bfloat16()
+    rows = x[:, 0].contiguous()
+    view = rows.as_strided((333 - timesteps + 1, timesteps, 7), (7, 7, 1))
+    for inp in (x, view):
+        if kernel == "merged":
+            got = ops.bilstm_center_mono(params, inp, cfg, "bf16",
+                                         merged_gemm=True)
+            want = ops.bilstm_center_plain(params, inp, cfg, "bf16")
+        else:
+            got = ops.bilstm_center_features(params, inp, cfg, "bf16",
+                                             mono=False)
+            want = ops.bilstm_layered_plain(params, inp, cfg, "bf16")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL["bf16"])
+
+
+def test_tc_kernels_refuse_hidden_over_128(cuda):
+    cfg = BiLSTMConfig(num_input=7, num_hidden=136, num_layers=1)
+    params = init_bilstm_params(0, cfg, device=cuda)
+    x = torch.zeros(70, 21, 7, device=cuda, dtype=torch.bfloat16)
+    for flags in (dict(merged_gemm=True), dict(pregemm=True),
+                  dict(wavefront=True)):
+        with pytest.raises(ValueError, match="hidden <= 128"):
+            ops.bilstm_center_mono(params, x, cfg, "bf16", **flags)
+    with pytest.raises(ValueError, match="hidden <= 128"):
+        ops.bilstm_center_features(params, x, cfg, "bf16", mono=False)
+
+
+def test_fp32_pregemm_and_wavefront_unchanged(cuda):
+    """The fp32 bodies of K5b (fp32 gates) and K5c are the CUDA-core
+    kernels as before: K1's bits."""
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(13, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (1000, 21, 7), dtype=np.float32)).to(cuda)
+    k1 = ops.bilstm_center_features(params, x, cfg, "fp32")
+    k5b = ops.bilstm_center_mono(params, x, cfg, "fp32", pregemm=True)
+    k5c = ops.bilstm_center_mono(params, x, cfg, "fp32", wavefront=True)
+    torch.cuda.synchronize()
+    assert torch.equal(k5b, k1)
+    assert torch.equal(k5c, k1)
 
 
 def test_fp32_merged_and_layered_unchanged(cuda):

@@ -10,7 +10,9 @@ rounding flip of a stored bf16 value propagates). A bf16 gate store is
 held to the bf16 tolerance in both precisions: its rounded projections
 can flip by one ulp the same way. The JAX kernels run with ``tile_b=8``
 on 17 windows: interpret mode costs seconds a call, so each of the eight
-full-width calls runs once, in a module fixture.
+full-width calls runs once, in a module fixture; so do the three calls of
+the hidden-128 case (bf16, 2 layers, 5 windows: K1 and K5b with both gate
+stores).
 """
 
 import jax.numpy as jnp
@@ -111,6 +113,35 @@ def test_schedule_matches_jax(full_width, label, precision):
     assert tf_ops.LAUNCHES == {"fp32": 0, "bf16": 0}
 
 
+# (label, flags) of the hidden-128 case: K1's plain version and K5b's with
+# both gate stores
+WIDE_SCHEDULES = {
+    "mono": {},
+    "pregemm_f32_gates": dict(pregemm=True),
+    "pregemm_bf16_gates": dict(pregemm=True, gate_store="bf16"),
+}
+
+
+@pytest.fixture(scope="module")
+def hidden_128():
+    """bf16 at hidden 128 (Hp 128, the widest the tensor-core kernels
+    take; the JAX kernels' LANE), 2 layers, T=21, 5 windows; JAX's output
+    for each of WIDE_SCHEDULES, computed once."""
+    jcfg, tcfg, tree, x = _case(hidden=128, layers=2, batch=5, seed=6)
+    want = {label: _jax_mono(tree, x, jcfg, "bf16", **flags)
+            for label, flags in WIDE_SCHEDULES.items()}
+    return tcfg, tree, x, want
+
+
+@pytest.mark.parametrize("label", list(WIDE_SCHEDULES))
+def test_hidden_128_matches_jax(hidden_128, label):
+    tcfg, tree, x, want = hidden_128
+    got = tf_ops.bilstm_center_mono(params_from_numpy(tree, "cpu"),
+                                    torch.from_numpy(x), tcfg, "bf16",
+                                    **WIDE_SCHEDULES[label]).numpy()
+    np.testing.assert_allclose(got, want[label], **TOL["bf16"])
+
+
 def test_wavefront_small_matches_jax():
     """T=5, 2 layers, H=16: the skew's start and drain dominate."""
     jcfg, tcfg, tree, x = _case(timesteps=5, hidden=16, layers=2, batch=9,
@@ -178,7 +209,7 @@ def test_probe_tool_runs_plain_versions(tool, capsys, monkeypatch):
     rows = lines[1:]
     assert rows and all("tile_b=" in r and "/s" in r for r in rows)
     # both precisions at both tiles (probe_mono and probe_merged_gemm:
-    # both kernels too), the bf16 tensor-core kernels (K4, K5a) at 64 only
-    assert len(rows) == (4 if tool == "probe_pregemm" else 7)
-    if tool != "probe_pregemm":
-        assert sum("tile_b=64" in r for r in rows) == 1
+    # both kernels too), the bf16 tensor-core kernels (K4, K5a, K5b) at 64
+    # only, on a line of their own
+    assert len(rows) == (5 if tool == "probe_pregemm" else 7)
+    assert sum("tile_b=64" in r for r in rows) == 1

@@ -1,5 +1,5 @@
-"""The tensor-core layout of K4 and K5a's bf16 mode (``csrc/lstm_tc.cuh``),
-on the CPU.
+"""The tensor-core layout of the bf16 modes of K4 and K5a-c
+(``csrc/lstm_tc.cuh``), on the CPU.
 
 ``tc_pack_layer`` pads, permutes and stores a layer's weights for the
 kernels' ``wgmma`` chain. These tests replay one kernel step in plain
@@ -11,7 +11,10 @@ fragment (the wgmma D layout), and the cell on the four gates the
 permutation puts in that fragment. Gates and h must match the reference
 step of ``layer_weights`` + ``_run_lane``'s formulas within 1e-6 (fp32
 arithmetic on the same bf16 operands; only the summation order differs),
-and a padded unit's h must be exactly 0.
+and a padded unit's h must be exactly 0. Hp 112-128 replay the 2-CTA
+split (each CTA's half of the gate columns, one warpgroup each) and K5b's
+schedule (the projection into the gate buffer in fragment order, then the
+h-only chain on top of it).
 """
 
 import numpy as np
@@ -66,48 +69,79 @@ def _read(mem, start, lbo, sbo, rows):
                + (k % 8)]
 
 
-def _kernel_step(w_tc, b_tc, h_prev, x_t, c_prev, in_dim, hidden, s):
-    """One step of lstm_tc.cuh::run_layer at ring slot s (t & 1) for the
-    block's 64 windows: gates (64, Hp, 4) as the cells see them (bias
-    added) and h (64, Hp) in fp32. h_prev, x_t: the step's bf16 operands,
-    (64, Hp) and (64, 8*nx); c_prev: (64, Hp) fp32."""
-    hp, nx, nk = ops.tc_dims(in_dim, hidden)
-    nh, nc = hp // 8, hp // 8 + nx
-    # carve: h ring, x ring, zero column, weights (element addresses)
-    h_slot, x_slot = nh * COL, nx * COL
-    h_ring = torch.zeros(2, h_slot, dtype=torch.bfloat16)
-    x_ring = torch.zeros(2, x_slot, dtype=torch.bfloat16)
-    h_ring[s ^ 1] = _slot(h_prev)
-    x_ring[s] = _slot(x_t)
-    mem = torch.cat([h_ring.reshape(-1), x_ring.reshape(-1),
-                     torch.zeros(COL, dtype=torch.bfloat16), w_tc]).float()
-    h_base, x_base = (s ^ 1) * h_slot, 2 * h_slot + s * x_slot
-    zero_col = 2 * h_slot + 2 * x_slot
-    w_start = zero_col + COL
-    w_lbo = 4 * hp * 8
-
-    def col(c):
-        if c < nh:
-            return h_base + c * COL
-        return x_base + (c - nh) * COL if c < nc else zero_col
-
+def _product(a_cols, w_tc, hp, nk, split, a_bufs):
+    """The wgmma chains of one step, (2, 64, 2Hp): warpgroup (gate-column
+    half) w's accumulator. ``a_bufs``: the A-side buffers in address order
+    (ring slots, then the zero column); ``a_cols(c, starts)`` the element
+    address of A's core column c. With ``split`` 2, CTA r holds only the
+    gate columns r*2Hp.. of each core column ([kc][2Hp][8], the next k
+    core 2Hp*8 elements on) and runs warpgroup r alone."""
+    starts, at = [], 0
+    for buf in a_bufs:
+        starts.append(at)
+        at += buf.numel()
+    n_cta = 4 * hp // split
     d = torch.zeros(2, ROWS, 2 * hp)
-    for wg in range(2):
-        w_base = w_start + wg * (2 * hp // 8) * 64
-        for j in range(nk):
-            a = _read(mem, col(2 * j), col(2 * j + 1) - col(2 * j), 64, ROWS)
-            b = _read(mem, w_base + 2 * j * w_lbo, w_lbo, 64, 2 * hp)
-            d[wg] += a @ b.t()
+    for cta in range(split):
+        w_cta = w_tc.reshape(-1, 4 * hp, 8)[:, cta * n_cta:(cta + 1) * n_cta]
+        mem = torch.cat([*(b.reshape(-1) for b in a_bufs),
+                         w_cta.reshape(-1)]).float()
+        w_lbo = n_cta * 8
+        for local, wg in enumerate(range(2) if split == 1 else [cta]):
+            w_base = at + local * (2 * hp // 8) * 64
+            for j in range(nk):
+                c0, c1 = a_cols(2 * j, starts), a_cols(2 * j + 1, starts)
+                a = _read(mem, c0, c1 - c0, 64, ROWS)
+                b = _read(mem, w_base + 2 * j * w_lbo, w_lbo, 64, 2 * hp)
+                d[wg] += a @ b.t()
+    return d
 
-    # each thread's accumulator fragment: d[4c+r] at row 16*warp + g +
-    # 8*(r // 2), column 8c + 2q + r % 2
+
+def _fragments(d, hp):
+    """Each thread's accumulator fragment, (256, Hp): d[4c+r] at row
+    16*warp + g + 8*(r // 2), column 8c + 2q + r % 2 of its warpgroup."""
     tid = torch.arange(ops.TC_THREADS)
     wg, warp, g, q = tid // 128, (tid % 128) // 32, (tid % 32) // 4, tid % 4
     jj = torch.arange(hp)
     rows = 16 * warp[:, None] + g[:, None] + 8 * ((jj % 4) // 2)[None, :]
     cols = 8 * (jj // 4)[None, :] + 2 * q[:, None] + (jj % 2)[None, :]
-    acc = d[wg[:, None], rows, cols]
-    # the kernel's cell: unit wg*Hp/2 + q + 4p, rows row0 and row0 + 8
+    return d[wg[:, None], rows, cols]
+
+
+def _kernel_step(w_tc, b_tc, h_prev, x_t, c_prev, in_dim, hidden, s,
+                 split=1):
+    """One step of lstm_tc.cuh::run_layer at ring slot s (t & 1) for the
+    block's 64 windows: gates (64, Hp, 4) as the cells see them (bias
+    added) and h (64, Hp) in fp32. h_prev, x_t: the step's bf16 operands,
+    (64, Hp) and (64, 8*nx); c_prev: (64, Hp) fp32. ``split`` 2 replays
+    the 2-CTA cluster of Hp 112-128: each CTA's half of the units from the
+    full h_{t-1}."""
+    hp, nx, nk = ops.tc_dims(in_dim, hidden)
+    nh, nc = hp // 8, hp // 8 + nx
+    # carve: h ring, x ring, zero column, weights (element addresses)
+    h_ring = torch.zeros(2, nh * COL, dtype=torch.bfloat16)
+    x_ring = torch.zeros(2, nx * COL, dtype=torch.bfloat16)
+    h_ring[s ^ 1] = _slot(h_prev)
+    x_ring[s] = _slot(x_t)
+
+    def col(c, starts):
+        if c < nh:
+            return starts[0] + (s ^ 1) * nh * COL + c * COL
+        if c < nc:
+            return starts[1] + s * nx * COL + (c - nh) * COL
+        return starts[2]
+
+    d = _product(col, w_tc, hp, nk, split,
+                 [h_ring, x_ring, torch.zeros(COL, dtype=torch.bfloat16)])
+    return _cell(_fragments(d, hp), b_tc, c_prev, hidden)[:2]
+
+
+def _gates(acc):
+    """The fragments (256, Hp) as the (64, Hp, 4) gate pre-activations they
+    hold: thread tid's unit wg*Hp/2 + q + 4p, rows row0 and row0 + 8."""
+    hp = acc.shape[1]
+    tid = torch.arange(ops.TC_THREADS)
+    wg, warp, g, q = tid // 128, (tid % 128) // 32, (tid % 32) // 4, tid % 4
     p = torch.arange(hp // 8)
     unit = wg[:, None] * (hp // 2) + q[:, None] + 4 * p[None, :]
     row0 = 16 * warp + g
@@ -115,14 +149,23 @@ def _kernel_step(w_tc, b_tc, h_prev, x_t, c_prev, in_dim, hidden, s):
     for half, (ri, rj, rf, ro) in enumerate(((0, 1, 4, 5), (2, 3, 6, 7))):
         r = (row0 + 8 * half)[:, None].expand_as(unit)
         four = torch.stack([acc[:, 8 * p + k] for k in (ri, rj, rf, ro)], -1)
-        gates[r, unit] = four + b_tc[unit]
+        gates[r, unit] = four
+    return gates
+
+
+def _cell(acc, b_tc, c_prev, hidden):
+    """The kernel's cell on the fragments (256, Hp): gates (64, Hp, 4)
+    with the bias, h (64, Hp) fp32, 0 where a 4-unit group has no real
+    unit, and c."""
+    hp = acc.shape[1]
+    gates = _gates(acc) + b_tc
     c = c_prev * (0.5 * torch.tanh(gates[..., 2] + 0.5 * FORGET_BIAS) + 0.5)
     c = c + (0.5 * torch.tanh(gates[..., 0]) + 0.5) * torch.tanh(gates[..., 1])
     h = torch.tanh(c) * (0.5 * torch.tanh(gates[..., 3]) + 0.5)
     # groups with no real unit are skipped: h stays 0
     u = torch.arange(hp)
     group_start = u // (hp // 2) * (hp // 2) + u % (hp // 2) // 4 * 4
-    return gates, torch.where(group_start < hidden, h, torch.zeros_like(h))
+    return gates, torch.where(group_start < hidden, h, torch.zeros_like(h)), c
 
 
 def _reference_step(w, b, h_prev, x_t, c_prev, in_dim, hidden):
@@ -149,7 +192,7 @@ def _operands(rng, in_dim, hidden, nx):
     return h_prev, x_t, c_prev
 
 
-@pytest.mark.parametrize("hidden", [16, 18, 40, 100])
+@pytest.mark.parametrize("hidden", [16, 18, 40, 100, 128])
 @pytest.mark.parametrize("layer", [0, 1])
 def test_tc_step_matches_reference(hidden, layer):
     """Layer 0 (F=7: one x column, an odd column count at H=16 and 18, so
@@ -170,6 +213,162 @@ def test_tc_step_matches_reference(hidden, layer):
         # padded units: zero gates, h exactly 0
         assert torch.equal(gates[:, hidden:], torch.zeros_like(gates[:, hidden:]))
         assert torch.equal(h[:, hidden:], torch.zeros_like(h[:, hidden:]))
+
+
+@pytest.mark.parametrize("hidden", [112, 120, 128])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_tc_split_step_is_the_one_block_step(hidden, layer):
+    """Hp 112-128: K4, K5a and K5c split a layer-lane over a 2-CTA cluster,
+    CTA r holding warpgroup r's gate columns ([kc][2Hp][8]) and computing
+    its units from the full h_{t-1}; the two halves together are the
+    one-block step, and match the reference."""
+    in_dim = 7 if layer == 0 else hidden
+    (w, b), rng = _layer(hidden + layer, in_dim, hidden)
+    w_tc, b_tc = ops.tc_pack_layer(w, b, in_dim, hidden)
+    hp, nx, _ = ops.tc_dims(in_dim, hidden)
+    assert ops.tc_split(hidden) == 2
+    for s in (0, 1):
+        h_prev, x_t, c_prev = _operands(rng, in_dim, hidden, nx)
+        one = _kernel_step(w_tc, b_tc, h_prev, x_t, c_prev, in_dim, hidden, s)
+        two = _kernel_step(w_tc, b_tc, h_prev, x_t, c_prev, in_dim, hidden, s,
+                           split=2)
+        for a, b_ in zip(one, two):
+            torch.testing.assert_close(b_, a, rtol=0, atol=1e-6)
+        want_g, want_h = _reference_step(w, b, h_prev, x_t, c_prev, in_dim,
+                                         hidden)
+        torch.testing.assert_close(two[0][:, :hidden], want_g, rtol=0,
+                                   atol=1e-6)
+        torch.testing.assert_close(two[1][:, :hidden], want_h, rtol=0,
+                                   atol=1e-6)
+        assert torch.equal(two[1][:, hidden:],
+                           torch.zeros_like(two[1][:, hidden:]))
+
+
+def _pregemm_layer(w_tc, b_tc, xs, in_dim, hidden, gate_store):
+    """K5b's bf16 schedule for one layer-lane on 64 windows, as
+    csrc/bilstm_mono_pregemm.cu addresses it. The projection: every step's
+    x_t @ Wx (Wx: the packing's core columns after Wh's, a zero column
+    after an odd count) into the gate buffer in fragment order, group p of
+    thread tid at (p * 256 + tid) * 8, in gate_store's dtype. The
+    recurrence: step t's fragments loaded back as the accumulator, the
+    h-only chain (Wh's core columns) on top from t = 1, then bias and
+    cell. Returns, per step, (gx decoded to (64, Hp, 4), h_{t-1} in bf16,
+    c_{t-1}, gates, h)."""
+    hp, nx, _ = ops.tc_dims(in_dim, hidden)
+    nh = hp // 8
+    cols = w_tc.reshape(-1, 4 * hp, 8)
+
+    def even(w):
+        if w.shape[0] % 2 == 0:
+            return w
+        return torch.cat([w, torch.zeros(1, 4 * hp, 8, dtype=w.dtype)])
+
+    wx, wh = even(cols[nh:nh + nx]).reshape(-1), even(cols[:nh]).reshape(-1)
+    zero = torch.zeros(COL, dtype=torch.bfloat16)
+    buffer = []
+    for x_t in xs:
+        d = _product(lambda c, st: st[0] + c * COL if c < nx else st[1], wx,
+                     hp, (nx + 1) // 2, 1, [_slot(x_t), zero])
+        frag = _fragments(d, hp).reshape(ops.TC_THREADS, hp // 8, 8)
+        stored = frag.transpose(0, 1).reshape(-1)
+        buffer.append(stored.to(ops.seq_dtype(gate_store)))
+    h = torch.zeros(ROWS, hp, dtype=torch.bfloat16)
+    c = torch.zeros(ROWS, hp)
+    steps = []
+    for t, stored in enumerate(buffer):
+        acc = stored.float().reshape(hp // 8, ops.TC_THREADS, 8).transpose(
+            0, 1).reshape(ops.TC_THREADS, hp)
+        gx = _gates(acc)
+        if t > 0:
+            d = _product(lambda cc, st: st[0] + cc * COL if cc < nh else st[1],
+                         wh, hp, (nh + 1) // 2, 1, [_slot(h), zero])
+            acc = acc + _fragments(d, hp)
+        gates, h_new, c_new = _cell(acc, b_tc, c, hidden)
+        steps.append((gx, h, c, gates, h_new))
+        h, c = h_new.bfloat16(), c_new
+    return steps
+
+
+@pytest.mark.parametrize("gate_store", ["fp32", "bf16"])
+@pytest.mark.parametrize("hidden", [16, 100, 128])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_pregemm_replay_matches_run_lane(hidden, layer, gate_store):
+    """K5b bf16 over 3 steps: the gate buffer holds each step's projection
+    (fp32: within 1e-6 of ``_run_lane``'s x @ Wx; bf16: that sum rounded,
+    within a rounding step of ``_run_lane``'s rounded value, the two sums
+    differing in order), each step's
+    gates and h are gx + h @ Wh + b from the buffer within 1e-6, and the h
+    sequence is ``_run_lane(..., gate_store)``'s at the bf16 tolerance (a
+    1-ulp rounding flip of a stored value propagates)."""
+    in_dim = 7 if layer == 0 else hidden
+    (w, b), rng = _layer(3 * hidden + layer, in_dim, hidden)
+    w_tc, b_tc = ops.tc_pack_layer(w, b, in_dim, hidden)
+    hp, nx, _ = ops.tc_dims(in_dim, hidden)
+    xs = [_operands(rng, in_dim, hidden, nx)[1] for _ in range(3)]
+    steps = _pregemm_layer(w_tc, b_tc, xs, in_dim, hidden, gate_store)
+    want = ops._run_lane([x[:, :in_dim] for x in xs], w, b, FORGET_BIAS,
+                         "bf16", gate_store)
+    w_x, w_h = w[:in_dim].float(), w[in_dim:].float()
+
+    def by_unit(m):  # (64, 4H) gate-major -> (64, H, 4)
+        return m.reshape(ROWS, 4, hidden).transpose(1, 2)
+
+    sig = lambda v: 0.5 * torch.tanh(v) + 0.5  # noqa: E731
+    for t, (gx, h_prev, c_prev, gates, h) in enumerate(steps):
+        ref_gx = by_unit(xs[t][:, :in_dim].float() @ w_x)
+        if gate_store == "fp32":
+            torch.testing.assert_close(gx[:, :hidden], ref_gx, rtol=0,
+                                       atol=1e-6)
+        else:
+            # the two fp32 sums (1e-6 apart at most) round to bf16 values
+            # at most a rounding step apart; most round alike
+            ulp = torch.exp2(torch.floor(torch.log2(ref_gx.abs())) - 7)
+            diff = (gx[:, :hidden] - ref_gx.bfloat16().float()).abs()
+            assert bool((diff <= 2 * ulp + 1e-6).all())
+            assert float((diff == 0).float().mean()) > 0.99
+        assert torch.equal(gx[:, hidden:], torch.zeros_like(gx[:, hidden:]))
+        ref_g = (gx[:, :hidden] + by_unit(h_prev[:, :hidden].float() @ w_h)
+                 + by_unit(b.expand(ROWS, -1)))
+        torch.testing.assert_close(gates[:, :hidden], ref_g, rtol=0,
+                                   atol=1e-6)
+        i, j, f, o = ref_g.unbind(-1)
+        ref_c = (c_prev[:, :hidden] * sig(f + 0.5 * FORGET_BIAS)
+                 + sig(i) * torch.tanh(j))
+        torch.testing.assert_close(h[:, :hidden], torch.tanh(ref_c) * sig(o),
+                                   rtol=0, atol=1e-6)
+        assert torch.equal(h[:, hidden:], torch.zeros_like(h[:, hidden:]))
+        torch.testing.assert_close(h[:, :hidden].bfloat16().float(),
+                                   want[t].float(), rtol=2e-2, atol=2e-3)
+
+
+def _zero_params(cfg):
+    return {lane: [{"kernel": torch.zeros(
+        (cfg.num_input if layer == 0 else cfg.num_hidden) + cfg.num_hidden,
+        4 * cfg.num_hidden), "bias": torch.zeros(4 * cfg.num_hidden)}
+        for layer in range(cfg.num_layers)] for lane in ("fw", "bw")}
+
+
+@pytest.mark.parametrize("hidden,split,smem", [
+    (100, 1, {"merged": 228992, "pregemm": 149120}),
+    (104, 1, {"merged": 228992, "pregemm": 149120}),
+    (112, 2, {"merged": 160512, "pregemm": 160512}),
+    (120, 2, {"merged": 179584, "pregemm": 187264}),
+    (128, 2, {"merged": 199680, "pregemm": 199680}),
+])
+def test_tc_cta_fits_shared_memory(hidden, split, smem):
+    """One CTA of every tensor-core kernel fits a block's 232,448 B at
+    every padded width up to 128: K4, K5a and K5c hold [Wh; Wx] (their half
+    in a split, 128 threads), K5b one of them at a time (256 threads)."""
+    cfg = BiLSTMConfig(num_hidden=hidden)  # F=7, 3 layers
+    assert ops.tc_split(hidden) == split
+    assert ops.tc_smem(cfg) == smem["merged"] <= ops.MAX_SMEM
+    assert ops.tc_smem(cfg, "pregemm") == smem["pregemm"] <= ops.MAX_SMEM
+    for schedule in ("merged", "pregemm", "wavefront"):
+        threads, most, got = ops.mono_block(cfg, schedule, 64, "bf16")
+        assert got == smem["pregemm" if schedule == "pregemm" else "merged"]
+        assert threads == most == (256 if schedule == "pregemm"
+                                   else 256 // split)
+    assert ops.tc_threads("layered", hidden) == 256 // split
 
 
 def test_reference_step_is_run_lane():
@@ -205,10 +404,19 @@ def test_tc_kernels_refuse_other_tiles_and_widths():
     ops._check_tc(packed, cfg, 64)
     with pytest.raises(ValueError, match="tile_b=64"):
         ops._check_tc(packed, cfg, 24)
-    wide = BiLSTMConfig(num_hidden=112, num_layers=1)
-    with pytest.raises(ValueError, match="hidden <= 104"):
-        ops._check_tc(packed, wide, 64)
-    assert ops.tensor_core("merged", "bf16") and ops.tensor_core("layered", "bf16")
-    assert not ops.tensor_core("merged", "fp32")
+    # hidden 105-128 (Hp 112-128, the 2-CTA split) are taken, as JAX's
+    # fused kernels take them; 136 is refused with the limit named
+    for hidden in (112, 128):
+        wide = BiLSTMConfig(num_hidden=hidden, num_layers=2)
+        ops._check_tc(ops.pack_bilstm_params(_zero_params(wide), wide,
+                                             "bf16"), wide, 64)
+    too_wide = BiLSTMConfig(num_hidden=136, num_layers=1)
+    with pytest.raises(ValueError, match="hidden <= 128"):
+        ops._check_tc(ops.pack_bilstm_params(_zero_params(too_wide),
+                                             too_wide, "bf16"), too_wide, 64)
+    for kernel in ("merged", "pregemm", "wavefront", "layered"):
+        assert ops.tensor_core(kernel, "bf16")
+        assert not ops.tensor_core(kernel, "fp32")
+        assert ops.SCHEDULE_TILE_B[kernel]["bf16"] == 64
     assert not ops.tensor_core("mono", "bf16")
     assert ops.SCHEDULE_TILE_B["layered"] == {"fp32": 24, "bf16": 64}
