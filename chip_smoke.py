@@ -9,17 +9,21 @@ without printing the result line):
 
 1. the card's name and power limit;
 2. build the CUDA kernels from the checkout's sources (nvcc, sm_90a);
-   ptxas registers and spills of every kernel; the SASS of every bf16
-   template of K4 and K5a-c (the tensor-core kernels, Hp 8-128) must hold
-   HGMMA (wgmma), and no bf16 CUDA-core body of any of them may be left;
-   their dynamic shared memory;
+   ptxas registers and spills of every kernel (a line each for the
+   tensor-core kernels and for K3's); the SASS of every bf16 template of
+   K1, K4 and K5a-c (the tensor-core kernels, Hp 8-128) must hold HGMMA
+   (wgmma), and no bf16 CUDA-core body of any of them may be left; their
+   dynamic shared memory;
 3. the BiLSTM center kernel (K1) against its plain PyTorch version at
    full width (H=100, 3 layers, T=21, F=7) on 65,536 random windows and
    on the overlapping window view of a 262,144-row feature chunk (the
    shape detect gives it), in fp32 (max abs 2e-5) and bf16 (atol 2e-3 +
-   rtol 2e-2, the tolerance of two bf16 schedules of the same contract);
+   rtol 2e-2, the tolerance of two bf16 schedules of the same contract;
+   bf16 K1, the two-dot tensor-core kernel, also against K5a bf16 on the
+   same inputs);
 4. kernel, plain and library (cuDNN nn.LSTM) times at 262,144 windows,
-   beside the bound the card's peak rates set;
+   beside the bound the card's peak rates set; K1, K5a (bf16) and cuDNN
+   in turns, the median of 3 rounds;
 5. the training kernels K2 (forward with residuals, all layers) and K3
    (BPTT recurrence + weight-gradient product, per layer) against their
    plain versions at full width on 2,048 and 2,083 windows (a ragged last
@@ -29,8 +33,10 @@ without printing the result line):
    rounding point; the gradient tree within relative L2 1e-2, cosine
    0.9999); K3 run twice must give the same bits;
 6. K2, K3 and whole train-step times at 2,048 windows beside their plain
-   versions, cuDNN nn.LSTM forward / backward and the bound, and a
-   torch.profiler breakdown of the train step's device time by kernel;
+   versions, cuDNN nn.LSTM forward / backward (K3 and the backward in
+   turns, the median of 3 rounds) and the bound; a torch.profiler split
+   of K3 a layer (recurrence, gate, dx and dW products) and of the train
+   step's device time by kernel, with its idle share;
 7. detect end to end through the CLI over a synthetic pod5 + basecall BAM
    dataset (one 200 kb chromosome, 100 reads of 1.5-3 kb, no h5py) on the
    card at bf16 and fp32, with K1's launch counts read around those runs;
@@ -76,9 +82,10 @@ without printing the result line):
    K5c's main path on the window view, and the probe tools (probe_mono,
    probe_merged_gemm: K5a's main path, probe_pregemm: K5b's) at 32,768
    windows with the launch counts read around each;
-15. bf16 at hidden 128 (Hp 128: K4, K5a and K5c split each layer over a
-   2-CTA cluster): K4 at T=20 and forced at T=21, K5a, K5b (both gate
-   stores) and K5c at T=21, 3 layers, on 32,768 windows against their
+15. bf16 at hidden 128 (Hp 128: K1, K4, K5a and K5c split each layer
+   over a 2-CTA cluster): K4 at T=20 and forced at T=21, K1, K5a, K5b
+   (both gate stores) and K5c at T=21, 3 layers, on 32,768 windows against
+   their
    plain versions (atol 2e-3 + rtol 2e-2), with kernel, plain and cuDNN
    times at that width and the clusters resident.
 
@@ -152,6 +159,20 @@ def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def interleaved_ms(calls: dict, rounds: int = 3) -> dict:
+    """Each of ``calls`` (name -> fn) timed in turns, ``rounds`` times
+    (``time_ms``, 3 repetitions a turn): per name the median over the
+    rounds, and under name + "_rounds" the rounds themselves."""
+    got = {name: [] for name in calls}
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            got[name].append(time_ms(fn, reps=3))
+    out = {name: statistics.median(v) for name, v in got.items()}
+    out.update({name + "_rounds": [round(t, 3) for t in v]
+                for name, v in got.items()})
+    return out
 
 
 def flops_per_window(cfg) -> int:
@@ -289,34 +310,60 @@ def phase_kernel(device) -> dict:
         log(f"[K1 {precision}] window view of {TIME_B} rows: "
             f"max_abs_err={err_v:.3e}")
         max_err = max(max_err, err_v)
+        if precision == "bf16":
+            # the tensor-core K1 against K5a bf16 (the same function, one
+            # merged chain a step) on the same inputs
+            vs_k5a = 0.0
+            for inp, mine in ((x, got), (view, got_v)):
+                k5a = ops.bilstm_center_mono(packed, inp, cfg, precision,
+                                             merged_gemm=True)
+                torch.cuda.synchronize()
+                vs_k5a = max(vs_k5a, float((mine - k5a).abs().max()))
+                assert torch.allclose(mine, k5a, rtol=2e-2, atol=2e-3), (
+                    f"bf16 K1 vs K5a: max abs {vs_k5a}")
+                del k5a
+            log(f"[K1 bf16] vs K5a bf16 on the same inputs (random and "
+                f"window view): max abs {vs_k5a:.3e}")
         del rows, view, got_v, want_v
 
         xt = x_all.to(dt).contiguous()
-        ms = time_ms(lambda: ops.bilstm_center_features(packed, xt, cfg, precision))
         plain_ms = time_ms(
             lambda: ops.bilstm_center_plain(params, xt, cfg, precision))
+        # K1, (bf16) K5a and cuDNN in turns, the median of 3 rounds
+        calls = {"k1": lambda: ops.bilstm_center_features(
+            packed, xt, cfg, precision)}
+        if precision == "bf16":
+            calls["k5a"] = lambda: ops.bilstm_center_mono(
+                packed, xt, cfg, precision, merged_gemm=True)
+        calls["cudnn"] = lambda: cudnn_center(lib, xt, cfg)
         with torch.no_grad():
-            lib_ms = time_ms(lambda: cudnn_center(lib, xt, cfg))
-        ms2 = time_ms(lambda: ops.bilstm_center_features(packed, xt, cfg, precision))
+            rounds = interleaved_ms(calls)
+        ms, lib_ms = rounds["k1"], rounds["cudnn"]
+        log(f"[K1 {precision}] interleaved, 3 rounds (ms): " + "; ".join(
+            f"{k} {v:.3f} (rounds {rounds[k + '_rounds']})"
+            for k, v in rounds.items() if not k.endswith("_rounds")))
         tiles = {}
-        for tile in (16, 32, 40):
+        # the tensor-core kernel takes one tile, 64: no sweep
+        for tile in (() if ops.tensor_core("mono", precision)
+                     else (16, 32, 40)):
             if cfg.num_hidden * tile // 8 <= ops.MAX_THREADS and (
                     (cfg.timesteps // 2 + 1) * (cfg.num_hidden + cfg.num_input)
                     * tile * xt.element_size() <= ops.MAX_SMEM):
                 tiles[tile] = round(time_ms(lambda: ops.bilstm_center_features(
                     packed, xt, cfg, precision, tile_b=tile)), 3)
-        log(f"[K1 {precision}] tile_b sweep (ms): {tiles} vs "
-            f"{ops.TILE_B}: {ms:.3f}")
+        if tiles:
+            log(f"[K1 {precision}] tile_b sweep (ms): {tiles} vs "
+                f"{ops.TILE_B}: {ms:.3f}")
         w_bytes = packed.w.numel() * packed.w.element_size() + packed.bias.numel() * 4
         b_ms, b_by = bound_ms(cfg, TIME_B, precision, w_bytes)
-        log(f"[K1 {precision}] B={TIME_B} kernel {ms:.3f} / {ms2:.3f} ms, "
+        log(f"[K1 {precision}] B={TIME_B} kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, cudnn {lib_ms:.3f} ms, bound "
             f"{b_ms:.3f} ms ({b_by}); {flops_per_window(cfg)} FLOP/window, "
             f"{flops_per_window(cfg) * TIME_B / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
         results[precision] = dict(
-            max_abs_err=max_err, ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
+            max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-            argmax_agreement=agree,
+            argmax_agreement=agree, rounds=rounds,
         )
         del xt, x, got, want, lib, lib_out
         torch.cuda.empty_cache()
@@ -325,7 +372,7 @@ def phase_kernel(device) -> dict:
 
 def tc_build_line(cfg) -> str:
     """ptxas's spills and registers (``-Xptxas -v`` of this run's build)
-    of the four tensor-core kernels at the config's padded width, and the
+    of the five tensor-core kernels at the config's padded width, and the
     dynamic shared memory their launchers ask for (nvcc reports only the
     static)."""
     import re
@@ -337,7 +384,8 @@ def tc_build_line(cfg) -> str:
     lines = _build.build_info["log"].splitlines()
     found = []
     for i, line in enumerate(lines):
-        m = re.search(r"bilstm_(merged|layer|pregemm|wavefront)_tc_kernelILi"
+        m = re.search(r"bilstm_(center|merged|layer|pregemm|wavefront)_"
+                      r"tc_kernelILi"
                       r"(\d+)E(Lb([01])E)?", line)
         if m and "Compiling entry" in line and int(m.group(2)) == hp:
             props = [t.split("ptxas info    :")[-1].strip()
@@ -347,9 +395,40 @@ def tc_build_line(cfg) -> str:
                      ", bf16 gates" if m.group(4) == "1" else ", fp32 gates")
             found.append(f"{m.group(1)}<{hp}{gates}>: " + "; ".join(props))
     return (" | ".join(found) or "no ptxas log (cached build)") + (
-        f" | dynamic shared memory {ops.tc_smem(cfg)} B a CTA (K5b "
+        f" | dynamic shared memory {ops.tc_smem(cfg)} B a CTA (K1 "
+        f"{ops.tc_smem(cfg, 'mono')} B, K5b "
         f"{ops.tc_smem(cfg, 'pregemm')} B), {ops.tc_threads('merged', cfg.num_hidden)}"
         f" threads (K5b {ops.tc_threads('pregemm', cfg.num_hidden)})")
+
+
+def k3_build_line() -> str:
+    """ptxas's registers and spills of K3's kernels: the recurrence (Wh^T
+    in shared memory or not, per storage type) and the products
+    (gemm_kernel, one instantiation a tile shape and output)."""
+    import re
+
+    from deepmod_tpu_torch.ops import _build
+
+    lines = _build.build_info["log"].splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        m = re.search(r"(train_bwd_kernelI(f|13__nv_bfloat16)Lb([01])E"
+                      r"|gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E\w*?"
+                      r"(Gates|Dx|Dw)Epi(?:I(f|13__nv))?)", line)
+        if not (m and "Compiling entry" in line):
+            continue
+        props = [t.split("ptxas info    :")[-1].strip()
+                 for t in lines[i + 1:i + 4] if "spill" in t or "registers" in t]
+        if m.group(2):
+            name = (f"recurrence<{'fp32' if m.group(2) == 'f' else 'bf16'}, "
+                    f"Wh^T {'shared' if m.group(3) == '1' else 'global'}>")
+        else:
+            kind = ("" if m.group(9) is None else
+                    ", fp32" if m.group(9) == "f" else ", bf16")
+            name = (f"{m.group(8).lower()}<{m.group(4)}x{m.group(5)}, "
+                    f"{m.group(6)}x{m.group(7)}{kind}>")
+        found.append(f"{name}: " + "; ".join(props))
+    return " | ".join(found) or "no ptxas log (cached build)"
 
 
 def _close(got, want, precision: str) -> bool:
@@ -574,15 +653,17 @@ def probe_loop_counts(lib_path: str) -> dict:
     return counts
 
 
-TC_KINDS = ("merged", "layer", "pregemm", "wavefront")  # K5a, K4, K5b, K5c
+# K1, K5a, K4, K5b, K5c
+TC_KINDS = ("center", "merged", "layer", "pregemm", "wavefront")
 TC_HP = tuple(range(8, 129, 8))  # the padded widths instantiated
 
 
 def tensor_core_sass(lib_path: str) -> dict:
-    """HGMMA (wgmma) instructions in the SASS of each bf16 kernel of K4 and
-    K5a-c (``cuobjdump -sass`` of the built library), by mangled name;
+    """HGMMA (wgmma) instructions in the SASS of each bf16 kernel of K1, K4
+    and K5a-c (``cuobjdump -sass`` of the built library), by mangled name;
     every template (Hp 8-128) of the tensor-core kernels must issue them
-    and no bf16 CUDA-core body of any of them may be left."""
+    and no bf16 CUDA-core body of any of them may be left (K1's CUDA-core
+    body, ``bilstm_center_mono_kernel``, is fp32 only)."""
     import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -591,11 +672,13 @@ def tensor_core_sass(lib_path: str) -> dict:
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        m = re.search(r"bilstm_(merged|layer|pregemm|wavefront)_"
-                      r"(tc_kernelILi\d+E(?:Lb[01]E)?|kernelI13__nv)", name)
+        m = re.search(r"bilstm_(center|merged|layer|pregemm|wavefront)_"
+                      r"(tc_kernelILi\d+E(?:Lb[01]E)?|(?:mono_)?kernelI13__nv)",
+                      name)
         if m:
             counts[m.group(1) + "_" + m.group(2)] = block.count("HGMMA")
     old = [k for k in counts if "kernelI13__nv" in k]
+    assert "bilstm_center_mono_kernelIfLb0EE" in sass, "K1's fp32 body"
     assert not old, f"bf16 CUDA-core bodies left: {old}"
     for kind in TC_KINDS:
         tc = {k: v for k, v in counts.items() if k.startswith(kind + "_tc")}
@@ -848,9 +931,10 @@ WIDE_B = 32768  # windows of the hidden-128 check
 
 
 def phase_hidden_128(device) -> dict:
-    """bf16 at hidden 128 (Hp 128: K4, K5a and K5c split each layer-lane
-    over a 2-CTA cluster; K5b keeps one weight resident): K4 at T=20 and
-    forced at T=21, K5a, K5b (both gate stores) and K5c at T=21, 3 layers,
+    """bf16 at hidden 128 (Hp 128: K1, K4, K5a and K5c split each
+    layer-lane over a 2-CTA cluster; K5b keeps one weight resident): K4 at
+    T=20 and forced at T=21, K1, K5a, K5b (both gate stores) and K5c at
+    T=21, 3 layers,
     WIDE_B windows, each against its plain version; kernel, plain and
     cuDNN times at that width beside the bound."""
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
@@ -875,6 +959,10 @@ def phase_hidden_128(device) -> dict:
             packed, x, cfg, "bf16", mono=False),
             lambda: ops.bilstm_layered_plain(params, x, cfg, "bf16"), True)]
         if timesteps % 2 == 1:
+            cases.append(("K1", lambda: ops.bilstm_center_features(
+                packed, x, cfg, "bf16"),
+                lambda: ops.bilstm_center_plain(params, x, cfg, "bf16"),
+                False))
             for label, flags in SCHEDULE_CASES:
                 cases.append((label, lambda f=flags: ops.bilstm_center_mono(
                     packed, x, cfg, "bf16", **f),
@@ -1041,8 +1129,6 @@ def phase_train_kernels(device) -> dict:
         hs, cs = tr.train_fwd(xin, weights, fb)
         k2_ms = time_ms(lambda: tr.train_fwd(xin, weights, fb))
         k2_plain = time_ms(lambda: tr.train_fwd_plain(xin, weights, fb))
-        k3_ms = time_ms(lambda: _bwd_all(tr.train_bwd, xin, hs, cs, dh,
-                                         weights, fb))
         k3_plain = time_ms(lambda: _bwd_all(tr.train_bwd_plain, xin, hs, cs,
                                             dh, weights, fb))
         lib = cudnn_lstms(params, cfg, precision, device, train=True)
@@ -1050,8 +1136,30 @@ def phase_train_kernels(device) -> dict:
         lib_fwd_ms = time_ms(lambda: cudnn_center(lib, xl, cfg))
         out = cudnn_center(lib, xl, cfg)
         gout = torch.randn_like(out) / TRAIN_B
-        lib_bwd_ms = time_ms(lambda: torch.autograd.backward(
-            out, gout, retain_graph=True))
+        # K3 (3 layers) and cuDNN's backward in turns, the median of 3
+        # rounds
+        rounds = interleaved_ms({
+            "k3": lambda: _bwd_all(tr.train_bwd, xin, hs, cs, dh, weights,
+                                   fb),
+            "cudnn_bwd": lambda: torch.autograd.backward(
+                out, gout, retain_graph=True)})
+        k3_ms, lib_bwd_ms = rounds["k3"], rounds["cudnn_bwd"]
+        log(f"[K3 {precision}] interleaved, 3 rounds (ms): K3 {k3_ms:.4f} "
+            f"{rounds['k3_rounds']}, cudnn bwd {lib_bwd_ms:.4f} "
+            f"{rounds['cudnn_bwd_rounds']}")
+        # where K3's device time goes, a layer at a time
+        parts = (("rows", "rows_kernel"), ("gates", "GatesEpi"),
+                 ("recurrence", "train_bwd_kernel"), ("dx", "DxEpi"),
+                 ("dW", "DwEpi"), ("dW sum", "sum_splits"))
+        for layer, (w, b) in enumerate(weights):
+            layer_in = xin if layer == 0 else hs[layer - 1]
+            by_kernel, busy = device_time_by_kernel(lambda: tr.train_bwd(
+                layer_in, hs[layer], cs[layer], dh, w, b, fb))
+            split = {label: sum(ms for ms, name in by_kernel if key in name)
+                     for label, key in parts}
+            log(f"[K3 {precision}] layer {layer} profiler: {busy:.4f} ms "
+                f"of device time; " + "; ".join(
+                    f"{k} {v:.4f}" for k, v in split.items()))
 
         step_params = params_from_numpy(params, device)  # a copy to update
         state = adam_init(step_params)
@@ -1506,13 +1614,14 @@ def main() -> int:
     log(f"[build] ptxas injected a warpgroup.arrive into a wgmma chain "
         f"(C7519) {injected} times")
     hgmma = tensor_core_sass(lib_path)
-    log(f"[build] HGMMA instructions in the SASS of the bf16 K4 / K5a-c "
-        f"kernels (one template a padded width): {hgmma}")
+    log(f"[build] HGMMA instructions in the SASS of the bf16 K1 / K4 / "
+        f"K5a-c kernels (one template a padded width): {hgmma}")
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
 
     for hidden in (100, 128):
-        log(f"[build] the bf16 K4 / K5a-c tensor-core kernels at "
+        log(f"[build] the bf16 K1 / K4 / K5a-c tensor-core kernels at "
             f"H={hidden}: {tc_build_line(BiLSTMConfig(num_hidden=hidden))}")
+    log(f"[build] K3's kernels: {k3_build_line()}")
 
     kern = phase_kernel(device)
     tkern = phase_train_kernels(device)
@@ -1551,8 +1660,10 @@ def main() -> int:
                    for p in ("fp32", "bf16")}
     kernels = []
     for precision in ("fp32", "bf16"):
+        # a name ending in "_tc": a tensor-core (wgmma) kernel
         kernels.append(entry(
-            f"k1_center_{precision}", "bilstm_fused.cu",
+            f"k1_center_{precision}" + ("_tc" if precision == "bf16" else ""),
+            "bilstm_fused.cu",
             "deepmod_tpu/ops/bilstm_fused.py:551", det["launches"][precision],
             kern[precision]))
         for kind, line in (("fwd", 101), ("bwd", 222)):
@@ -1560,7 +1671,6 @@ def main() -> int:
                 f"k{2 if kind == 'fwd' else 3}_train_{kind}_{precision}",
                 "bilstm_train.cu", f"deepmod_tpu/ops/bilstm_fused_train.py:{line}",
                 trn["launches"][f"{kind}_{precision}"], tkern[precision][kind]))
-        # a name ending in "_tc": a tensor-core (wgmma) kernel
         kernels.append(entry(
             f"k4_layer_{precision}" + ("_tc" if precision == "bf16" else ""),
             "bilstm_layer.cu",
@@ -1589,8 +1699,9 @@ def main() -> int:
                 f"deepmod_tpu/ops/bilstm_fused.py:{src_line}", k["launches"],
                 k))
     line = json.dumps({"kernels": kernels}, separators=(",", ":"))
-    # seventeen entries with all eleven keys: 4,663 characters on an H100
-    assert len(line) < 5500, len(line)
+    # seventeen entries with all eleven keys: about 4,700 characters on an
+    # H100
+    assert len(kernels) == 17 and len(line) < 5500, (len(kernels), len(line))
     log(line)
     log(smi)
     print(json.dumps({"ok": True, "device": {

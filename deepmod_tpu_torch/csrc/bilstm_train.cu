@@ -30,45 +30,50 @@
 //   stored h_t) and, after a barrier, overwrites with its own stored h_t,
 //   and the staged layer-0 inputs. Every step's h and c go to global
 //   memory as the residuals (layers, 2, steps, B, H).
-// K3, train_bwd_kernel: one launch per layer serves both lanes, grid
-//   (ceil(B / tile_b), 2). Time runs in reverse with the dh and dc carries
-//   in fp32 registers. Per step the block stages x_t and the stored
-//   h_{t-1} in shared memory; each thread recomputes its unit's gates,
-//   forms the four gate gradients da for its windows and writes them to
-//   shared memory and to global memory (2, steps, B, 4H) fp32; after a
-//   barrier each thread forms dh_{t-1} for its unit and dx_t for row u
-//   (u < in) from the transposed kernel. Capped at 80 registers a thread
-//   so that two 400-thread blocks share an SM and batch 2048 runs in one
-//   wave.
-// K3's weight-gradient pass, train_dw_kernel: dW[lane] = sum over (t, b)
-//   of [x_t; h_{t-1}; 1]^T da_t, an (in+H+1, 4H) fp32 product whose last
-//   row is the bias gradient. One 32x32 output tile per block, summing a
-//   contiguous range of the steps*B rows in a fixed order; the wrapper
-//   splits the rows into up to 8 ranges so that enough blocks are in
-//   flight to hide the load latency, and sum_splits_kernel adds the
-//   ranges in order. No atomics: two runs give the same bits.
+// K3, one call a layer for both lanes, four kernels on the CUDA cores:
+//   0. rows_kernel: the operand rows [x_t; h_{t-1}; 1] in fp32, one dense
+//      (steps*B) x (in+H+1) matrix the two products below read;
+//   1. the gate pre-activations of every step, [x_t; h_{t-1}] . W + b, as
+//      one (steps*B) x (in+H) by (in+H) x 4H product: they depend on the
+//      stored rows only, not on the backward carries, so they leave the
+//      dependent chain;
+//   2. train_bwd_kernel, the recurrence: time runs in reverse with the dh
+//      and dc carries in fp32 registers; a step is the cell's backward
+//      (da of each unit and window, to shared and global memory) and
+//      dh_{t-1} = da_t . Wh^T. A block holds 32 windows of one lane, grid
+//      (ceil(B / 32), 2): 128 blocks at batch 2048, one an SM. Wh^T
+//      (166,400 B at H=100) is staged once in shared memory, so the step
+//      reads no weight from L2; 4 threads share a cell of 8 units x 8
+//      windows of the product, a quarter of the gates each, 64 FMAs for
+//      every 16 floats read (see train_bwd_kernel). The trade: 32 windows
+//      a block fill 128 of 132 SMs at batch 2048 (64 would fill half), and
+//      each staged weight feeds 32 windows where the first cut re-read
+//      all of W and W^T from L2 every step for 16. Above H = 104 Wh^T no
+//      longer fits beside the da buffer and is read from a global copy;
+//   3. dx = da . Wx^T, a (steps*B) x 4H by 4H x in product;
+//   4. dW = sum over (t, b) of [x_t; h_{t-1}; 1]^T da_t, the (in+H+1) x 4H
+//      product whose last row is the bias gradient, in 128 x 128 output
+//      tiles of 8 x 8 register patches, split over ordered row ranges so
+//      that 2 lanes x tiles x splits fill the card; sum_splits_kernel adds
+//      the ranges in order. No atomics: two runs give the same bits.
+//   The products are one register-tiled kernel (gemm_kernel) over dense
+//   fp32 operands, with an epilogue each.
 //
 // What bounds them on an H100: at H=100, 3 layers, T=21, F=7 a window
 // costs 8.92 MFLOP in K2 and about 26.8 MFLOP in K3 (gate recompute, the
 // dh/dx products and the dW product), all fp32 FMAs on the CUDA cores,
 // against a few kB of sequence traffic: they are bound by operations
 // (67 TFLOP/s fp32), and the 11 dependent steps a layer set the latency
-// floor of the recurrences. Left for later: tensor-core products (wgmma on
-// 64-window tiles; tf32 or bf16 inputs would change the fp32 contract),
-// the weights in shared memory, register-tiled dW products, and fusing
-// the dW product into the recurrence. PERF.md holds the measured times.
+// floor of the recurrences. Tensor cores are out: tf32 or bf16 inputs
+// would change the fp32 contract. PERF.md holds the measured times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kR = 4;  // windows per thread
+constexpr int kR = 4;  // windows per thread of K2
 constexpr int kMaxThreads = 512;
-constexpr int kBwdRegs = 80;
-constexpr int kTile = 32;       // dW output tile (rows and columns)
-constexpr int kChunk = 32;      // (t, b) rows per shared-memory chunk
-constexpr int kDwThreads = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -243,256 +248,6 @@ train_fwd_kernel(const T* __restrict__ xin, int batch, int steps, int in_dim,
   }
 }
 
-// at most 80 registers a thread (kMaxThreads of them fit a block): two
-// 400-thread blocks (H=100, tile_b 16) then fit an SM, so the 256 blocks
-// of batch 2048 run in one wave
-template <typename T>
-__global__ void __maxnreg__(kBwdRegs)
-train_bwd_kernel(const T* __restrict__ xin, const T* __restrict__ hs,
-                 const T* __restrict__ cs, const T* __restrict__ dh_in,
-                 const float* __restrict__ w, const float* __restrict__ wt,
-                 const float* __restrict__ bias, float forget_bias,
-                 T* __restrict__ dx, float* __restrict__ da, int batch,
-                 int steps, int in_dim, int hidden, int tile_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = blockIdx.y;
-  const long long b0 = static_cast<long long>(blockIdx.x) * tile_b;
-  const int gates = 4 * hidden;
-  const int rows = in_dim + hidden;
-  float* das = reinterpret_cast<float*>(smem_raw);       // [4H][tile_b]
-  float* xs = das + static_cast<size_t>(gates) * tile_b;  // [in][tile_b]
-  float* hp = xs + static_cast<size_t>(in_dim) * tile_b;  // [H][tile_b]
-
-  const size_t seq_h = static_cast<size_t>(steps) * batch * hidden;
-  const size_t seq_x = static_cast<size_t>(steps) * batch * in_dim;
-  const T* xl = xin + lane * seq_x;
-  const T* hl = hs + lane * seq_h;
-  const T* cl = cs + lane * seq_h;
-  const T* dhl = dh_in + lane * seq_h;
-  T* dxl = dx + lane * seq_x;
-  float* dal = da + lane * static_cast<size_t>(steps) * batch * gates;
-  const float* wl = w + static_cast<size_t>(lane) * rows * gates;
-  const float* wtl = wt + static_cast<size_t>(lane) * gates * rows;
-  const float* bl = bias + static_cast<size_t>(lane) * gates;
-
-  const int u = threadIdx.x % hidden;
-  const int w0 = (threadIdx.x / hidden) * kR;
-  const bool has_x = u < in_dim;  // the wrapper ensures in_dim <= hidden
-  const float bi = bl[u];
-  const float bj = bl[hidden + u];
-  const float bf = bl[2 * hidden + u];
-  const float bo = bl[3 * hidden + u];
-  float dh_carry[kR], dc_carry[kR];
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    dh_carry[r] = 0.0f;
-    dc_carry[r] = 0.0f;
-  }
-
-  for (int t = steps - 1; t >= 0; --t) {
-    // stage x_t and the stored h_{t-1} (zero at t = 0) as fp32
-    for (int i = threadIdx.x; i < in_dim * tile_b; i += blockDim.x) {
-      const int k = i % in_dim;
-      const int wi = i / in_dim;
-      const long long b = b0 + wi;
-      xs[static_cast<size_t>(k) * tile_b + wi] =
-          b < batch ? to_f(xl[(static_cast<size_t>(t) * batch + b) * in_dim + k])
-                    : 0.0f;
-    }
-    for (int i = threadIdx.x; i < hidden * tile_b; i += blockDim.x) {
-      const int k = i % hidden;
-      const int wi = i / hidden;
-      const long long b = b0 + wi;
-      hp[static_cast<size_t>(k) * tile_b + wi] =
-          (t > 0 && b < batch)
-              ? to_f(hl[(static_cast<size_t>(t - 1) * batch + b) * hidden + k])
-              : 0.0f;
-    }
-    __syncthreads();
-
-    // recompute the gates from (x_t, h_{t-1})
-    float acc[4][kR];
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int r = 0; r < kR; ++r) acc[g][r] = 0.0f;
-    accumulate(xs + w0, tile_b, wl + u, in_dim, hidden, acc);
-    accumulate(hp + w0, tile_b, wl + static_cast<size_t>(in_dim) * gates + u,
-               hidden, hidden, acc);
-    float dav[4][kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const long long b = b0 + w0 + r;
-      const bool valid = b < batch;
-      const size_t off = (static_cast<size_t>(t) * batch + b) * hidden + u;
-      const float ig = sigmoid_tanh(acc[0][r] + bi);
-      const float jg = tanhf(acc[1][r] + bj);
-      const float fg = sigmoid_tanh(acc[2][r] + bf + forget_bias);
-      const float og = sigmoid_tanh(acc[3][r] + bo);
-      const float c_t = valid ? to_f(cl[off]) : 0.0f;
-      const float c_prev =
-          (valid && t > 0) ? to_f(cl[off - static_cast<size_t>(batch) * hidden])
-                           : 0.0f;
-      const float dh_total = (valid ? to_f(dhl[off]) : 0.0f) + dh_carry[r];
-      const float tanh_c = tanhf(c_t);
-      const float d_o = dh_total * tanh_c;
-      const float dc = dc_carry[r] + dh_total * og * (1.0f - tanh_c * tanh_c);
-      const float di = dc * jg;
-      const float dj = dc * ig;
-      const float df = dc * c_prev;
-      dc_carry[r] = dc * fg;
-      dav[0][r] = di * ig * (1.0f - ig);
-      dav[1][r] = dj * (1.0f - jg * jg);
-      dav[2][r] = df * fg * (1.0f - fg);
-      dav[3][r] = d_o * og * (1.0f - og);
-    }
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      store_r(das + (static_cast<size_t>(g) * hidden + u) * tile_b + w0,
-              dav[g]);
-    }
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const long long b = b0 + w0 + r;
-      if (b < batch) {
-        float* dst = dal + (static_cast<size_t>(t) * batch + b) * gates + u;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) dst[g * hidden] = dav[g][r];
-      }
-    }
-    __syncthreads();
-
-    // dh_{t-1} = da . W_h^T for unit u, dx_t = da . W_x^T for row u
-    float ah[kR], ax[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      ah[r] = 0.0f;
-      ax[r] = 0.0f;
-    }
-#pragma unroll 4
-    for (int g = 0; g < gates; ++g) {
-      float dv[kR];
-      load_r(das + static_cast<size_t>(g) * tile_b + w0, dv);
-      const float* wg = wtl + static_cast<size_t>(g) * rows;
-      const float wh = __ldg(wg + in_dim + u);
-#pragma unroll
-      for (int r = 0; r < kR; ++r) ah[r] = fmaf(dv[r], wh, ah[r]);
-      if (has_x) {
-        const float wx = __ldg(wg + u);
-#pragma unroll
-        for (int r = 0; r < kR; ++r) ax[r] = fmaf(dv[r], wx, ax[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kR; ++r) dh_carry[r] = ah[r];
-    if (has_x) {
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const long long b = b0 + w0 + r;
-        if (b < batch) {
-          dxl[(static_cast<size_t>(t) * batch + b) * in_dim + u] =
-              from_f<T>(ax[r]);
-        }
-      }
-    }
-    // the next step overwrites the staged rows and da
-    __syncthreads();
-  }
-}
-
-// dw[lane][k][g] = sum over n = t*batch + b of A[n][k] * da[lane][n][g],
-// A[n] = [x_t; h_{t-1} (0 at t = 0); 1]. Grid (ceil((in+H+1)/32),
-// ceil(4H/32), 2 * splits): blockIdx.z = lane * splits + split. Each block
-// owns one 32x32 output tile of one lane and sums, in order, the rows of
-// its split (a contiguous range of n); 256 threads each own a 2x2 patch.
-// With splits > 1 the block writes its partial sum to out[split] and
-// sum_splits_kernel adds the splits in order; with one split out is dw.
-template <typename T>
-__global__ void __launch_bounds__(kDwThreads)
-train_dw_kernel(const T* __restrict__ xin, const T* __restrict__ hs,
-                const float* __restrict__ da, float* __restrict__ out,
-                int batch, int steps, int in_dim, int hidden, int splits) {
-  __shared__ __align__(16) float as[kChunk][kTile];
-  __shared__ __align__(16) float ds[kChunk][kTile];
-  const int lane = blockIdx.z / splits;
-  const int split = blockIdx.z % splits;
-  const int k0 = blockIdx.x * kTile;
-  const int g0 = blockIdx.y * kTile;
-  const int gates = 4 * hidden;
-  const int rows = in_dim + hidden + 1;
-  const long long n_rows = static_cast<long long>(steps) * batch;
-  const long long per_split =
-      (n_rows + static_cast<long long>(splits) * kChunk - 1) /
-      (static_cast<long long>(splits) * kChunk) * kChunk;
-  const long long n_begin = split * per_split;
-  const long long n_end =
-      n_begin + per_split < n_rows ? n_begin + per_split : n_rows;
-  const T* xl = xin + static_cast<size_t>(lane) * n_rows * in_dim;
-  const T* hl = hs + static_cast<size_t>(lane) * n_rows * hidden;
-  const float* dal = da + static_cast<size_t>(lane) * n_rows * gates;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-
-  for (long long n0 = n_begin; n0 < n_end; n0 += kChunk) {
-    for (int i = threadIdx.x; i < kChunk * kTile; i += kDwThreads) {
-      const int nn = i / kTile;
-      const int kk = i % kTile;
-      const long long n = n0 + nn;
-      const int k = k0 + kk;
-      float v = 0.0f;
-      if (n < n_end && k < rows) {
-        if (k < in_dim) {
-          v = to_f(xl[n * in_dim + k]);
-        } else if (k < in_dim + hidden) {
-          if (n >= batch) v = to_f(hl[(n - batch) * hidden + (k - in_dim)]);
-        } else {
-          v = 1.0f;  // the bias row
-        }
-      }
-      as[nn][kk] = v;
-      const int g = g0 + kk;
-      ds[nn][kk] = (n < n_end && g < gates) ? dal[n * gates + g] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int nn = 0; nn < kChunk; ++nn) {
-      const float2 a = *reinterpret_cast<const float2*>(&as[nn][ty * 2]);
-      const float2 d = *reinterpret_cast<const float2*>(&ds[nn][tx * 2]);
-      acc[0][0] = fmaf(a.x, d.x, acc[0][0]);
-      acc[0][1] = fmaf(a.x, d.y, acc[0][1]);
-      acc[1][0] = fmaf(a.y, d.x, acc[1][0]);
-      acc[1][1] = fmaf(a.y, d.y, acc[1][1]);
-    }
-    __syncthreads();
-  }
-  float* dst = out + static_cast<size_t>(split) * 2 * rows * gates;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int k = k0 + ty * 2 + i;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int g = g0 + tx * 2 + j;
-      if (k < rows && g < gates) {
-        dst[(static_cast<size_t>(lane) * rows + k) * gates + g] = acc[i][j];
-      }
-    }
-  }
-}
-
-// dw[i] = sum over s = 0 .. splits-1 of partial[s][i], in that order
-__global__ void sum_splits_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ dw, int n_out,
-                                  int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_out) return;
-  float sum = 0.0f;
-  for (int s = 0; s < splits; ++s) {
-    sum += partial[static_cast<size_t>(s) * n_out + i];
-  }
-  dw[i] = sum;
-}
-
 template <typename T>
 int launch_fwd(const void* xin, int batch, int steps, int in_dim, int hidden,
                int num_layers, const void* w, const void* bias,
@@ -515,41 +270,574 @@ int launch_fwd(const void* xin, int batch, int steps, int in_dim, int hidden,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------------------------------ K3
+
+// The recurrence's block: kBwdTile windows of one lane, in cells of 8
+// units x kBwdR windows, 4 threads a cell: 2 * (H rounded up to 8)
+// threads, rounded up to whole warps (256 at H = 128)
+constexpr int kBwdTile = 32;
+constexpr int kBwdR = 8;
+constexpr int kBwdMaxThreads = 256;
+
+__device__ __forceinline__ void load8f(const float* p, float (&v)[kBwdR]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// the operand rows [x_t; h_{t-1}; 1; 0 ..] of every sequence row n = t*B +
+// b in fp32, (2, steps*B, kp), kp = in+H+1 rounded up to 4 (h_{-1} = 0):
+// the gate and dW products then read one dense matrix in 16-byte loads
+template <typename T>
+__global__ void rows_kernel(const T* __restrict__ x, const T* __restrict__ h,
+                            float* __restrict__ out, long long rows,
+                            int batch, int in_dim, int hidden, int kp) {
+  const long long total = 2 * rows * kp;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = i / kp;  // lane * rows + n
+    const int k = static_cast<int>(i - r * kp);
+    const long long n = r % rows;
+    float v = 0.0f;
+    if (k < in_dim) {
+      v = to_f(x[r * in_dim + k]);
+    } else if (k < in_dim + hidden) {
+      if (n >= batch) v = to_f(h[(r - batch) * hidden + (k - in_dim)]);
+    } else if (k == in_dim + hidden) {
+      v = 1.0f;  // the bias row of dW
+    }
+    out[i] = v;
+  }
+}
+
+// BPTT of one layer, both lanes (blockIdx.y): the gate pre-activations of
+// every step come precomputed (the gate product below), so the dependent
+// chain a step is the cell's backward and dh_{t-1} = da_t . Wh^T only.
+//
+// The block's threads: a cell (ug, wg) is 8 units x 8 windows, and 4
+// threads share it: lanes c, c+8, c+16, c+24 of one warp (q = lane >> 3),
+// so the 8 lanes of a quarter-warp read one row of each shared buffer
+// with no bank conflict. The cell's backward: thread q owns units
+// ug*8+2q, ug*8+2q+1 for the 8 windows, and writes their da to shared
+// memory ([4H][32] fp32) and to global memory. The product: thread q sums
+// the gates g = 4i+q of its cell's 8 x 8 outputs (64 FMAs for every 16
+// floats read from shared memory), then the 4 threads reduce-scatter
+// their partial sums by shuffles, in a fixed order, so that thread q ends
+// with dh of its own 2 units x 8 windows: the carry stays in the thread
+// that uses it. The first cut gave each thread 2 units x 8 windows of the
+// product as well (16 FMAs for 10 floats): its shared-memory reads, not
+// its FMAs, set the step time.
+//
+// Wh^T ([4H][hp8] fp32, hp8 = H rounded up to 8, zero past H) sits in
+// shared memory when kWhShared (H <= 104 beside the da buffer), else it
+// is read from the wrapper's global copy `wht`. Windows past the batch
+// and units past H load zeros, so their da is exactly 0 and no branch
+// guards the cell.
+template <typename T, bool kWhShared>
+__global__ void __launch_bounds__(kBwdMaxThreads, 1)
+train_bwd_kernel(const float* __restrict__ gates, const T* __restrict__ cs,
+                 const T* __restrict__ dh_in, const float* __restrict__ w,
+                 const float* __restrict__ wht, float forget_bias,
+                 float* __restrict__ da, int batch, int steps, int in_dim,
+                 int hidden) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = blockIdx.y;
+  const long long b0 = static_cast<long long>(blockIdx.x) * kBwdTile;
+  const int n_gates = 4 * hidden;
+  const int hp8 = (hidden + 7) / 8 * 8;
+  float* das = reinterpret_cast<float*>(smem_raw);  // [4H][kBwdTile]
+  const int q = (threadIdx.x >> 3) & 3;
+  const int cell = (threadIdx.x >> 5) * 8 + (threadIdx.x & 7);
+  const int wg = cell & 3;   // windows wg*8 ..
+  const int ug = cell >> 2;  // units ug*8 ..
+  const bool live = ug * 8 < hp8;  // the last warp's spare cells idle
+  const int w0 = wg * kBwdR;
+  const int u0 = ug * 8 + 2 * q;  // this lane's units in the cell's backward
+
+  const float* wh;  // this lane's Wh^T, [4H][hp8]
+  if constexpr (kWhShared) {
+    float* whs = das + static_cast<size_t>(n_gates) * kBwdTile;
+    // Wh: rows in_dim .. in_dim+H-1 of the (in+H, 4H) kernel; read along
+    // the gates (coalesced), written transposed
+    const float* wl = w + static_cast<size_t>(lane) * (in_dim + hidden) *
+                              n_gates +
+                      static_cast<size_t>(in_dim) * n_gates;
+    for (int i = threadIdx.x; i < hp8 * n_gates; i += blockDim.x) {
+      const int u = i / n_gates;
+      const int g = i - u * n_gates;
+      whs[static_cast<size_t>(g) * hp8 + u] =
+          u < hidden ? wl[static_cast<size_t>(u) * n_gates + g] : 0.0f;
+    }
+    wh = whs;
+  } else {
+    wh = wht + static_cast<size_t>(lane) * n_gates * hp8;
+  }
+
+  const size_t seq = static_cast<size_t>(steps) * batch;
+  const float* gl = gates + lane * seq * n_gates;
+  const T* cl = cs + lane * seq * hidden;
+  const T* dhl = dh_in + lane * seq * hidden;
+  float* dal = da + lane * seq * n_gates;
+  float dh_c[2][kBwdR], dc_c[2][kBwdR];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int r = 0; r < kBwdR; ++r) {
+      dh_c[k][r] = 0.0f;
+      dc_c[k][r] = 0.0f;
+    }
+  __syncthreads();
+
+  for (int t = steps - 1; t >= 0; --t) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int u = u0 + k;
+      const bool real = u < hidden;
+      const int uc = real ? u : 0;  // a valid address for the spare units
+      float gv[4][kBwdR], c_t[kBwdR], c_p[kBwdR], dv[kBwdR];
+#pragma unroll
+      for (int r = 0; r < kBwdR; ++r) {
+        const long long b = b0 + w0 + r;
+        const bool valid = real && b < batch;
+        const size_t row = static_cast<size_t>(t) * batch + (valid ? b : 0);
+        const float* gr = gl + row * n_gates + uc;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gv[g][r] = valid ? gr[g * hidden] : 0.0f;
+        const size_t off = row * hidden + uc;
+        c_t[r] = valid ? to_f(cl[off]) : 0.0f;
+        c_p[r] = valid && t > 0
+                     ? to_f(cl[off - static_cast<size_t>(batch) * hidden])
+                     : 0.0f;
+        dv[r] = valid ? to_f(dhl[off]) : 0.0f;
+      }
+      float dav[4][kBwdR];
+#pragma unroll
+      for (int r = 0; r < kBwdR; ++r) {
+        const float ig = sigmoid_tanh(gv[0][r]);
+        const float jg = tanhf(gv[1][r]);
+        const float fg = sigmoid_tanh(gv[2][r] + forget_bias);
+        const float og = sigmoid_tanh(gv[3][r]);
+        const float dh_total = dv[r] + dh_c[k][r];
+        const float tanh_c = tanhf(c_t[r]);
+        const float d_o = dh_total * tanh_c;
+        const float dc =
+            dc_c[k][r] + dh_total * og * (1.0f - tanh_c * tanh_c);
+        dc_c[k][r] = dc * fg;
+        dav[0][r] = dc * jg * ig * (1.0f - ig);
+        dav[1][r] = dc * ig * (1.0f - jg * jg);
+        dav[2][r] = dc * c_p[r] * fg * (1.0f - fg);
+        dav[3][r] = d_o * og * (1.0f - og);
+      }
+      if (real) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float4* d = reinterpret_cast<float4*>(
+              das + static_cast<size_t>(g * hidden + u) * kBwdTile + w0);
+          d[0] = make_float4(dav[g][0], dav[g][1], dav[g][2], dav[g][3]);
+          d[1] = make_float4(dav[g][4], dav[g][5], dav[g][6], dav[g][7]);
+        }
+#pragma unroll
+        for (int r = 0; r < kBwdR; ++r) {
+          const long long b = b0 + w0 + r;
+          if (b < batch) {
+            float* dst =
+                dal + (static_cast<size_t>(t) * batch + b) * n_gates + u;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) dst[g * hidden] = dav[g][r];
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // this lane's quarter of the gates for the cell's 8 units x 8 windows
+    float acc[8][kBwdR];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int r = 0; r < kBwdR; ++r) acc[i][r] = 0.0f;
+    if (live) {
+#pragma unroll 2
+      for (int g = q; g < n_gates; g += 4) {
+        float dvv[kBwdR], wv[8];
+        load8f(das + static_cast<size_t>(g) * kBwdTile + w0, dvv);
+        load8f(wh + static_cast<size_t>(g) * hp8 + ug * 8, wv);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int r = 0; r < kBwdR; ++r)
+            acc[i][r] = fmaf(wv[i], dvv[r], acc[i][r]);
+      }
+    }
+    // reduce-scatter over the 4 threads of the cell: thread q keeps units
+    // 4*(q>>1) .. +3 after the first exchange, then 2q, 2q+1
+    const int h1 = q >> 1;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int r = 0; r < kBwdR; ++r) {
+        const float keep = h1 ? acc[i + 4][r] : acc[i][r];
+        const float give = h1 ? acc[i][r] : acc[i + 4][r];
+        acc[i][r] = keep + __shfl_xor_sync(0xffffffffu, give, 16);
+      }
+    const int h2 = q & 1;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int r = 0; r < kBwdR; ++r) {
+        const float keep = h2 ? acc[i + 2][r] : acc[i][r];
+        const float give = h2 ? acc[i][r] : acc[i + 2][r];
+        dh_c[i][r] = keep + __shfl_xor_sync(0xffffffffu, give, 8);
+      }
+    // the next step overwrites da
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------- K3's products (CUDA cores)
+//
+// C = A B tiled for the CUDA cores: a block of 256 threads owns a kBM x
+// kBN output tile, each thread a kTM x kTN register patch (8 x 8 for the
+// gate and dW products: 16 shared-memory floats feed 64 FMAs). 4H = 400
+// columns take four 128-wide tiles, 512 computed: on an H100, 128 x 80
+// tiles (8 x 5 patches, scalar B loads) and 128 x 64 tiles (8 x 4) that
+// compute fewer spare columns measured 15-40% slower. A and B are
+// dense fp32 matrices read in 16-byte loads, through shared memory in
+// chunks of kBK = 8 of the sum index, double buffered: the next chunk's
+// loads are issued into registers before the current chunk's FMAs and
+// stored after them, so one barrier a chunk separates the two buffers.
+// Every output is one thread's fmaf chain over its sum range in index
+// order; the dW product splits the steps*B rows into `splits` ordered
+// ranges (blockIdx.z = lane * splits + split) that sum_splits_kernel adds
+// in order: no atomics, the same bits every run. At most 128 registers a
+// thread, so two blocks share an SM.
+constexpr int kGemmThreads = 256;
+constexpr int kBK = 8;
+
+// a dense fp32 operand: element (r, c) of lane l at p[l * lane_stride + r
+// * ld + c], c running along memory; ld, lane_stride and cols multiples
+// of 4
+struct Mat {
+  const float* p;
+  long long lane_stride, ld, rows, cols;
+};
+
+// 4 consecutive elements of row r from column c, zero at r >= rlim or c
+// >= clim
+__device__ __forceinline__ float4 ld4(const Mat& x, int lane, long long r,
+                                      long long c, long long rlim,
+                                      long long clim) {
+  if (r < rlim && c < clim) {
+    return *reinterpret_cast<const float4*>(x.p + lane * x.lane_stride +
+                                            r * x.ld + c);
+  }
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// the position of value i of thread t's patch along a tile of kB: with 8
+// values, two runs of 4 half a tile apart (conflict-free 16-byte loads)
+template <int kT, int kB>
+__device__ __forceinline__ int patch(int t, int i) {
+  if constexpr (kT == 8) {
+    return t * 4 + (i & 3) + (i >> 2) * (kB / 2);
+  } else {
+    return t * kT + i;
+  }
+}
+
+template <int kT, int kB>
+__device__ __forceinline__ void frag(const float* row, int t,
+                                     float (&v)[kT]) {
+  if constexpr (kT == 8) {
+    const float4 p = *reinterpret_cast<const float4*>(row + t * 4);
+    const float4 q = *reinterpret_cast<const float4*>(row + kB / 2 + t * 4);
+    v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+    v[4] = q.x; v[5] = q.y; v[6] = q.z; v[7] = q.w;
+  } else if constexpr (kT == 4) {
+    const float4 p = *reinterpret_cast<const float4*>(row + t * 4);
+    v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kT; ++i) v[i] = row[t * kT + i];
+  }
+}
+
+__device__ __forceinline__ void put4_t(float* col0, int stride, float4 v) {
+  col0[0] = v.x;
+  col0[stride] = v.y;
+  col0[2 * stride] = v.z;
+  col0[3 * stride] = v.w;
+}
+
+// A (M x K): kAK, stored M rows x K columns (along k), else K rows x M
+// columns (along m); B (K x N): kBKc, stored N rows x K columns, else K
+// rows x N columns. Epi::put(lane, split, m, n, value) writes an output.
+template <int kBM, int kBN, int kTM, int kTN, bool kAK, bool kBKc,
+          typename Epi>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+gemm_kernel(Mat a, Mat b, Epi epi, long long n_m, int n_n, long long k_len,
+            long long per_split, int splits) {
+  constexpr int kTx = kBN / kTN;
+  static_assert((kBM / kTM) * kTx == kGemmThreads, "one patch a thread");
+  constexpr int kFA = (2 * kBM + kGemmThreads - 1) / kGemmThreads;
+  constexpr int kFB = (2 * kBN + kGemmThreads - 1) / kGemmThreads;
+  __shared__ __align__(16) float As[2][kBK][kBM];
+  __shared__ __align__(16) float Bs[2][kBK][kBN];
+  const int lane = blockIdx.z / splits;
+  const int split = blockIdx.z - lane * splits;
+  const long long m0 = static_cast<long long>(blockIdx.y) * kBM;
+  const int n0 = blockIdx.x * kBN;
+  const long long lo = split * per_split;
+  const long long hi = lo + per_split < k_len ? lo + per_split : k_len;
+  const int tid = threadIdx.x;
+  const int ty = tid / kTx;
+  const int tx = tid - ty * kTx;
+  float4 ra[kFA], rb[kFB];
+
+  auto fetch = [&](long long k0) {
+#pragma unroll
+    for (int j = 0; j < kFA; ++j) {
+      const int e = tid + j * kGemmThreads;
+      if (e < 2 * kBM) {
+        if constexpr (kAK) {
+          ra[j] = ld4(a, lane, m0 + (e >> 1), k0 + (e & 1) * 4, n_m,
+                      hi < a.cols ? hi : a.cols);
+        } else {
+          ra[j] = ld4(a, lane, k0 + e / (kBM / 4), m0 + e % (kBM / 4) * 4,
+                      hi < a.rows ? hi : a.rows, a.cols);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFB; ++j) {
+      const int e = tid + j * kGemmThreads;
+      if (e < 2 * kBN) {
+        if constexpr (kBKc) {
+          rb[j] = ld4(b, lane, n0 + (e >> 1), k0 + (e & 1) * 4, b.rows,
+                      hi < b.cols ? hi : b.cols);
+        } else {
+          rb[j] = ld4(b, lane, k0 + e / (kBN / 4), n0 + e % (kBN / 4) * 4,
+                      hi < b.rows ? hi : b.rows, b.cols);
+        }
+      }
+    }
+  };
+  auto put = [&](int buf) {
+#pragma unroll
+    for (int j = 0; j < kFA; ++j) {
+      const int e = tid + j * kGemmThreads;
+      if (e < 2 * kBM) {
+        if constexpr (kAK) {
+          put4_t(&As[buf][(e & 1) * 4][e >> 1], kBM, ra[j]);
+        } else {
+          *reinterpret_cast<float4*>(
+              &As[buf][e / (kBM / 4)][e % (kBM / 4) * 4]) = ra[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kFB; ++j) {
+      const int e = tid + j * kGemmThreads;
+      if (e < 2 * kBN) {
+        if constexpr (kBKc) {
+          put4_t(&Bs[buf][(e & 1) * 4][e >> 1], kBN, rb[j]);
+        } else {
+          *reinterpret_cast<float4*>(
+              &Bs[buf][e / (kBN / 4)][e % (kBN / 4) * 4]) = rb[j];
+        }
+      }
+    }
+  };
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+
+  if (lo < hi) {
+    fetch(lo);
+    put(0);
+    __syncthreads();
+    int buf = 0;
+    for (long long k0 = lo; k0 < hi; k0 += kBK) {
+      const bool more = k0 + kBK < hi;
+      if (more) fetch(k0 + kBK);
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) {
+        float av[kTM], bv[kTN];
+        frag<kTM, kBM>(&As[buf][kk][0], ty, av);
+        frag<kTN, kBN>(&Bs[buf][kk][0], tx, bv);
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j)
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      if (more) put(buf ^ 1);
+      __syncthreads();
+      buf ^= 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const long long m = m0 + patch<kTM, kBM>(ty, i);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int n = n0 + patch<kTN, kBN>(tx, j);
+      if (m < n_m && n < n_n) epi.put(lane, split, m, n, acc[i][j]);
+    }
+  }
+}
+
+// the gate pre-activations, (2, steps*B, 4H): the product plus the bias.
+// (Their nonlinearities stay in the recurrence: applied here, in the
+// product's epilogue, they cost the product more than they saved the
+// recurrence on an H100.)
+struct GatesEpi {
+  float* out;
+  const float* bias;  // (2, 4H)
+  long long rows;
+  int n_gates;
+  __device__ void put(int lane, int, long long m, int n, float v) const {
+    out[(lane * rows + m) * n_gates + n] = v + bias[lane * n_gates + n];
+  }
+};
+
+// dx (2, steps*B, in) in the storage type
+template <typename T>
+struct DxEpi {
+  T* dx;
+  long long rows;
+  int in_dim;
+  __device__ void put(int lane, int, long long m, int n, float v) const {
+    dx[(lane * rows + m) * in_dim + n] = from_f<T>(v);
+  }
+};
+
+// a split's dW partial, (splits, 2, in+H+1, 4H)
+struct DwEpi {
+  float* out;
+  long long m_all;
+  int n_gates;
+  __device__ void put(int lane, int split, long long m, int n,
+                      float v) const {
+    out[((static_cast<long long>(split) * 2 + lane) * m_all + m) * n_gates +
+        n] = v;
+  }
+};
+
+// dw[i] = sum over s = 0 .. splits-1 of partial[s][i], in that order
+__global__ void sum_splits_kernel(const float* __restrict__ partial,
+                                  float* __restrict__ dw, int n_out,
+                                  int splits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_out) return;
+  float sum = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    sum += partial[static_cast<size_t>(s) * n_out + i];
+  }
+  dw[i] = sum;
+}
+
+template <int kBM, int kBN, int kTM, int kTN, bool kAK, bool kBKc,
+          typename Epi>
+cudaError_t launch_gemm(const Mat& a, const Mat& b, const Epi& epi,
+                        long long n_m, int n_n, long long k_len,
+                        long long per_split, int splits, cudaStream_t s) {
+  const dim3 grid((n_n + kBN - 1) / kBN,
+                  static_cast<unsigned>((n_m + kBM - 1) / kBM), 2 * splits);
+  gemm_kernel<kBM, kBN, kTM, kTN, kAK, kBKc, Epi>
+      <<<grid, kGemmThreads, 0, s>>>(a, b, epi, n_m, n_n, k_len, per_split,
+                                     splits);
+  return cudaGetLastError();
+}
+
+// the rows of a dW split: steps*B over `splits`, rounded up to kBK
+inline long long dw_rows_per_split(long long rows, int splits) {
+  const long long per = (rows + splits - 1) / splits;
+  return (per + kBK - 1) / kBK * kBK;
+}
+
 template <typename T>
 int launch_bwd(const void* xin, const void* hs, const void* cs,
-               const void* dh, const void* w, const void* wt,
-               const void* bias, float forget_bias, void* dx, void* da,
-               void* dw, void* partial, int splits, int batch, int steps,
-               int in_dim, int hidden, int tile_b, void* stream) {
+               const void* dh, const void* w, const void* wht,
+               const void* bias, float forget_bias, void* dx, void* rows_buf,
+               void* gates, void* da, void* dw, void* partial, int splits,
+               int batch, int steps, int in_dim, int hidden, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long rows = static_cast<long long>(steps) * batch;
+  const int n_gates = 4 * hidden;
+  const int kp = (in_dim + hidden + 1 + 3) / 4 * 4;
+  const auto* wf = static_cast<const float*>(w);
+  auto* rows_f = static_cast<float*>(rows_buf);
+  auto* gates_f = static_cast<float*>(gates);
+  auto* da_f = static_cast<float*>(da);
+  const long long w_lane = static_cast<long long>(in_dim + hidden) * n_gates;
+
+  // 0. [x_t; h_{t-1}; 1] in fp32
+  {
+    const long long total = 2 * rows * kp;
+    const long long blocks = (total + 255) / 256;
+    rows_kernel<T><<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096),
+                     256, 0, s>>>(static_cast<const T*>(xin),
+                                  static_cast<const T*>(hs), rows_f, rows,
+                                  batch, in_dim, hidden, kp);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Mat rows_m{rows_f, rows * kp, kp, rows, kp};
+  const Mat da_m{da_f, rows * n_gates, n_gates, rows, n_gates};
+
+  // 1. every step's gate pre-activations (independent of the carries)
+  err = launch_gemm<128, 128, 8, 8, true, false>(
+      rows_m, Mat{wf, w_lane, n_gates, in_dim + hidden, n_gates},
+      GatesEpi{gates_f, static_cast<const float*>(bias), rows, n_gates},
+      rows, n_gates, kp, kp, 1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // 2. the recurrence
+  const int hp8 = (hidden + 7) / 8 * 8;
+  const bool shared = wht == nullptr;
   const size_t smem =
-      static_cast<size_t>(5 * hidden + in_dim) * tile_b * sizeof(float);
-  auto kernel = train_bwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      static_cast<size_t>(n_gates) * kBwdTile * sizeof(float) +
+      (shared ? static_cast<size_t>(n_gates) * hp8 * sizeof(float) : 0);
+  auto kernel = shared ? train_bwd_kernel<T, true> : train_bwd_kernel<T, false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((batch + tile_b - 1) / tile_b, 2),
-           dim3(hidden * (tile_b / kR)), smem, s>>>(
-      static_cast<const T*>(xin), static_cast<const T*>(hs),
-      static_cast<const T*>(cs), static_cast<const T*>(dh),
-      static_cast<const float*>(w), static_cast<const float*>(wt),
-      static_cast<const float*>(bias), forget_bias, static_cast<T*>(dx),
-      static_cast<float*>(da), batch, steps, in_dim, hidden, tile_b);
+  kernel<<<dim3((batch + kBwdTile - 1) / kBwdTile, 2),
+           dim3((2 * hp8 + 31) / 32 * 32), smem, s>>>(
+      gates_f, static_cast<const T*>(cs), static_cast<const T*>(dh), wf,
+      static_cast<const float*>(wht), forget_bias, da_f, batch, steps,
+      in_dim, hidden);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int rows = in_dim + hidden + 1;
+
+  // 3. dx = da . Wx^T (Wx: the first in_dim rows of W, along the gates)
+  const Mat wx{wf, w_lane, n_gates, in_dim, n_gates};
+  const DxEpi<T> dx_epi{static_cast<T*>(dx), rows, in_dim};
+  err = in_dim <= 16
+            ? launch_gemm<128, 16, 8, 1, true, true>(da_m, wx, dx_epi, rows,
+                                                     in_dim, n_gates, n_gates,
+                                                     1, s)
+            : launch_gemm<128, 64, 8, 4, true, true>(da_m, wx, dx_epi, rows,
+                                                     in_dim, n_gates, n_gates,
+                                                     1, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // 4. dW and db: [x; h; 1]^T da split over ordered row ranges, then
+  // summed in order
+  const int m_all = in_dim + hidden + 1;
   float* dw_out = static_cast<float*>(splits > 1 ? partial : dw);
-  train_dw_kernel<T><<<dim3((rows + kTile - 1) / kTile,
-                            (4 * hidden + kTile - 1) / kTile, 2 * splits),
-                       dim3(kDwThreads), 0, s>>>(
-      static_cast<const T*>(xin), static_cast<const T*>(hs),
-      static_cast<const float*>(da), dw_out, batch, steps, in_dim, hidden,
-      splits);
-  if (splits == 1) return static_cast<int>(cudaGetLastError());
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_out = 2 * rows * 4 * hidden;
+  err = launch_gemm<128, 128, 8, 8, false, false>(
+      rows_m, da_m, DwEpi{dw_out, m_all, n_gates}, m_all, n_gates, rows,
+      dw_rows_per_split(rows, splits), splits, s);
+  if (splits == 1 || err != cudaSuccess) return static_cast<int>(err);
+  const int n_out = 2 * m_all * n_gates;
   sum_splits_kernel<<<(n_out + 255) / 256, 256, 0, s>>>(
       dw_out, static_cast<float*>(dw), n_out, splits);
   return static_cast<int>(cudaGetLastError());
@@ -583,35 +871,39 @@ int dmt_bilstm_train_fwd_bf16(const void* xin, int batch, int steps,
 }
 
 // K3 for one layer, both lanes: xin (2, steps, B, in), hs, cs, dh (2,
-// steps, B, H) in the storage type; w (2, in+H, 4H), wt (2, 4H, in+H),
-// bias (2, 4H) fp32. Writes dx (2, steps, B, in) in the storage type, the
-// scratch da (2, steps, B, 4H) fp32 and dw (2, in+H+1, 4H) fp32 (last row:
-// the bias gradient). The dW product sums `splits` contiguous ranges of
-// the steps*B rows into the scratch partial (splits, 2, in+H+1, 4H) fp32
-// (unused when splits is 1), then adds them in order. Launches the
-// recurrence, then the dW product; returns the first CUDA error (0 =
-// success).
+// steps, B, H) in the storage type; w (2, in+H, 4H), bias (2, 4H) fp32;
+// wht null when H <= 104 (Wh^T staged in shared memory), else Wh^T as (2,
+// 4H, H rounded up to 8) fp32, zero-padded. Writes dx (2, steps, B, in)
+// in the storage type, the scratch rows (2, steps*B, in+H+1 rounded up to
+// 4) fp32, gates and da (2, steps, B, 4H) fp32 and dw (2, in+H+1, 4H)
+// fp32 (last row: the bias gradient). The dW product sums `splits`
+// ordered ranges of the steps*B rows into the scratch partial (splits, 2,
+// in+H+1, 4H) fp32 (unused when splits is 1), then adds them in order.
+// Launches the row build, the gate product, the recurrence, the dx
+// product and the dW product (and the split sum); returns the first CUDA
+// error (0 = success).
 int dmt_bilstm_train_bwd_f32(const void* xin, const void* hs, const void* cs,
-                             const void* dh, const void* w, const void* wt,
+                             const void* dh, const void* w, const void* wht,
                              const void* bias, float forget_bias, void* dx,
-                             void* da, void* dw, void* partial, int splits,
-                             int batch, int steps, int in_dim, int hidden,
-                             int tile_b, void* stream) {
-  return launch_bwd<float>(xin, hs, cs, dh, w, wt, bias, forget_bias, dx,
-                           da, dw, partial, splits, batch, steps, in_dim,
-                           hidden, tile_b, stream);
+                             void* rows, void* gates, void* da, void* dw,
+                             void* partial, int splits, int batch, int steps,
+                             int in_dim, int hidden, void* stream) {
+  return launch_bwd<float>(xin, hs, cs, dh, w, wht, bias, forget_bias, dx,
+                           rows, gates, da, dw, partial, splits, batch,
+                           steps, in_dim, hidden, stream);
 }
 
 int dmt_bilstm_train_bwd_bf16(const void* xin, const void* hs,
                               const void* cs, const void* dh, const void* w,
-                              const void* wt, const void* bias,
-                              float forget_bias, void* dx, void* da,
-                              void* dw, void* partial, int splits, int batch,
-                              int steps, int in_dim, int hidden, int tile_b,
-                              void* stream) {
-  return launch_bwd<__nv_bfloat16>(xin, hs, cs, dh, w, wt, bias, forget_bias,
-                                   dx, da, dw, partial, splits, batch, steps,
-                                   in_dim, hidden, tile_b, stream);
+                              const void* wht, const void* bias,
+                              float forget_bias, void* dx, void* rows,
+                              void* gates, void* da, void* dw, void* partial,
+                              int splits, int batch, int steps, int in_dim,
+                              int hidden, void* stream) {
+  return launch_bwd<__nv_bfloat16>(xin, hs, cs, dh, w, wht, bias,
+                                   forget_bias, dx, rows, gates, da, dw,
+                                   partial, splits, batch, steps, in_dim,
+                                   hidden, stream);
 }
 
 }  // extern "C"

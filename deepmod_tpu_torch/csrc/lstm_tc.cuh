@@ -1,8 +1,9 @@
 // The tensor-core LSTM layer for Hopper (sm_90a): the bf16 mode of K5a
 // (bilstm_mono_merged.cu) and of K4 (bilstm_layer.cu) run one lane of one
 // layer over a 64-window tile through run_layer below; the bf16 modes of
-// K5b (bilstm_mono_pregemm.cu) and K5c (bilstm_mono_wavefront.cu) build
-// their own step loops from the same pieces.
+// K1 (bilstm_fused.cu: two chains a step, x then h), K5b
+// (bilstm_mono_pregemm.cu) and K5c (bilstm_mono_wavefront.cu) build their
+// own step loops from the same pieces.
 //
 // Numerics: K1's bf16 contract (lstm_common.cuh::cell<true>, unchanged):
 // bf16 x, weights and stored h; fp32 accumulation (the tensor cores' fp32

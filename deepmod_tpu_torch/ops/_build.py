@@ -4,7 +4,7 @@ Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
 K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
 ``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
 ``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; the bf16 modes of
-K4 and K5a-c include ``lstm_tc.cuh``) is compiled by its own ``nvcc`` process
+K1, K4 and K5a-c include ``lstm_tc.cuh``) is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -122,20 +122,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = ctypes.c_longlong
     n = ctypes.POINTER(ctypes.c_int)
-    for name in ("dmt_bilstm_center_f32", "dmt_bilstm_center_bf16",
-                 "dmt_bilstm_merged_f32",
-                 "dmt_bilstm_wavefront_f32"):  # K1, K5a fp32, K5c fp32
+    for name in ("dmt_bilstm_center_f32", "dmt_bilstm_merged_f32",
+                 "dmt_bilstm_wavefront_f32"):  # K1, K5a, K5c fp32
         fn = getattr(lib, name)
         # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
         # hidden, num_layers, w, bias, forget_bias term, out, tile_b,
         # stream
         fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p]
         fn.restype = ctypes.c_int
-    # K5a bf16 (tensor cores, 64 windows a block): K1's arguments with the
-    # tensor-core packing as w and bias, then the workspace, out, stream
-    lib.dmt_bilstm_merged_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
-                                           f, p, p, p]
-    lib.dmt_bilstm_merged_bf16.restype = ctypes.c_int
+    # K1 and K5a bf16 (tensor cores, 64 windows a block): the fp32
+    # arguments with the tensor-core packing as w and bias, then the
+    # workspace, out, stream
+    for name in ("dmt_bilstm_center_bf16", "dmt_bilstm_merged_bf16"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, p, p]
+        fn.restype = ctypes.c_int
     # K5b fp32: K1's arguments, then the gate workspace and gate_bf16
     # before out
     lib.dmt_bilstm_pregemm_f32.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
@@ -170,9 +171,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
     for name in ("dmt_bilstm_train_bwd_f32", "dmt_bilstm_train_bwd_bf16"):
         fn = getattr(lib, name)
-        # xin, hs, cs, dh, w, wt, bias, forget_bias, dx, da, dw, partial,
-        # splits, batch, steps, in_dim, hidden, tile_b, stream
-        fn.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, i, i, i, i, i, i, p]
+        # xin, hs, cs, dh, w, wht, bias, forget_bias, dx, rows, gates, da,
+        # dw, partial, splits, batch, steps, in_dim, hidden, stream
+        fn.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, p, p, i, i, i, i,
+                       i, p]
         fn.restype = ctypes.c_int
     # K4 fp32: in, s_lane, s_b, s_t, s_f, reverse_bw, batch, in_steps,
     # steps, in_dim, hidden, w, w_lane, bias, b_lane, forget_bias term,

@@ -4,8 +4,9 @@ Counterpart of ``deepmod_tpu/ops/bilstm_fused.py::bilstm_fused_center``
 and its two kernels:
 
 - K1, ``bilstm_fused_center_mono`` (Pallas ``_mono_kernel``): the whole
-  stack in one launch, odd T <= 25. CUDA: ``csrc/bilstm_fused.cu``;
-  plain version ``bilstm_center_plain``;
+  stack in one launch, odd T <= 25. CUDA: ``csrc/bilstm_fused.cu`` (bf16
+  on the tensor cores, with its own two-dot schedule); plain version
+  ``bilstm_center_plain``;
 - K4, ``_run_layer`` (Pallas ``_layer_kernel``): one layer, both lanes, a
   launch, for every other T or when the caller forces it. CUDA:
   ``csrc/bilstm_layer.cu``; plain versions ``layer_plain`` (one layer)
@@ -19,7 +20,7 @@ and its two kernels:
   ``csrc/bilstm_mono_wavefront.cu``). Their plain version is K1's,
   ``bilstm_center_plain``, with ``gate_store`` for K5b.
 
-In bf16, K4 and K5a-c are tensor-core kernels (``csrc/lstm_tc.cuh``:
+In bf16, K1, K4 and K5a-c are tensor-core kernels (``csrc/lstm_tc.cuh``:
 ``wgmma`` chains on the tensor cores, 64 windows a tile; hidden 105-128
 over thread-block clusters, see ``TC_MAX_HP``). This module also
 holds ``pack_bilstm_params`` (the weight operand of K1, K4 fp32 and K5:
@@ -56,16 +57,15 @@ _SEQ_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16}
 MAX_TIMESTEPS = 25
 # default windows per block of the CUDA-core kernels (a multiple of 8).
 # chip_smoke.py's sweep on an H100 at H=100 measured 24 fastest for K1 in
-# fp32 and within 1% of the fastest in bf16 (two blocks of 300 threads fit
-# an SM)
+# fp32 (two blocks of 300 threads fit an SM)
 TILE_B = 24
-# the bf16 tensor-core kernels (K4 and K5a-c, csrc/lstm_tc.cuh) take 64
+# the bf16 tensor-core kernels (K1, K4 and K5a-c, csrc/lstm_tc.cuh) take 64
 # windows a tile (the wgmma M) and no other tile, with 256 threads (two
 # warpgroups) a block; H is padded to Hp, a multiple of 8, at most
 # TC_MAX_HP = 128, the JAX fused kernels' LANE. Up to TC_ONE_BLOCK_HP a
 # layer's weights (16 Hp^2 bytes after layer 0) and the operand rings fit
-# one block's 227 KB; beyond it K4, K5a and K5c split each layer-lane by
-# units over a 2-CTA thread-block cluster of 128 threads a CTA
+# one block's 227 KB; beyond it K1, K4, K5a and K5c split each layer-lane
+# by units over a 2-CTA thread-block cluster of 128 threads a CTA
 # (``tc_split``). K5b keeps one weight resident at a time (8 Hp^2 bytes)
 # and needs no cluster. K5c runs one CTA (or split pair) a layer, a
 # cluster a tile-lane
@@ -80,9 +80,10 @@ GATE_STORES = ("fp32", "bf16")
 # default windows per block by kernel and precision: each schedule's, the
 # fastest in chip_smoke.py's sweep over 8/16/24 on an H100 at H=100, 3
 # layers, T=21 (fp32 K5c takes 16 at most there: 600 threads), K4's
-# ("layered") K1's, and TC_TILE_B, the only tile, for K4 and K5a-c in bf16
+# ("layered") K1's, and TC_TILE_B, the only tile, for K1, K4 and K5a-c in
+# bf16 (a K1 caller's TILE_B becomes TC_TILE_B there: ``_mono_tile``)
 SCHEDULE_TILE_B = {
-    "mono": {"fp32": TILE_B, "bf16": TILE_B},
+    "mono": {"fp32": TILE_B, "bf16": TC_TILE_B},
     "merged": {"fp32": 16, "bf16": TC_TILE_B},
     "pregemm": {"fp32": 8, "bf16": TC_TILE_B},
     "wavefront": {"fp32": 16, "bf16": TC_TILE_B},
@@ -101,9 +102,8 @@ MONO_SCHEDULE_LAUNCHES: Dict[str, Dict[str, int]] = {
 
 def tensor_core(kernel: str, precision: str) -> bool:
     """Whether ``kernel`` (a schedule of ``SCHEDULES`` or "layered", K4)
-    runs on the tensor cores in ``precision``: K4 and K5a-c in bf16."""
-    return precision == "bf16" and kernel in ("merged", "pregemm",
-                                              "wavefront", "layered")
+    runs on the tensor cores in ``precision``: all of them in bf16."""
+    return precision == "bf16" and kernel in (*SCHEDULES, "layered")
 
 
 def reset_launch_counts() -> None:
@@ -347,9 +347,10 @@ def tc_split(hidden: int) -> int:
 def tc_smem(config, schedule: str = "merged") -> int:
     """Shared-memory bytes of one CTA of a tensor-core kernel
     (``lstm_tc.cuh::smem_bytes``): the h and x rings, the zero column, the
-    resident weights and the bias. K4, K5a and K5c hold the widest layer's
-    [Wh; Wx] (their CTA's half in a split); K5b one of Wx and Wh at a
-    time, the wider in core columns rounded up to even."""
+    resident weights and the bias. K1, K4, K5a and K5c hold the widest
+    layer's [Wh; Wx] (their CTA's half in a split), K1 with a second zero
+    column after the x ring; K5b one of Wx and Wh at a time, the wider in
+    core columns rounded up to even."""
     widest = max(config.num_input, config.num_hidden)
     hp, nx, nk = tc_dims(widest, config.num_hidden)
     col = TC_TILE_B * 8 * 2
@@ -358,12 +359,14 @@ def tc_smem(config, schedule: str = "merged") -> int:
         w_bytes = (cols + cols % 2) * 4 * hp * 16
     else:
         w_bytes = 16 * nk * 4 * hp * 2 // tc_split(config.num_hidden)
-    return 2 * (hp // 8) * col + 2 * nx * col + col + w_bytes + 16 * hp
+    zeros = 2 if schedule == "mono" else 1
+    return (2 * (hp // 8) * col + 2 * nx * col + zeros * col + w_bytes
+            + 16 * hp)
 
 
 def tc_threads(schedule: str, hidden: int) -> int:
     """Threads a CTA of a tensor-core kernel: 256 (two warpgroups), 128 in
-    a split CTA of K4, K5a or K5c; K5b always 256."""
+    a split CTA of K1, K4, K5a or K5c; K5b always 256."""
     return TC_THREADS // (1 if schedule == "pregemm" else tc_split(hidden))
 
 
@@ -374,8 +377,8 @@ class PackedBiLSTM:
     ``w``: flat, [lane][layer] TF kernels ``(in+H, 4H)`` in the sequence
     dtype; ``bias``: ``(2, layers, 4H)`` fp32; in bf16 also ``tc_w``:
     flat, [layer][lane] ``tc_pack_layer`` weights, and ``tc_bias``:
-    ``(layers, 2, Hp, 4)`` fp32 (K4 and K5a-c); ``params`` keeps the source
-    dict for the plain version."""
+    ``(layers, 2, Hp, 4)`` fp32 (K1, K4 and K5a-c); ``params`` keeps the
+    source dict for the plain version."""
 
     w: torch.Tensor
     bias: torch.Tensor
@@ -454,16 +457,16 @@ def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
 
 
 def _check_tc(packed: PackedBiLSTM, config, tile_b: int) -> None:
-    """What the bf16 tensor-core kernels (K4, K5a-c) take beyond
+    """What the bf16 tensor-core kernels (K1, K4, K5a-c) take beyond
     ``_check_inputs``: 64 windows a tile and Hp <= TC_MAX_HP."""
     if tile_b != TC_TILE_B:
         raise ValueError(
-            f"the bf16 tensor-core kernels (K4, K5a-c) take tile_b="
+            f"the bf16 tensor-core kernels (K1, K4, K5a-c) take tile_b="
             f"{TC_TILE_B} only (the wgmma M), got {tile_b}")
     hp = tc_dims(1, config.num_hidden)[0]
     if hp > TC_MAX_HP:
         raise ValueError(
-            f"the bf16 tensor-core kernels (K4, K5a-c) take hidden <= "
+            f"the bf16 tensor-core kernels (K1, K4, K5a-c) take hidden <= "
             f"{TC_MAX_HP} (the JAX fused kernels' padded width), got "
             f"{config.num_hidden}")
     layers = config.num_layers
@@ -486,9 +489,9 @@ def _lane_weights(config) -> int:
 def mono_block(config, schedule: str, tile_b: int,
                precision: str) -> Tuple[int, int, int]:
     """(threads, most threads the kernel takes, shared-memory bytes) of one
-    block of a mono schedule, as its CUDA launcher sizes it. In bf16, K5a-c
-    are tensor-core kernels (one CTA's ``tc_threads`` and ``tc_smem``, 64
-    windows, any other ``tile_b`` refused). In fp32, K1 and K5b hold the
+    block of a mono schedule, as its CUDA launcher sizes it. In bf16, all
+    four are tensor-core kernels (one CTA's ``tc_threads`` and ``tc_smem``,
+    64 windows, any other ``tile_b`` refused). In fp32, K1 and K5b hold the
     sequence and the staged inputs; K5a adds its [x; h] operand buffer; K5c
     holds the staged inputs and a 2-row h ring a layer, with one thread
     group a layer."""
@@ -509,15 +512,15 @@ def mono_block(config, schedule: str, tile_b: int,
 
 
 def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
-                 tile_b: int = TILE_B, schedule: str = "mono",
+                 tile_b: int, schedule: str = "mono",
                  gate_store: str = "fp32") -> torch.Tensor:
     """K1 (``schedule="mono"``) or one of K5a-c: the whole stack in one
     launch (odd T <= 25). K5b gets a device-memory gate workspace of
     ``gate_store`` dtype, reused by every layer: in fp32 one a block, in
     bf16 (tensor cores, a persistent grid) one a resident slot, with a
-    bf16 workspace for the inter-layer rows beside it; K5a in bf16 a bf16
-    workspace for the inter-layer rows, (ceil(B/64), 2, steps, 64 * Hp),
-    each layer overwriting the one before in place."""
+    bf16 workspace for the inter-layer rows beside it; K1 and K5a in bf16
+    a bf16 workspace for the inter-layer rows, (ceil(B/64), 2, steps, 64 *
+    Hp), each layer overwriting the one before in place."""
     from . import _build
 
     precision = packed.precision
@@ -560,7 +563,7 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
                          dtype=gate_dtype, device=x.device)
         args += [gx.data_ptr(), int(gate_store == "bf16"), out.data_ptr(),
                  tile_b]
-    elif schedule == "merged" and tc:
+    elif schedule in ("mono", "merged") and tc:
         ws = torch.empty(blocks * 2 * steps * tile_b * hp,
                          dtype=torch.bfloat16, device=x.device)
         args += [ws.data_ptr(), out.data_ptr()]
@@ -753,9 +756,10 @@ def bilstm_center_features(
     CPU this is the chosen kernel's plain version; on a CUDA tensor it
     launches the kernel or raises. ``params`` may be pre-packed
     (``pack_bilstm_params``) to skip the per-call packing. ``tile_b`` is
-    the kernel's windows per block (a multiple of 8; K4 in bf16 takes 64
-    only), by default ``SCHEDULE_TILE_B`` of the kernel and precision.
-    Hidden > ``TC_MAX_HP`` (128) raises in bf16."""
+    the kernel's windows per block (a multiple of 8; K1 and K4 in bf16
+    take 64 only, K1 reading ``TILE_B`` as 64), by default
+    ``SCHEDULE_TILE_B`` of the kernel and precision. Hidden >
+    ``TC_MAX_HP`` (128) raises in bf16."""
     mono = use_mono(config.timesteps, mono)
     packed, raw = _split_params(params, precision)
     if x.device.type == "cpu":
@@ -765,10 +769,19 @@ def bilstm_center_features(
         raise ValueError(f"unsupported device {x.device}")
     if packed is None:
         packed = pack_bilstm_params(raw, config, precision)
-    if tile_b is None:
-        tile_b = SCHEDULE_TILE_B["mono" if mono else "layered"][precision]
-    launch = _launch_mono if mono else _launch_layered
-    return launch(packed, x, config, tile_b)
+    if not mono:
+        if tile_b is None:
+            tile_b = SCHEDULE_TILE_B["layered"][precision]
+        return _launch_layered(packed, x, config, tile_b)
+    return _launch_mono(packed, x, config, _mono_tile(tile_b, precision))
+
+
+def _mono_tile(tile_b: Optional[int], precision: str) -> int:
+    """K1's tile: ``SCHEDULE_TILE_B`` by default; in bf16 the CUDA-core
+    default ``TILE_B`` reads as the tensor-core tile, 64."""
+    if tile_b is None or (precision == "bf16" and tile_b == TILE_B):
+        return SCHEDULE_TILE_B["mono"][precision]
+    return tile_b
 
 
 def mono_schedule(config, wavefront: bool = False, merged_gemm: bool = False,
@@ -837,6 +850,8 @@ def bilstm_center_mono(
         raise ValueError(f"unsupported device {x.device}")
     if packed is None:
         packed = pack_bilstm_params(raw, config, precision)
-    if tile_b is None:
+    if schedule == "mono":
+        tile_b = _mono_tile(tile_b, precision)
+    elif tile_b is None:
         tile_b = SCHEDULE_TILE_B[schedule][precision]
     return _launch_mono(packed, x, config, tile_b, schedule, gates)

@@ -47,16 +47,29 @@ from .bilstm_fused import readout
 
 PRECISIONS = ("fp32", "bf16")
 _STORAGE = {"fp32": torch.float32, "bf16": torch.bfloat16}
-# windows per block for both kernels; a thread owns one hidden unit for
-# KR of them (kR in the CUDA source): hidden * TILE_B / KR threads a block
+# K2's windows per block; a thread owns one hidden unit for KR of them (kR
+# in the CUDA source): hidden * TILE_B / KR threads a block
 TILE_B = 16
 KR = 4
-# K3's weight-gradient product sums up to DW_SPLITS contiguous ranges of
-# the steps*B rows (at least DW_SPLIT_ROWS rows each) in separate blocks,
-# then adds the ranges in order: more blocks in flight, the same bits on
+# K3's recurrence: BWD_TILE_B windows a block in cells of 8 units x 8
+# windows, 4 threads a cell, so 2 * (H rounded up to 8) threads rounded up
+# to whole warps (at most BWD_MAX_THREADS); shared memory holds the step's
+# da, [4H][BWD_TILE_B] fp32, and Wh^T, [4H][H rounded up to 8] fp32, where
+# both fit (H <= 104), else Wh^T is read from a global copy
+BWD_TILE_B = 32
+BWD_MAX_THREADS = 256
+# K3's products: 128 x 128 output tiles (DW_TILE; the dx product: 128
+# rows by 16 or 64 columns). The dW product sums up to DW_SPLITS ordered
+# ranges of the steps*B rows (at least DW_SPLIT_ROWS rows each, a
+# multiple of DW_CHUNK, the kernel's kBK) in separate blocks, aiming at
+# DW_BLOCKS blocks in all (two a streaming multiprocessor of an H100),
+# then adds the ranges in order: the card filled, and the same bits on
 # every run
-DW_SPLITS = 8
-DW_SPLIT_ROWS = 2048
+DW_TILE = (128, 128)
+DW_SPLITS = 32
+DW_SPLIT_ROWS = 256
+DW_CHUNK = 8
+DW_BLOCKS = 264
 
 # kernel launches: each wrapper call that launches a CUDA kernel adds one
 # to its key ("fwd_<precision>": K2, all layers; "bwd_<precision>": K3 for
@@ -205,6 +218,7 @@ def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
 
 
 def _check_block(hidden: int, in_dim: int, smem: int) -> None:
+    """K2's block limits (and the training kernels' fnum <= hidden)."""
     if in_dim > hidden:
         raise ValueError(f"the training kernels need fnum <= hidden, got "
                          f"{in_dim} > {hidden}")
@@ -214,6 +228,45 @@ def _check_block(hidden: int, in_dim: int, smem: int) -> None:
             f"hidden={hidden} needs {threads} threads and {smem} B of shared "
             f"memory per block; the kernels take at most {MAX_THREADS} and "
             f"{MAX_SMEM}")
+
+
+def bwd_block(hidden: int) -> Tuple[int, int, bool]:
+    """(threads, shared-memory bytes, Wh^T in shared memory) of a block of
+    K3's recurrence, as ``launch_bwd`` sizes it."""
+    hp8 = -(-hidden // 8) * 8
+    threads = -(-2 * hp8 // 32) * 32
+    das = 4 * hidden * BWD_TILE_B * 4
+    shared = das + 4 * hidden * hp8 * 4 <= MAX_SMEM
+    return threads, das + (4 * hidden * hp8 * 4 if shared else 0), shared
+
+
+def _check_bwd_block(hidden: int, in_dim: int) -> bool:
+    """K3's limits; returns whether Wh^T is staged in shared memory."""
+    if in_dim > hidden:
+        raise ValueError(f"the training kernels need fnum <= hidden, got "
+                         f"{in_dim} > {hidden}")
+    threads, smem, shared = bwd_block(hidden)
+    if threads > BWD_MAX_THREADS or smem > MAX_SMEM:
+        raise ValueError(
+            f"hidden={hidden} needs {threads} threads and {smem} B of shared "
+            f"memory per block of K3's recurrence; it takes at most "
+            f"{BWD_MAX_THREADS} and {MAX_SMEM}")
+    return shared
+
+
+def dw_tiles(in_dim: int, hidden: int) -> Tuple[int, int]:
+    """(row tiles, column tiles) of one lane's (in+H+1) x 4H dW product."""
+    return (-(-(in_dim + hidden + 1) // DW_TILE[0]),
+            -(-(4 * hidden) // DW_TILE[1]))
+
+
+def dw_splits(rows: int, in_dim: int, hidden: int) -> int:
+    """The ordered row ranges of K3's dW product at ``rows`` = steps * B:
+    enough for 2 lanes x tiles x splits to reach DW_BLOCKS, at most
+    DW_SPLITS, each range at least DW_SPLIT_ROWS rows."""
+    tm, tn = dw_tiles(in_dim, hidden)
+    want = -(-DW_BLOCKS // (2 * tm * tn))
+    return max(1, min(DW_SPLITS, want, rows // DW_SPLIT_ROWS))
 
 
 def _train_fwd_cuda(xin: torch.Tensor, weights: Sequence[LayerWeights],
@@ -267,17 +320,28 @@ def _train_bwd_cuda(xin, hs, cs, dh, w, b, forget_bias: float):
         _check(name, t, dev, dt, (2, steps, batch, hidden))
     _check("w", w, dev, torch.float32, (2, in_dim + hidden, 4 * hidden))
     _check("b", b, dev, torch.float32, (2, 4 * hidden))
-    _check_block(hidden, in_dim, (5 * hidden + in_dim) * TILE_B * 4)
-    wt = w.transpose(1, 2).contiguous()
+    shared = _check_bwd_block(hidden, in_dim)
     dx = torch.empty(2, steps, batch, in_dim, dtype=dt, device=dev)
-    da = torch.empty(2, steps, batch, 4 * hidden, dtype=torch.float32,
-                     device=dev)
+    # the kernels' scratch: the operand rows [x; h_{t-1}; 1] in fp32, the
+    # gate pre-activations and da
+    rows = torch.empty(2, steps * batch, -(-(in_dim + hidden + 1) // 4) * 4,
+                       dtype=torch.float32, device=dev)
+    gates = torch.empty(2, steps, batch, 4 * hidden, dtype=torch.float32,
+                        device=dev)
+    da = torch.empty_like(gates)
     dw = torch.empty(2, in_dim + hidden + 1, 4 * hidden, dtype=torch.float32,
                      device=dev)
     if batch == 0:
         dw.zero_()
         return dx, dw[:, :-1], dw[:, -1]
-    splits = max(1, min(DW_SPLITS, steps * batch // DW_SPLIT_ROWS))
+    # above H = 104 the recurrence reads Wh^T from this copy, units padded
+    # to a multiple of 8
+    wht = None
+    if not shared:
+        hp8 = -(-hidden // 8) * 8
+        wht = torch.zeros(2, 4 * hidden, hp8, dtype=torch.float32, device=dev)
+        wht[:, :, :hidden] = w[:, in_dim:].transpose(1, 2)
+    splits = dw_splits(steps * batch, in_dim, hidden)
     partial = (torch.empty((splits,) + tuple(dw.shape), dtype=torch.float32,
                            device=dev) if splits > 1 else dw)
     lib = _build.library()
@@ -286,9 +350,11 @@ def _train_bwd_cuda(xin, hs, cs, dh, w, b, forget_bias: float):
     with torch.cuda.device(dev):
         status = fn(
             xin.data_ptr(), hs.data_ptr(), cs.data_ptr(), dh.data_ptr(),
-            w.data_ptr(), wt.data_ptr(), b.data_ptr(), forget_bias,
-            dx.data_ptr(), da.data_ptr(), dw.data_ptr(), partial.data_ptr(),
-            splits, batch, steps, in_dim, hidden, TILE_B,
+            w.data_ptr(), None if wht is None else wht.data_ptr(),
+            b.data_ptr(), forget_bias, dx.data_ptr(), rows.data_ptr(),
+            gates.data_ptr(),
+            da.data_ptr(), dw.data_ptr(), partial.data_ptr(), splits, batch,
+            steps, in_dim, hidden,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "bilstm train backward (K3) launch")

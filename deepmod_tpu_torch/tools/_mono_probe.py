@@ -7,8 +7,8 @@ F=7, params from seed 0, windows standard normal from seed 1, 131,072 of
 them by default, and each timed call ends in ``argmax(center @ out_w +
 out_b)``, added into one int32 accumulator over ``ITERS`` chained calls.
 The TPU tiles are replaced by the port's tile sweep; the bf16
-tensor-core kernels (K4 and K5a-c) take one tile, 64 windows, and run at
-it alone.
+tensor-core kernels (K1, K4 and K5a-c) take one tile, 64 windows, and
+run at it alone.
 """
 
 from __future__ import annotations

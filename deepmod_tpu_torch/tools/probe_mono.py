@@ -6,9 +6,9 @@ Counterpart of ``scripts/probe_mono.py``: the same function, (B, 21, 7)
 windows -> center features -> argmax of the logits, through the layered
 kernel (``bilstm_center_features(..., mono=False)``, a launch a layer,
 the inter-layer sequences in device memory) and through the mono kernel
-(``bilstm_center_mono``, one launch, the sequences in shared memory), in
-bf16 and fp32 at each tile of the sweep (the bf16 layered kernel at its
-one tile, 64); prints windows/s. ``--device cpu`` times the plain
+(``bilstm_center_mono``, one launch), in bf16 and fp32 at each tile of
+the sweep (in bf16 both are tensor-core kernels, at their one tile,
+64); prints windows/s. ``--device cpu`` times the plain
 versions instead.
 """
 

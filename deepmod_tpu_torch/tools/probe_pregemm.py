@@ -10,8 +10,8 @@ halves that buffer's traffic and rounds the stored projections. Through
 argmax of the logits, at each tile of the sweep, in the same process,
 with the script's variants: bf16 twodot / pre-f32 / pre-bf16, fp32
 twodot / pre-f32; prints windows/s, one line a precision and tile. Each
-variant runs at the tiles its kernel takes: bf16 K5b, the tensor-core
-kernel, at its one tile, 64, on a line of its own. ``--device cpu`` times
+variant runs at the tiles its kernel takes: in bf16 K1 and K5b, the
+tensor-core kernels, at their one tile, 64, on one line. ``--device cpu`` times
 the plain versions instead.
 """
 

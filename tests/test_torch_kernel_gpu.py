@@ -1,7 +1,8 @@
 """The CUDA kernels (K1; K2 and K3; K4; K5a-c; K6; P1) against their
-plain versions, on the card. In bf16, K4 and K5a-c are the tensor-core
-kernels (``csrc/lstm_tc.cuh``, 64 windows a tile; hidden 105-128 over
-2-CTA clusters in K4, K5a and K5c, K5c a cluster of one CTA a layer).
+plain versions, on the card. In bf16, K1, K4 and K5a-c are the
+tensor-core kernels (``csrc/lstm_tc.cuh``, 64 windows a tile; hidden
+105-128 over 2-CTA clusters in K1, K4, K5a and K5c, K5c a cluster of one
+CTA a layer).
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -83,6 +84,64 @@ def test_kernel_tiles_agree(cuda, tile_b):
     b = ops.bilstm_center_features(params, x, cfg, "fp32")
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# K1 bf16 on the tensor cores: (T, F, hidden), every odd T to 25
+K1_TC_CASES = [
+    (1, 7, 8), (3, 57, 16), (5, 7, 24), (7, 57, 40), (9, 7, 56),
+    (11, 57, 64), (13, 7, 72), (15, 57, 88), (17, 7, 96), (19, 57, 100),
+    (21, 7, 100), (21, 57, 104), (23, 7, 112), (25, 57, 120), (21, 7, 128),
+    (25, 7, 128),
+]
+
+
+@pytest.mark.parametrize("timesteps,fnum,hidden", K1_TC_CASES)
+def test_k1_tc_matches_plain_and_k5a(cuda, timesteps, fnum, hidden):
+    """K1 bf16 (the two-dot tensor-core kernel) against its plain version
+    and against K5a bf16 on 333 random windows (a ragged last tile) and on
+    the window view of a row block, read in place: atol 2e-3 + rtol
+    2e-2."""
+    cfg = BiLSTMConfig(num_input=fnum, num_hidden=hidden,
+                       timesteps=timesteps)
+    params = init_bilstm_params(timesteps + hidden, cfg, device=cuda)
+    gen = np.random.default_rng(fnum + hidden)
+    x = torch.from_numpy(gen.standard_normal(
+        (333, timesteps, fnum), dtype=np.float32)).to(cuda).bfloat16()
+    rows = torch.from_numpy(gen.standard_normal(
+        (333 + timesteps - 1, fnum), dtype=np.float32)).to(cuda).bfloat16()
+    view = rows.as_strided((333, timesteps, fnum), (fnum, fnum, 1))
+    for inp in (x, view):
+        before = ops.LAUNCHES["bf16"]
+        got = ops.bilstm_center_features(params, inp, cfg, "bf16")
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["bf16"] == before + 1
+        want = ops.bilstm_center_plain(params, inp, cfg, "bf16")
+        torch.testing.assert_close(got, want, **TOL["bf16"])
+        k5a = ops.bilstm_center_mono(params, inp, cfg, "bf16",
+                                     merged_gemm=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, k5a, **TOL["bf16"])
+
+
+@pytest.mark.parametrize("tile_b", [8, 16, 128])
+def test_k1_tc_takes_tile_64_only(cuda, tile_b):
+    """K1 bf16 runs 64 windows a tile; the default and the CUDA-core
+    default TILE_B give 64, any other tile raises, and hidden over 128
+    raises naming the limit (no fallback to another body)."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=16, num_layers=2)
+    params = init_bilstm_params(0, cfg, device=cuda)
+    x = torch.randn(70, 21, 7, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="tile_b=64"):
+        ops.bilstm_center_features(params, x, cfg, "bf16", tile_b=tile_b)
+    a = ops.bilstm_center_features(params, x, cfg, "bf16")
+    b = ops.bilstm_center_features(params, x, cfg, "bf16", tile_b=ops.TILE_B)
+    c = ops.bilstm_center_mono(params, x, cfg, "bf16", tile_b=64)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+    wide = BiLSTMConfig(num_input=7, num_hidden=136, num_layers=1)
+    with pytest.raises(ValueError, match="hidden <= 128"):
+        ops.bilstm_center_features(init_bilstm_params(0, wide, device=cuda),
+                                   x, wide, "bf16")
 
 
 # ---------------------------------------------------------------- K4
@@ -491,3 +550,43 @@ def test_train_function_cuda_matches_cpu(cuda, precision):
         a = torch.cat([t.ravel() for t in g_gpu[:-1]])
         b = torch.cat([t.ravel() for t in g_cpu[:-1]])
         assert float((a - b).norm() / b.norm()) <= 1e-2
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("fnum,hidden", [(57, 100), (7, 128), (57, 128)])
+def test_train_bwd_wide_matches_plain(cuda, precision, fnum, hidden):
+    """K3 at F=57 and at hidden 128 (Wh^T read from the global copy, past
+    the 105 units whose Wh^T fits shared memory) against its plain version
+    on 2,083 windows, at the tolerances above; two runs give the same
+    bits."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg = BiLSTMConfig(num_input=fnum, num_hidden=hidden, timesteps=21)
+    params = init_bilstm_params(hidden + fnum, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(hidden).standard_normal(
+        (2083, 21, fnum), dtype=np.float32)).to(cuda)
+    steps = tr.readout(21)[0]
+    xin = tr.layer_inputs(x.to(tr.storage_dtype(precision)), steps)
+    weights = tr.stack_lanes(params)
+    hs, cs = tr.train_fwd(xin, weights, cfg.forget_bias)
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    dh = (torch.randn(hs.shape[1:], generator=gen) / 2083).to(cuda).to(hs.dtype)
+    got, want = [], []
+    for layer in range(cfg.num_layers):
+        layer_in = xin if layer == 0 else hs[layer - 1]
+        w, b = weights[layer]
+        args = (layer_in, hs[layer], cs[layer], dh, w, b, cfg.forget_bias)
+        run = tr.train_bwd(*args)
+        again = tr.train_bwd(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(run, again))
+        got += run
+        want += tr.train_bwd_plain(*args)
+    if precision == "fp32":
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)
+        return
+    a = torch.cat([t.float().ravel() for t in got])
+    b = torch.cat([t.float().ravel() for t in want])
+    assert float((a - b).norm() / b.norm()) <= 1e-2
+    assert float(a @ b / (a.norm() * b.norm())) >= 0.9999

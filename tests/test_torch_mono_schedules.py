@@ -208,8 +208,10 @@ def test_probe_tool_runs_plain_versions(tool, capsys, monkeypatch):
     assert lines[0].startswith("device: cpu")
     rows = lines[1:]
     assert rows and all("tile_b=" in r and "/s" in r for r in rows)
-    # both precisions at both tiles (probe_mono and probe_merged_gemm:
-    # both kernels too), the bf16 tensor-core kernels (K4, K5a, K5b) at 64
-    # only, on a line of their own
-    assert len(rows) == (5 if tool == "probe_pregemm" else 7)
-    assert sum("tile_b=64" in r for r in rows) == 1
+    # fp32 at both tiles (probe_mono and probe_merged_gemm: both kernels
+    # too), the bf16 tensor-core kernels (K1, K4, K5a, K5b) at 64 only:
+    # one line a kernel (probe_pregemm: one line a tile, its variants side
+    # by side)
+    assert len(rows) == (3 if tool == "probe_pregemm" else 6)
+    assert sum("tile_b=64" in r for r in rows) == (
+        1 if tool == "probe_pregemm" else 2)

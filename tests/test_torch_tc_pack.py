@@ -1,4 +1,4 @@
-"""The tensor-core layout of the bf16 modes of K4 and K5a-c
+"""The tensor-core layout of the bf16 modes of K1, K4 and K5a-c
 (``csrc/lstm_tc.cuh``), on the CPU.
 
 ``tc_pack_layer`` pads, permutes and stores a layer's weights for the
@@ -12,9 +12,10 @@ permutation puts in that fragment. Gates and h must match the reference
 step of ``layer_weights`` + ``_run_lane``'s formulas within 1e-6 (fp32
 arithmetic on the same bf16 operands; only the summation order differs),
 and a padded unit's h must be exactly 0. Hp 112-128 replay the 2-CTA
-split (each CTA's half of the gate columns, one warpgroup each) and K5b's
+split (each CTA's half of the gate columns, one warpgroup each), K5b's
 schedule (the projection into the gate buffer in fragment order, then the
-h-only chain on top of it).
+h-only chain on top of it) and K1's two-dot step (separate x and h
+k-tile lists over the same packing).
 """
 
 import numpy as np
@@ -414,9 +415,184 @@ def test_tc_kernels_refuse_other_tiles_and_widths():
     with pytest.raises(ValueError, match="hidden <= 128"):
         ops._check_tc(ops.pack_bilstm_params(_zero_params(too_wide),
                                              too_wide, "bf16"), too_wide, 64)
-    for kernel in ("merged", "pregemm", "wavefront", "layered"):
+    for kernel in ("mono", "merged", "pregemm", "wavefront", "layered"):
         assert ops.tensor_core(kernel, "bf16")
         assert not ops.tensor_core(kernel, "fp32")
         assert ops.SCHEDULE_TILE_B[kernel]["bf16"] == 64
-    assert not ops.tensor_core("mono", "bf16")
     assert ops.SCHEDULE_TILE_B["layered"] == {"fp32": 24, "bf16": 64}
+    assert ops.SCHEDULE_TILE_B["mono"] == {"fp32": 24, "bf16": 64}
+    # K1 in bf16 reads the CUDA-core default tile as the tensor-core tile
+    assert ops._mono_tile(ops.TILE_B, "bf16") == 64
+    assert ops._mono_tile(None, "bf16") == 64
+    assert ops._mono_tile(16, "bf16") == 16  # and refuses it at launch
+    assert ops._mono_tile(ops.TILE_B, "fp32") == ops.TILE_B
+
+
+# ------------------------------------------------ K1 bf16: the two-dot step
+
+def _k1_chains(in_dim, hidden):
+    """K1 bf16's two chains a step (csrc/bilstm_fused.cu::run_layer_k1)
+    over the ``tc_pack_layer`` weights: (k-tiles of the h chain, the
+    packed core column at which the x chain starts, k-tiles of the x
+    chain). The h chain pairs an odd last h column with the zero column;
+    the x chain starts at Wh's last even column (paired with the zero
+    column where Hp/8 is odd) and ends on a zero column where its count
+    is odd."""
+    hp, _, nk = ops.tc_dims(in_dim, hidden)
+    nh = hp // 8
+    cb = nh - nh % 2
+    return (nh + 1) // 2, cb, nk - cb // 2
+
+
+def _k1_chain(w_tc, hp, split, a_bufs, a_cols, start_col, nk):
+    """One chain of K1 bf16 (csrc/bilstm_fused.cu::run_layer_k1) for every
+    warpgroup: (2, 64, 2Hp), B from packed core column ``start_col`` on
+    (split 2: CTA r holds warpgroup r's gate columns)."""
+    starts, at = [], 0
+    for buf in a_bufs:
+        starts.append(at)
+        at += buf.numel()
+    n_cta = 4 * hp // split
+    d = torch.zeros(2, ROWS, 2 * hp)
+    for cta in range(split):
+        w_cta = w_tc.reshape(-1, 4 * hp, 8)[:, cta * n_cta:(cta + 1) * n_cta]
+        mem = torch.cat([*(b.reshape(-1) for b in a_bufs),
+                         w_cta.reshape(-1)]).float()
+        w_lbo = n_cta * 8
+        for local, wg in enumerate(range(2) if split == 1 else [cta]):
+            w_base = at + local * (2 * hp // 8) * 64 + start_col * w_lbo
+            for j in range(nk):
+                c0, c1 = a_cols(2 * j, starts), a_cols(2 * j + 1, starts)
+                a = _read(mem, c0, c1 - c0, 64, ROWS)
+                b = _read(mem, w_base + 2 * j * w_lbo, w_lbo, 64, 2 * hp)
+                d[wg] += a @ b.t()
+    return d
+
+
+def _k1_layer(w_tc, b_tc, xs, in_dim, hidden, split):
+    """K1 bf16's two-dot step for one layer-lane over the steps ``xs``
+    (each (64, 8*nx) bf16): the x chain (the x k-tile list: from Wh's last
+    even core column, the zero column before x and after it) overwrites
+    the accumulator, the h chain (the h k-tile list, an odd last column
+    paired with the zero column) adds to it, then the cell. Buffers in the
+    kernel's address order: h ring, zero column, x ring, zero column.
+    Returns per step (h_{t-1}, c_{t-1}, gates, h)."""
+    hp, nx, _ = ops.tc_dims(in_dim, hidden)
+    nh = hp // 8
+    kh, cb, kx = _k1_chains(in_dim, hidden)
+    zero = torch.zeros(COL, dtype=torch.bfloat16)
+    h_ring = torch.zeros(2, nh * COL, dtype=torch.bfloat16)
+    x_ring = torch.zeros(2, nx * COL, dtype=torch.bfloat16)
+    c = torch.zeros(ROWS, hp)
+    h = torch.zeros(ROWS, hp, dtype=torch.bfloat16)
+    out = []
+    for t, x_t in enumerate(xs):
+        s = t & 1
+        h_ring[s ^ 1] = _slot(h)
+        x_ring[s] = _slot(x_t)
+
+        def x_cols(p, st):
+            cc = cb + p
+            if cc < nh:
+                return st[1]
+            if cc < nh + nx:
+                return st[2] + s * nx * COL + (cc - nh) * COL
+            return st[3]
+
+        def h_cols(cc, st):
+            return st[0] + (s ^ 1) * nh * COL + cc * COL if cc < nh else st[1]
+
+        bufs = [h_ring, zero, x_ring, zero]
+        acc = _k1_chain(w_tc, hp, split, bufs, x_cols, cb, kx)
+        acc = acc + _k1_chain(w_tc, hp, split, bufs, h_cols, 0, kh)
+        gates, h_new, c_new = _cell(_fragments(acc, hp), b_tc, c, hidden)
+        out.append((h, c, gates, h_new))
+        h, c = h_new.bfloat16(), c_new
+    return out
+
+
+@pytest.mark.parametrize("hidden", [8, 16, 100, 128])
+@pytest.mark.parametrize("layer,fnum", [(0, 7), (0, 57), (1, None)])
+def test_k1_two_dot_step_matches_run_lane(hidden, layer, fnum):
+    """K1 bf16 over 3 steps: the x k-tile list then the h k-tile list give
+    ``_run_lane``'s gates and h at every step within 1e-6 (fp32 sums of
+    the same bf16 operands in another order); padded units stay exactly
+    0, and the h sequence is ``_run_lane``'s at the bf16 tolerance. Hidden
+    128 replays the 2-CTA split's weight layout."""
+    in_dim = fnum if layer == 0 else hidden
+    (w, b), rng = _layer(5 * hidden + in_dim, in_dim, hidden)
+    w_tc, b_tc = ops.tc_pack_layer(w, b, in_dim, hidden)
+    hp, nx, nk = ops.tc_dims(in_dim, hidden)
+    kh, cb, kx = _k1_chains(in_dim, hidden)
+    # one k-tile more than K5a's merged chain where Hp/8 is odd
+    assert kh + kx == nk + (hp // 8) % 2
+    xs = [_operands(rng, in_dim, hidden, nx)[1] for _ in range(3)]
+    steps = _k1_layer(w_tc, b_tc, xs, in_dim, hidden, ops.tc_split(hidden))
+    want = ops._run_lane([x[:, :in_dim] for x in xs], w, b, FORGET_BIAS,
+                         "bf16")
+    for t, (h_prev, c_prev, gates, h) in enumerate(steps):
+        want_g, want_h = _reference_step(w, b, h_prev, xs[t], c_prev, in_dim,
+                                         hidden)
+        torch.testing.assert_close(gates[:, :hidden], want_g, rtol=0,
+                                   atol=1e-6)
+        torch.testing.assert_close(h[:, :hidden], want_h, rtol=0, atol=1e-6)
+        assert torch.equal(h[:, hidden:], torch.zeros_like(h[:, hidden:]))
+        torch.testing.assert_close(h[:, :hidden].bfloat16().float(),
+                                   want[t].float(), rtol=2e-2, atol=2e-3)
+
+
+def test_k1_chains_cover_the_packed_columns_once():
+    """At every Hp from 8 to 128 and F = 7, 57 and Hp (a later layer), the
+    h chain's core columns (Wh's, an odd last one beside the zero column)
+    and the x chain's (from Wh's last even column) cover each packed core
+    column of the layer's weights once with a non-zero A column; at Hp 104
+    the chains are 7 + 1 k-tiles at layer 0 (F=7) and 7 + 7 after it."""
+    for hp in range(8, ops.TC_MAX_HP + 1, 8):
+        for in_dim in (7, 57, hp):
+            _, nx, nk = ops.tc_dims(in_dim, hp)
+            nh = hp // 8
+            kh, cb, kx = _k1_chains(in_dim, hp)
+            used = torch.zeros(2 * nk, dtype=torch.int64)
+            for c in range(2 * kh):  # the h chain: A is h or the zero column
+                if c < nh:
+                    used[c] += 1
+            for p in range(2 * kx):  # the x chain: zero, x, zero
+                c = cb + p
+                if nh <= c < nh + nx:
+                    used[c] += 1
+            assert cb + 2 * kx <= 2 * nk + 1
+            assert torch.equal(used[:nh + nx],
+                               torch.ones(nh + nx, dtype=torch.int64))
+    assert _k1_chains(7, 100) == (7, 12, 1)
+    assert _k1_chains(100, 100) == (7, 12, 7)
+
+
+@pytest.mark.parametrize("fnum", [7, 57])
+def test_k1_cta_fits_shared_memory(fnum):
+    """K1 bf16's CTA (K5a's buffers plus a second zero column) fits a
+    block's 232,448 B at every Hp from 8 to 128, 256 threads up to Hp 104
+    and 128 in a 2-CTA split beyond."""
+    for hp in range(8, ops.TC_MAX_HP + 1, 8):
+        cfg = BiLSTMConfig(num_input=fnum, num_hidden=hp)
+        threads, most, smem = ops.mono_block(cfg, "mono", 64, "bf16")
+        assert smem == ops.tc_smem(cfg) + ROWS * 8 * 2 <= ops.MAX_SMEM, hp
+        assert threads == most == 256 // ops.tc_split(hp)
+    assert ops.tc_smem(BiLSTMConfig(num_hidden=100), "mono") == 230016
+
+
+def test_stamp_tool_patches_the_current_sources():
+    """``tools/stamp_steps`` finds each of its anchors once in today's K1
+    and K3 sources, so the step-time probe runs on the kernels as they
+    are."""
+    import os
+
+    from deepmod_tpu_torch.tools import stamp_steps
+
+    csrc = os.path.join(os.path.dirname(ops.__file__), "..", "csrc")
+    for kernel, spec in stamp_steps.KERNELS.items():
+        with open(os.path.join(csrc, spec[0])) as fh:
+            text = fh.read()
+        patched = stamp_steps.patch(kernel, text)
+        assert patched.count("clock64()") == len(spec[5]) + text.count(
+            "clock64()")
+        assert "dmt_read_stamps" in patched

@@ -14,7 +14,10 @@ Inputs are made with numpy from a seed and go through both packages:
   within relative L2 5e-3 and cosine 0.9999;
 - even T and depths 1 and 3 against the scan path in fp32;
 - the hand-written backward against torch.autograd through the plain
-  forward loop, which has no custom backward.
+  forward loop, which has no custom backward;
+- K3's block limits, and the dW product's tiling and ordered split-K
+  ranges replayed from the wrapper's sizing (every output once, every
+  row once, the ordered fp32 sum within 1e-6 of fp64).
 """
 
 import jax
@@ -184,3 +187,78 @@ def test_kernel_block_limits_raise():
         tr._check_block(hidden=100, in_dim=7, smem=tr.MAX_SMEM + 1)
     with pytest.raises(ValueError, match="fnum <= hidden"):
         tr._check_block(hidden=16, in_dim=57, smem=0)
+    # K3's recurrence: 2 x (H rounded up to 8) threads in whole warps, the
+    # step's da and, up to H = 104, Wh^T in shared memory (H = 100: 51,200
+    # + 166,400 B)
+    assert tr.bwd_block(100) == (224, 217600, True)
+    assert tr.bwd_block(104) == (224, 226304, True)
+    assert tr.bwd_block(105) == (224, 53760, False)
+    assert tr.bwd_block(128) == (256, 65536, False)
+    assert tr._check_bwd_block(100, 57) and not tr._check_bwd_block(128, 7)
+    with pytest.raises(ValueError, match="threads"):
+        tr._check_bwd_block(130, 7)
+    with pytest.raises(ValueError, match="fnum <= hidden"):
+        tr._check_bwd_block(16, 57)
+
+
+def _dw_ranges(rows, splits):
+    """The [begin, end) rows each split of the dW product sums
+    (``bilstm_train.cu::dw_rows_per_split``): the rows over ``splits``,
+    rounded up to DW_CHUNK; trailing ranges may be empty."""
+    per = -(-rows // splits)
+    per = -(-per // tr.DW_CHUNK) * tr.DW_CHUNK
+    return [(min(s * per, rows), min(s * per + per, rows))
+            for s in range(splits)]
+
+
+def _patch(t, i, size, tile):
+    """gemm_kernel's ``patch``: value i of thread t's patch of ``size``;
+    an 8-wide patch is two runs of 4 half a tile apart."""
+    if size == 8:
+        return t * 4 + (i & 3) + (i >> 2) * (tile // 2)
+    return t * size + i
+
+
+@pytest.mark.parametrize("hidden", [100, 128])
+@pytest.mark.parametrize("fnum", [7, 57])
+def test_dw_tiling_covers_each_output_once(fnum, hidden):
+    """K3's dW product at batch 2,083 (ragged), T=21: the 128 x 128 tiles
+    of 16 x 16 threads with 8 x 8 patches cover every (row, column) of the
+    (in+H+1) x 4H output once, the split ranges cover the steps*B rows
+    once in order, and the ranges' fp32 partial sums added in order equal
+    the fp64 product within 1e-6 relative."""
+    batch, steps = 2083, 11
+    rows, m_all, n_all = steps * batch, fnum + hidden + 1, 4 * hidden
+    tm, tn = tr.dw_tiles(fnum, hidden)
+    (tile_m, tile_n), t = tr.DW_TILE, torch.arange(16)
+    local_m = _patch(t[:, None], torch.arange(8)[None, :], 8,
+                     tile_m).reshape(-1)
+    local_n = _patch(t[:, None], torch.arange(8)[None, :], 8,
+                     tile_n).reshape(-1)
+    assert sorted(local_m.tolist()) == list(range(tile_m))
+    assert sorted(local_n.tolist()) == list(range(tile_n))
+    count = torch.zeros(m_all, n_all, dtype=torch.int64)
+    for bm in range(tm):
+        for bn in range(tn):
+            m = bm * tile_m + local_m
+            n = bn * tile_n + local_n
+            m, n = m[m < m_all], n[n < n_all]
+            count[m[:, None], n[None, :]] += 1
+    assert torch.equal(count, torch.ones_like(count))
+
+    splits = tr.dw_splits(rows, fnum, hidden)
+    assert 2 * tm * tn * splits >= 132 or splits == tr.DW_SPLITS
+    ranges = _dw_ranges(rows, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == rows
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo % tr.DW_CHUNK == 0 for lo, _ in ranges)
+
+    rng = np.random.default_rng(fnum + hidden)
+    a = rng.standard_normal((rows, m_all)).astype(np.float32)
+    a[:, -1] = 1.0  # the bias row's ones
+    da = (rng.standard_normal((rows, n_all)) / batch).astype(np.float32)
+    total = np.zeros((m_all, n_all), np.float32)
+    for lo, hi in ranges:
+        total += a[lo:hi].T @ da[lo:hi]
+    want = a.astype(np.float64).T @ da.astype(np.float64)
+    assert np.linalg.norm(total - want) / np.linalg.norm(want) <= 1e-6
