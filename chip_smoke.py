@@ -13,17 +13,20 @@ without printing the result line):
    tensor-core kernels and for K3's); the SASS of every bf16 template of
    K1, K4 and K5a-c (the tensor-core kernels, Hp 8-128) must hold HGMMA
    (wgmma), and no bf16 CUDA-core body of any of them may be left; their
-   dynamic shared memory;
+   dynamic shared memory; the fp32 core's templates (K1's and K4's fp32
+   bodies, csrc/lstm_f32.cuh) must all be there and the old fp32 bodies
+   gone, with their registers and spills;
 3. the BiLSTM center kernel (K1) against its plain PyTorch version at
    full width (H=100, 3 layers, T=21, F=7) on 65,536 random windows and
    on the overlapping window view of a 262,144-row feature chunk (the
    shape detect gives it), in fp32 (max abs 2e-5) and bf16 (atol 2e-3 +
-   rtol 2e-2, the tolerance of two bf16 schedules of the same contract;
-   bf16 K1, the two-dot tensor-core kernel, also against K5a bf16 on the
-   same inputs);
-4. kernel, plain and library (cuDNN nn.LSTM) times at 262,144 windows,
-   beside the bound the card's peak rates set; K1, K5a (bf16) and cuDNN
-   in turns, the median of 3 rounds;
+   rtol 2e-2, the tolerance of two bf16 schedules of the same contract);
+   K1 also against K5a on the same inputs (fp32: the same bits expected);
+4. kernel, plain and library (cuDNN nn.LSTM over the readout cone) times
+   at 262,144 windows, beside the bound the card's peak rates set; K1,
+   K5a and cuDNN in turns, the median of 3 rounds; the fp32 core's tile
+   sweep (2- and 4-CTA clusters) with the clusters the card holds at
+   once;
 5. the training kernels K2 (forward with residuals, all layers) and K3
    (BPTT recurrence + weight-gradient product, per layer) against their
    plain versions at full width on 2,048 and 2,083 windows (a ragged last
@@ -54,7 +57,9 @@ without printing the result line):
    65,536 random windows and on the window view of a 262,144-row chunk,
    T=64 on 4,096 windows (fp32 2e-5, bf16 atol 2e-3 + rtol 2e-2), K4
    forced at T=21 against K1; kernel, plain and cuDNN times at 262,144
-   windows beside the bound;
+   windows beside the bound of the readout cone's steps, which K4 runs at
+   every T, and the all-T bound (the steps the plain version runs at even
+   T); the fp32 core's sweep at T=20;
 10. the one-direction layer kernel K6 against its plain version (H=100,
    T=21, both directions, 1e-5), its main path (the model's two
    one-direction stacks) against K1's center features, and its times;
@@ -82,12 +87,13 @@ without printing the result line):
    K5c's main path on the window view, and the probe tools (probe_mono,
    probe_merged_gemm: K5a's main path, probe_pregemm: K5b's) at 32,768
    windows with the launch counts read around each;
-15. bf16 at hidden 128 (Hp 128: K1, K4, K5a and K5c split each layer
-   over a 2-CTA cluster): K4 at T=20 and forced at T=21, K1, K5a, K5b
-   (both gate stores) and K5c at T=21, 3 layers, on 32,768 windows against
-   their
-   plain versions (atol 2e-3 + rtol 2e-2), with kernel, plain and cuDNN
-   times at that width and the clusters resident.
+15. hidden 128, 3 layers, 32,768 windows: bf16 (Hp 128: K1, K4, K5a and
+   K5c split each layer over a 2-CTA cluster) K4 at T=20 and forced at
+   T=21, K1, K5a, K5b (both gate stores) and K5c at T=21; fp32 (the fp32
+   core's 4-CTA clusters) K4 at T=20 and forced at T=21 and K1 at T=21;
+   each against its plain version (fp32 2e-5, bf16 atol 2e-3 + rtol
+   2e-2), with kernel, plain and cuDNN times at that width and the
+   clusters resident.
 
 Prints the ``{"kernels": [...]}`` line (a name ending in ``_tc``: a
 tensor-core kernel), the nvidia-smi line and, last,
@@ -175,35 +181,50 @@ def interleaved_ms(calls: dict, rounds: int = 3) -> dict:
     return out
 
 
-def flops_per_window(cfg) -> int:
-    """Multiply-adds x2 over both lanes and all layers, for the steps each
-    layer runs: T//2+1 for odd T (the readout cone), T for even T."""
-    from deepmod_tpu_torch.ops.bilstm_fused import readout
+def lane_steps(cfg, layered: bool = False, all_t: bool = False) -> tuple:
+    """(fw, bw) steps a layer runs: K1 (odd T) the T//2+1 of the readout
+    cone in both lanes; K4 the cone's fw_step+1 and bw_step+1 at every T
+    (one fewer in the bw lane at even T); with ``all_t`` the T steps that
+    the JAX kernel and the plain version run at even T."""
+    from deepmod_tpu_torch.ops.bilstm_fused import cone, readout
 
-    h, steps = cfg.num_hidden, readout(cfg.timesteps)[0]
+    if all_t:
+        steps = readout(cfg.timesteps)[0]
+        return steps, steps
+    if layered:
+        _, fw, bw = cone(cfg.timesteps)
+        return fw + 1, bw + 1
+    steps = readout(cfg.timesteps)[0]
+    return steps, steps
+
+
+def flops_per_window(cfg, layered: bool = False, all_t: bool = False) -> int:
+    """Multiply-adds x2 over both lanes and all layers, for the steps each
+    layer of a lane runs (``lane_steps``)."""
+    h = cfg.num_hidden
     per_step = sum(
         2 * ((cfg.num_input if layer == 0 else h) + h) * 4 * h
         for layer in range(cfg.num_layers)
     )
-    return 2 * steps * per_step
+    return sum(lane_steps(cfg, layered, all_t)) * per_step
 
 
 def bound_ms(cfg, batch: int, precision: str, weight_bytes: int,
-             layered: bool = False) -> tuple:
+             layered: bool = False, all_t: bool = False) -> tuple:
     """The larger of operations over the peak rate and bytes over HBM
-    bandwidth. The windows are read once and the (B, 2H) features written
-    once; the layered kernel (K4) also writes and reads back the (2,
-    steps, B, H) sequence of every layer but the last."""
-    from deepmod_tpu_torch.ops.bilstm_fused import readout
-
+    bandwidth, for the steps the kernel runs (``lane_steps``). The windows
+    are read once and the (B, 2H) features written once; the layered
+    kernel (K4) also writes and reads back the sequence of every layer but
+    the last."""
     size = 4 if precision == "fp32" else 2
     nbytes = (batch * cfg.timesteps * cfg.num_input * size
               + batch * 2 * cfg.num_hidden * 4 + weight_bytes)
     if layered:
-        steps = readout(cfg.timesteps)[0]
-        nbytes += ((cfg.num_layers - 1) * 2 * (2 * steps * batch
+        steps = sum(lane_steps(cfg, layered, all_t))
+        nbytes += ((cfg.num_layers - 1) * 2 * (steps * batch
                                                * cfg.num_hidden * size))
-    t_ops = flops_per_window(cfg) * batch / PEAK_OPS[precision]
+    t_ops = (flops_per_window(cfg, layered, all_t) * batch
+             / PEAK_OPS[precision])
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -239,14 +260,14 @@ def cudnn_lstms(params, cfg, precision: str, device, train: bool = False):
 
 
 def cudnn_center(lstms, x, cfg):
-    """The center features from the two cuDNN stacks: T//2+1 steps for odd
-    T, all T for even T with fw read at T//2 and bw at T-1-T//2 of the
-    time-reversed lane."""
-    from deepmod_tpu_torch.ops.bilstm_fused import readout
+    """The center features from the two cuDNN stacks over the readout cone
+    (as K1 and K4 run it): the fw lane's steps 0..T//2, the time-reversed
+    bw lane's 0..T-1-T//2, read at the last."""
+    from deepmod_tpu_torch.ops.bilstm_fused import cone
 
-    steps, fw_step, bw_step = readout(cfg.timesteps)
-    fw, _ = lstms[0](x[:, :steps])
-    bw, _ = lstms[1](x.flip(1)[:, :steps])
+    _, fw_step, bw_step = cone(cfg.timesteps)
+    fw, _ = lstms[0](x[:, :fw_step + 1])
+    bw, _ = lstms[1](x.flip(1)[:, :bw_step + 1])
     return torch.cat([fw[:, fw_step], bw[:, bw_step]], dim=1).float()
 
 
@@ -310,50 +331,42 @@ def phase_kernel(device) -> dict:
         log(f"[K1 {precision}] window view of {TIME_B} rows: "
             f"max_abs_err={err_v:.3e}")
         max_err = max(max_err, err_v)
-        if precision == "bf16":
-            # the tensor-core K1 against K5a bf16 (the same function, one
-            # merged chain a step) on the same inputs
-            vs_k5a = 0.0
-            for inp, mine in ((x, got), (view, got_v)):
-                k5a = ops.bilstm_center_mono(packed, inp, cfg, precision,
-                                             merged_gemm=True)
-                torch.cuda.synchronize()
-                vs_k5a = max(vs_k5a, float((mine - k5a).abs().max()))
-                assert torch.allclose(mine, k5a, rtol=2e-2, atol=2e-3), (
-                    f"bf16 K1 vs K5a: max abs {vs_k5a}")
-                del k5a
-            log(f"[K1 bf16] vs K5a bf16 on the same inputs (random and "
-                f"window view): max abs {vs_k5a:.3e}")
+        # K1 against K5a (the same function, one merged product a step) on
+        # the same inputs: in fp32 the same fmaf chains, so the same bits
+        vs_k5a, same = 0.0, True
+        for inp, mine in ((x, got), (view, got_v)):
+            k5a = ops.bilstm_center_mono(packed, inp, cfg, precision,
+                                         merged_gemm=True)
+            torch.cuda.synchronize()
+            vs_k5a = max(vs_k5a, float((mine - k5a).abs().max()))
+            same = same and torch.equal(mine, k5a)
+            assert _close(mine, k5a, precision), (
+                f"{precision} K1 vs K5a: max abs {vs_k5a}")
+            del k5a
+        log(f"[K1 {precision}] vs K5a {precision} on the same inputs (random "
+            f"and window view): max abs {vs_k5a:.3e}, same bits {same}")
         del rows, view, got_v, want_v
 
         xt = x_all.to(dt).contiguous()
         plain_ms = time_ms(
             lambda: ops.bilstm_center_plain(params, xt, cfg, precision))
-        # K1, (bf16) K5a and cuDNN in turns, the median of 3 rounds
+        # K1, K5a and cuDNN in turns, the median of 3 rounds
         calls = {"k1": lambda: ops.bilstm_center_features(
-            packed, xt, cfg, precision)}
-        if precision == "bf16":
-            calls["k5a"] = lambda: ops.bilstm_center_mono(
-                packed, xt, cfg, precision, merged_gemm=True)
-        calls["cudnn"] = lambda: cudnn_center(lib, xt, cfg)
+            packed, xt, cfg, precision),
+            "k5a": lambda: ops.bilstm_center_mono(
+                packed, xt, cfg, precision, merged_gemm=True),
+            "cudnn": lambda: cudnn_center(lib, xt, cfg)}
         with torch.no_grad():
             rounds = interleaved_ms(calls)
         ms, lib_ms = rounds["k1"], rounds["cudnn"]
         log(f"[K1 {precision}] interleaved, 3 rounds (ms): " + "; ".join(
             f"{k} {v:.3f} (rounds {rounds[k + '_rounds']})"
             for k, v in rounds.items() if not k.endswith("_rounds")))
-        tiles = {}
         # the tensor-core kernel takes one tile, 64: no sweep
-        for tile in (() if ops.tensor_core("mono", precision)
-                     else (16, 32, 40)):
-            if cfg.num_hidden * tile // 8 <= ops.MAX_THREADS and (
-                    (cfg.timesteps // 2 + 1) * (cfg.num_hidden + cfg.num_input)
-                    * tile * xt.element_size() <= ops.MAX_SMEM):
-                tiles[tile] = round(time_ms(lambda: ops.bilstm_center_features(
-                    packed, xt, cfg, precision, tile_b=tile)), 3)
-        if tiles:
-            log(f"[K1 {precision}] tile_b sweep (ms): {tiles} vs "
-                f"{ops.TILE_B}: {ms:.3f}")
+        if precision == "fp32":
+            log(f"[K1 fp32] {f32_sweep_line(cfg, lambda t: ops.bilstm_center_features(packed, xt, cfg, precision, tile_b=t), device)}"
+                f"; default {ops.f32_shape(cfg.num_input, cfg.num_hidden)}: "
+                f"{ms:.3f} ms")
         w_bytes = packed.w.numel() * packed.w.element_size() + packed.bias.numel() * 4
         b_ms, b_by = bound_ms(cfg, TIME_B, precision, w_bytes)
         log(f"[K1 {precision}] B={TIME_B} kernel {ms:.3f} ms, "
@@ -368,6 +381,49 @@ def phase_kernel(device) -> dict:
         del xt, x, got, want, lib, lib_out
         torch.cuda.empty_cache()
     return results
+
+
+# the fp32 core's tiles the sweep times at H=100: 2-CTA clusters up to 40
+# windows, 4-CTA ones at 64 and 80 (``f32_shape``)
+F32_SWEEP = (24, 32, 40, 64, 80)
+
+
+def f32_sweep_line(cfg, launch, device) -> str:
+    """The fp32 core (K1 or K4 fp32, ``launch(tile_b)``) timed at each
+    tile of F32_SWEEP, with its split, threads, shared memory and the
+    clusters the card holds at once."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    got = []
+    for tile in F32_SWEEP:
+        shape = ops.f32_shape(cfg.num_input, cfg.num_hidden, tile)
+        ms = time_ms(lambda: launch(tile), reps=3)
+        got.append(f"tile {tile}, split {shape.split} ({shape.threads} "
+                   f"threads, {shape.smem} B, "
+                   f"{ops.f32_clusters(cfg, shape, device)} clusters): "
+                   f"{ms:.3f}")
+    return "fp32 core sweep (ms): " + "; ".join(got)
+
+
+def f32_build_line() -> str:
+    """ptxas's registers and spills of the fp32 core's kernels (K1's
+    ``bilstm_center_f32_kernel`` and K4's ``bilstm_layer_f32_kernel``, one
+    template a split)."""
+    import re
+
+    from deepmod_tpu_torch.ops import _build
+
+    lines = _build.build_info["log"].splitlines()
+    found = []
+    for i, line in enumerate(lines):
+        m = re.search(r"bilstm_(center|layer)_f32_kernelILi(\d+)E", line)
+        if m and "Compiling entry" in line:
+            props = [t.split("ptxas info    :")[-1].strip()
+                     for t in lines[i + 1:i + 4]
+                     if "spill" in t or "registers" in t]
+            found.append(f"{m.group(1)}<split {m.group(2)}>: "
+                         + "; ".join(props))
+    return " | ".join(found) or "no ptxas log (cached build)"
 
 
 def tc_build_line(cfg) -> str:
@@ -441,7 +497,9 @@ def phase_layered(device) -> dict:
     """K4 against its plain version: T=20 and T=31 at full width on
     CHECK_B random windows and on the window view of a TIME_B-row chunk,
     T=64 on LONG_B windows, K4 forced at T=21 against K1; kernel, plain
-    and cuDNN times at TIME_B windows beside the bound."""
+    and cuDNN times at TIME_B windows beside the bound of the cone's steps
+    (which K4 runs) and the all-T bound (the plain version's steps); the
+    fp32 core's sweep at T=20."""
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
     from deepmod_tpu_torch.ops import bilstm_fused as ops
 
@@ -500,16 +558,24 @@ def phase_layered(device) -> dict:
                 packed, x_all, cfg, precision))
             w_bytes = (packed.w.numel() * packed.w.element_size()
                        + packed.bias.numel() * 4)
+            # the bound of the steps K4 runs (the cone), and of the all-T
+            # steps the JAX kernel and the plain version run at even T
             b_ms, b_by = bound_ms(cfg, TIME_B, precision, w_bytes,
                                   layered=True)
-            fl = flops_per_window(cfg)
+            all_ms, _ = bound_ms(cfg, TIME_B, precision, w_bytes,
+                                 layered=True, all_t=True)
+            fl = flops_per_window(cfg, layered=True)
             log(f"[K4 {precision}] T={timesteps} B={TIME_B} kernel {ms:.3f} / "
                 f"{ms2:.3f} ms, plain {plain_ms:.3f} ms, cudnn {lib_ms:.3f} "
-                f"ms, bound {b_ms:.3f} ms ({b_by}); {fl} FLOP/window, "
+                f"ms (the cone's steps), bound {b_ms:.3f} ms ({b_by}; the "
+                f"cone's {lane_steps(cfg, layered=True)} steps a layer), "
+                f"all-T bound {all_ms:.3f} ms; {fl} FLOP/window, "
                 f"{fl * TIME_B / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            if precision == "fp32" and timesteps == LAYERED_T[0]:
+                log(f"[K4 fp32] T={timesteps} {f32_sweep_line(cfg, lambda t: ops.bilstm_center_features(packed, x_all, cfg, precision, tile_b=t), device)}")
             times[timesteps] = dict(ms=ms, ms_repeat=ms2, plain_ms=plain_ms,
                                     library_ms=lib_ms, bound_ms=b_ms,
-                                    bound_by=b_by)
+                                    bound_by=b_by, all_t_bound_ms=all_ms)
             del x_all, x, lib
             torch.cuda.empty_cache()
 
@@ -662,8 +728,9 @@ def tensor_core_sass(lib_path: str) -> dict:
     """HGMMA (wgmma) instructions in the SASS of each bf16 kernel of K1, K4
     and K5a-c (``cuobjdump -sass`` of the built library), by mangled name;
     every template (Hp 8-128) of the tensor-core kernels must issue them
-    and no bf16 CUDA-core body of any of them may be left (K1's CUDA-core
-    body, ``bilstm_center_mono_kernel``, is fp32 only)."""
+    and no bf16 CUDA-core body of any of them may be left. K1's and K4's
+    fp32 bodies are the fp32 core's three templates each (split 1, 2, 4),
+    and their old CUDA-core bodies are gone."""
     import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -678,8 +745,13 @@ def tensor_core_sass(lib_path: str) -> dict:
         if m:
             counts[m.group(1) + "_" + m.group(2)] = block.count("HGMMA")
     old = [k for k in counts if "kernelI13__nv" in k]
-    assert "bilstm_center_mono_kernelIfLb0EE" in sass, "K1's fp32 body"
     assert not old, f"bf16 CUDA-core bodies left: {old}"
+    for kind in ("center", "layer"):
+        for split in (1, 2, 4):
+            name = f"bilstm_{kind}_f32_kernelILi{split}E"
+            assert name in sass, f"the fp32 core's {name} is missing"
+    for old_body in ("bilstm_center_mono_kernel", "bilstm_layer_kernelI"):
+        assert old_body not in sass, f"the old fp32 body {old_body} is left"
     for kind in TC_KINDS:
         tc = {k: v for k, v in counts.items() if k.startswith(kind + "_tc")}
         # K5b: one template a gate dtype (Lb0E fp32, Lb1E bf16)
@@ -931,66 +1003,80 @@ WIDE_B = 32768  # windows of the hidden-128 check
 
 
 def phase_hidden_128(device) -> dict:
-    """bf16 at hidden 128 (Hp 128: K1, K4, K5a and K5c split each
-    layer-lane over a 2-CTA cluster; K5b keeps one weight resident): K4 at
-    T=20 and forced at T=21, K1, K5a, K5b (both gate stores) and K5c at
-    T=21, 3 layers,
-    WIDE_B windows, each against its plain version; kernel, plain and
-    cuDNN times at that width beside the bound."""
+    """Hidden 128, 3 layers, WIDE_B windows, each kernel against its plain
+    version: bf16 (Hp 128: K1, K4, K5a and K5c split each layer-lane over
+    a 2-CTA cluster; K5b keeps one weight resident) K4 at T=20 and forced
+    at T=21, K1, K5a, K5b (both gate stores) and K5c at T=21; fp32 (the
+    fp32 core's 4-CTA clusters) K4 at T=20 and forced at T=21, and K1 at
+    T=21; kernel, plain and cuDNN times at that width beside the bound."""
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
     from deepmod_tpu_torch.ops import bilstm_fused as ops
 
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     results = {}
     for timesteps in (21, 20):
         cfg = BiLSTMConfig(num_hidden=128, timesteps=timesteps)
         params = init_bilstm_params(SEED + 128 + timesteps, cfg, device=device)
-        packed = ops.pack_bilstm_params(params, cfg, "bf16")
-        x = torch.from_numpy(np.random.default_rng(SEED + timesteps)
-                             .standard_normal((WIDE_B, timesteps,
-                                               cfg.num_input),
-                                              dtype=np.float32)).to(
-            device).bfloat16()
-        lib = cudnn_lstms(params, cfg, "bf16", device)
-        with torch.no_grad():
-            lib_ms = time_ms(lambda: cudnn_center(lib, x, cfg))
-        w_bytes = packed.w.numel() * 2 + packed.bias.numel() * 4
-        cases = [("K4", lambda: ops.bilstm_center_features(
-            packed, x, cfg, "bf16", mono=False),
-            lambda: ops.bilstm_layered_plain(params, x, cfg, "bf16"), True)]
-        if timesteps % 2 == 1:
-            cases.append(("K1", lambda: ops.bilstm_center_features(
-                packed, x, cfg, "bf16"),
-                lambda: ops.bilstm_center_plain(params, x, cfg, "bf16"),
-                False))
-            for label, flags in SCHEDULE_CASES:
-                cases.append((label, lambda f=flags: ops.bilstm_center_mono(
-                    packed, x, cfg, "bf16", **f),
-                    lambda f=flags: ops.bilstm_center_plain(
-                        params, x, cfg, "bf16",
-                        gate_store=f.get("gate_store", "fp32")), False))
-        for label, kernel, plain, layered in cases:
-            got = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            assert torch.isfinite(got).all(), f"{label} H=128 T={timesteps}"
-            err = float((got - want).abs().max())
-            assert _close(got, want, "bf16"), (
-                f"{label} bf16 H=128 T={timesteps} vs plain: max abs {err}")
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain, reps=3)
-            b_ms, b_by = bound_ms(cfg, WIDE_B, "bf16", w_bytes,
-                                  layered=layered)
-            log(f"[H128 bf16] {label} T={timesteps} B={WIDE_B}: max_abs_err "
-                f"{err:.3e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"cudnn {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-            results[label, timesteps] = dict(max_abs_err=err, ms=ms,
-                                             plain_ms=plain_ms,
-                                             library_ms=lib_ms, bound_ms=b_ms)
-        if timesteps == 21:
-            log(f"[H128 bf16] {tc_shape_line(cfg, WIDE_B, device)}")
-        del x, lib
-        torch.cuda.empty_cache()
+        for precision in ("bf16", "fp32"):
+            packed = ops.pack_bilstm_params(params, cfg, precision)
+            x = torch.from_numpy(np.random.default_rng(SEED + timesteps)
+                                 .standard_normal((WIDE_B, timesteps,
+                                                   cfg.num_input),
+                                                  dtype=np.float32)).to(
+                device).to(ops.seq_dtype(precision))
+            lib = cudnn_lstms(params, cfg, precision, device)
+            with torch.no_grad():
+                lib_ms = time_ms(lambda: cudnn_center(lib, x, cfg))
+            w_bytes = (packed.w.numel() * packed.w.element_size()
+                       + packed.bias.numel() * 4)
+            cases = [("K4", lambda: ops.bilstm_center_features(
+                packed, x, cfg, precision, mono=False),
+                lambda: ops.bilstm_layered_plain(params, x, cfg, precision),
+                True)]
+            if timesteps % 2 == 1:
+                cases.append(("K1", lambda: ops.bilstm_center_features(
+                    packed, x, cfg, precision),
+                    lambda: ops.bilstm_center_plain(params, x, cfg, precision),
+                    False))
+            if timesteps % 2 == 1 and precision == "bf16":
+                for label, flags in SCHEDULE_CASES:
+                    cases.append((label, lambda f=flags: ops.bilstm_center_mono(
+                        packed, x, cfg, "bf16", **f),
+                        lambda f=flags: ops.bilstm_center_plain(
+                            params, x, cfg, "bf16",
+                            gate_store=f.get("gate_store", "fp32")), False))
+            for label, kernel, plain, layered in cases:
+                got = kernel()
+                torch.cuda.synchronize()
+                want = plain()
+                assert torch.isfinite(got).all(), (
+                    f"{label} {precision} H=128 T={timesteps}")
+                err = float((got - want).abs().max())
+                assert _close(got, want, precision), (
+                    f"{label} {precision} H=128 T={timesteps} vs plain: "
+                    f"max abs {err}")
+                ms = time_ms(kernel)
+                plain_ms = time_ms(plain, reps=3)
+                b_ms, b_by = bound_ms(cfg, WIDE_B, precision, w_bytes,
+                                      layered=layered)
+                log(f"[H128 {precision}] {label} T={timesteps} B={WIDE_B}: "
+                    f"max_abs_err {err:.3e}; kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, cudnn {lib_ms:.3f} ms, bound "
+                    f"{b_ms:.3f} ms ({b_by})")
+                results[label, precision, timesteps] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms)
+            if timesteps == 21 and precision == "bf16":
+                log(f"[H128 bf16] {tc_shape_line(cfg, WIDE_B, device)}")
+            if timesteps == 21 and precision == "fp32":
+                shape = ops.f32_shape(cfg.num_input, cfg.num_hidden)
+                assert shape.split == 4, shape
+                log(f"[H128 fp32] the fp32 core at {shape}: "
+                    f"{ops.f32_clusters(cfg, shape, device)} clusters of "
+                    f"{shape.split} CTAs resident")
+            del x, lib
+            torch.cuda.empty_cache()
     return results
 
 
@@ -1622,6 +1708,7 @@ def main() -> int:
         log(f"[build] the bf16 K1 / K4 / K5a-c tensor-core kernels at "
             f"H={hidden}: {tc_build_line(BiLSTMConfig(num_hidden=hidden))}")
     log(f"[build] K3's kernels: {k3_build_line()}")
+    log(f"[build] the fp32 core (K1, K4 fp32): {f32_build_line()}")
 
     kern = phase_kernel(device)
     tkern = phase_train_kernels(device)

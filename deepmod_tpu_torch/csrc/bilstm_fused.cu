@@ -13,24 +13,24 @@
 // a (rows, F) feature block (stride_b = F): the window build of the
 // compact transfer path is folded into these loads. Two bodies:
 //
-// fp32, on the CUDA cores (tensor cores in fp32 would mean TF32, which
-// breaks the 2e-5 parity):
-//   grid (ceil(B / tile_b), 2): blockIdx.y is the lane, and one block runs
-//     all layers of that lane for tile_b windows, T//2+1 steps per layer.
-//   threads: hidden * tile_b / 8. Thread (u, g) owns hidden unit u for the
-//     8 windows g*8 .. g*8+7. It computes all four gates i, j, f, o of its
-//     unit as dot products over [x_t; h_{t-1}], reading the layer kernel
-//     in TF's (in+H, 4H) gate-block layout, so the cell update stays in
-//     the thread and the cell state c stays in registers.
-//   shared memory: ONE sequence buffer seq[step][unit][window] holds the
-//     previous layer's outputs. Layer L at step t reads row t (layer L-1's
-//     h_t) and row t-1 (its own h_{t-1}, already written back), and only
-//     after a barrier overwrites row t with its h_t, so the single buffer
-//     replaces the TPU kernel's four ping-pong buffers. The layer-0 inputs
-//     for the block's windows are staged once into xs[step][feature][window].
-//   weights are read from global memory and stay in L2.
+// fp32, the fp32 core (csrc/lstm_f32.cuh; tensor cores in fp32 would mean
+// TF32, which breaks the 2e-5 parity):
+//   grid (ceil(B / tile) * split, 2): blockIdx.y is the lane, and one
+//     cluster of `split` CTAs (1, 2 or 4) runs all layers of that lane for
+//     `tile` windows, T//2+1 steps per layer; each layer's weights resident
+//     in shared memory, split by units over the cluster, h exchanged
+//     through distributed shared memory, one cluster barrier a step
+//     (lstm_f32.cuh's header). Thread (u, g) owns unit u for 8 windows,
+//     its four gates and its cell states in registers.
+//   the inter-layer rows go to a device-memory workspace from the wrapper,
+//     blocked ([H][tile] a row), one row a step, overwritten in place by
+//     the next layer: its step t writes row t, which every CTA of the
+//     cluster read in step t-1's prefetch, before that step's barrier
+//     (K5a bf16's workspace, bilstm_mono_merged.cu).
 //   Numerics: sigmoid = 1/(1+expf(-x)), forget_bias added inside the f
-//   sigmoid, fp32 weights and sequences, accurate expf/tanhf.
+//   sigmoid, fp32 weights and sequences, accurate expf/tanhf; each gate one
+//   ordered fmaf chain, x rows then h rows, so the result has K5a fp32's
+//   bits.
 //
 // bf16, on the tensor cores (csrc/lstm_tc.cuh's pieces): K1's two-dot
 // step, h_{t-1} . Wh and x_t . Wx as two wgmma chains, where K5a
@@ -77,112 +77,114 @@
 //
 // What bounds it on an H100: per window 8.92 MFLOP at H=100, F=7, T=21
 // against 7-294 bytes of input and 800 of output, so operations, and 33
-// dependent steps a lane. On the tensor cores a step is the two chains
+// dependent steps a lane: fp32 FMAs on the CUDA cores in fp32 (the
+// exchange and the cluster barrier on the step's dependent path). On the
+// tensor cores a step is the two chains
 // (14 k-tiles at Hp 104, one more than K5a's merged 13; 16 = 16 at Hp
 // 128) plus the cell's tanhf (5 a unit and window), serially.
 
-#include "lstm_tc.cuh"
+#include "lstm_f32.cuh"
 
 namespace {
 
-using dmt::accumulate;
-using dmt::from_f;
-using dmt::kMaxThreads;
-using dmt::kR;
-using dmt::store8;
+// ---------------------------------------------- fp32: the fp32 core
 
-template <typename T, bool kPrescaled>
-__global__ void __launch_bounds__(kMaxThreads)
-bilstm_center_mono_kernel(const T* __restrict__ x, long long stride_b,
-                          long long stride_t, long long stride_f, int batch,
-                          int timesteps, int in_dim, int hidden,
-                          int num_layers, const T* __restrict__ w,
-                          const float* __restrict__ bias, float fb_term,
-                          float* __restrict__ out, int tile_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// one lane of one tile, every layer, a cluster of kSplit CTAs (each its
+// units)
+template <int kSplit>
+__global__ void __launch_bounds__(dmt::f32::kMaxThreads, 1)
+bilstm_center_f32_kernel(const float* __restrict__ x, long long stride_b,
+                         long long stride_t, long long stride_f, int batch,
+                         int timesteps, int in_dim, int hidden,
+                         int num_layers, const float* __restrict__ w,
+                         const float* __restrict__ bias, float forget_bias,
+                         float* __restrict__ ws, float* __restrict__ out,
+                         int tile) {
+  namespace f32 = dmt::f32;
+  extern __shared__ __align__(16) unsigned char f32_smem[];
   const int steps = timesteps / 2 + 1;
   const int lane = blockIdx.y;  // 0 = fw, 1 = bw
-  const long long b0 = static_cast<long long>(blockIdx.x) * tile_b;
-  T* seq = reinterpret_cast<T*>(smem_raw);  // [steps][hidden][tile_b]
-  T* xs = seq + static_cast<size_t>(steps) * hidden * tile_b;
-  // xs: [steps][in_dim][tile_b]
+  const int tile_i = blockIdx.x / kSplit;
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const f32::Smem sm = f32::carve(f32_smem, widest, hidden,
+                                  f32::units_of(hidden, kSplit), tile);
+  const int hp4 = f32::packed_units(hidden);
+  // this tile's rows of the workspace: (tiles, 2, steps, H * tile)
+  const long long row = static_cast<long long>(hidden) * tile;
+  float* rows = ws + (static_cast<long long>(tile_i) * 2 + lane) * steps * row;
 
-  dmt::stage_inputs(x, stride_b, stride_t, stride_f, b0, batch, timesteps,
-                    steps, in_dim, tile_b, lane, xs);
-
-  const int u = threadIdx.x % hidden;
-  const int w0 = (threadIdx.x / hidden) * kR;
-  const size_t lane_w =
-      static_cast<size_t>(in_dim + hidden) * 4 * hidden +
-      static_cast<size_t>(num_layers - 1) * 2 * hidden * 4 * hidden;
-  const T* wl = w + lane * lane_w;
-  const float* bl = bias + static_cast<size_t>(lane) * num_layers * 4 * hidden;
-  __syncthreads();
-
+  f32::Layer L;
+  L.w = w;
+  L.bias = bias;
+  L.hidden = hidden;
+  L.steps = steps;
+  L.batch = batch;
+  L.lane = lane;
+  L.tile = tile;
+  L.b0 = static_cast<long long>(tile_i) * tile;
+  L.fb = forget_bias;
   for (int layer = 0; layer < num_layers; ++layer) {
-    const int lin = layer == 0 ? in_dim : hidden;
-    const T* src = layer == 0 ? xs : seq;
+    L.in_dim = layer == 0 ? in_dim : hidden;
+    const long long lane_w = static_cast<long long>(L.in_dim + hidden) * hp4 * 4;
     const bool last = layer == num_layers - 1;
-    const float bi = bl[u];
-    const float bj = bl[hidden + u];
-    const float bf = bl[2 * hidden + u];
-    const float bo = bl[3 * hidden + u];
-    float c[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) c[r] = 0.0f;
-
-    for (int t = 0; t < steps; ++t) {
-      float acc[4][kR];
-      dmt::zero(acc);
-      accumulate(src + static_cast<size_t>(t) * lin * tile_b + w0, tile_b,
-                 wl + u, lin, hidden, acc);
-      if (t > 0) {  // h_{-1} = 0 contributes nothing
-        accumulate(seq + static_cast<size_t>(t - 1) * hidden * tile_b + w0,
-                   tile_b, wl + static_cast<size_t>(lin) * 4 * hidden + u,
-                   hidden, hidden, acc);
-      }
-      // every thread has read row t (and row t-1) before row t is rewritten
-      __syncthreads();
-      float h[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        h[r] = dmt::cell<kPrescaled>(acc[0][r] + bi, acc[1][r] + bj,
-                                     acc[2][r] + bf, acc[3][r] + bo, fb_term,
-                                     c[r]);
-      }
-      if (last && t == steps - 1) {
-        // only the center row leaves the kernel
-        dmt::store_center<T>(out, h, b0 + w0, batch, hidden, lane, u);
-      } else {
-        store8(seq + (static_cast<size_t>(t) * hidden + u) * tile_b + w0, h);
-      }
-      __syncthreads();
-    }
-    wl += static_cast<size_t>(lin + hidden) * 4 * hidden;
-    bl += 4 * hidden;
+    f32::LayerIO io;
+    io.x = layer == 0 ? x : nullptr;
+    io.sb = stride_b;
+    io.st = stride_t;
+    io.sf = stride_f;
+    io.reversed = lane == 1;
+    io.in_steps = timesteps;
+    io.seq_in = rows;
+    io.seq_in_t = row;
+    io.seq_out = last ? nullptr : rows;
+    io.seq_out_t = row;
+    io.out = last ? out : nullptr;
+    io.out_step = steps - 1;
+    f32::Layer here = L;
+    here.w += lane * lane_w;
+    here.bias += lane * hp4 * 4;
+    f32::run_layer<kSplit>(sm, here, io);
+    L.w += 2 * lane_w;  // [layer][lane]
+    L.bias += 2 * hp4 * 4;
   }
 }
 
-template <typename T, bool kPrescaled>
-int launch(const void* x, long long stride_b, long long stride_t,
-           long long stride_f, int batch, int timesteps, int in_dim,
-           int hidden, int num_layers, const void* w, const float* bias,
-           float fb_term, float* out, int tile_b, void* stream) {
-  const int steps = timesteps / 2 + 1;
-  const size_t smem =
-      static_cast<size_t>(steps) * (hidden + in_dim) * tile_b * sizeof(T);
-  auto kernel = bilstm_center_mono_kernel<T, kPrescaled>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + tile_b - 1) / tile_b, 2);
-  const dim3 block(hidden * (tile_b / kR));
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), stride_b, stride_t, stride_f, batch,
-      timesteps, in_dim, hidden, num_layers, static_cast<const T*>(w), bias,
-      fb_term, out, tile_b);
-  return static_cast<int>(cudaGetLastError());
+template <int kSplit>
+int launch_f32(const void* x, long long stride_b, long long stride_t,
+               long long stride_f, int batch, int timesteps, int in_dim,
+               int hidden, int num_layers, const void* w, const void* bias,
+               float forget_bias, void* ws, void* out, int tile,
+               void* stream) {
+  namespace f32 = dmt::f32;
+  const int threads = f32::threads_of(hidden, kSplit, tile);
+  if (tile % dmt::kR != 0 || threads > f32::kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const size_t smem = f32::smem_bytes(widest, hidden, kSplit, tile);
+  auto kernel = bilstm_center_f32_kernel<kSplit>;
+  const dim3 grid((batch + tile - 1) / tile * kSplit, 2);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* wsf = static_cast<float*>(ws);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if constexpr (kSplit > 1) {
+    return static_cast<int>(dmt::tc::launch_cluster(
+        kernel, grid, threads, smem, st, kSplit, xf, stride_b, stride_t,
+        stride_f, batch, timesteps, in_dim, hidden, num_layers, wf, bf,
+        forget_bias, wsf, o, tile));
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, threads, smem, st>>>(
+        xf, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
+        num_layers, wf, bf, forget_bias, wsf, o, tile);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // ---------------------------------------------- bf16: the tensor cores
@@ -464,17 +466,25 @@ const char* dmt_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// fp32 mode; returns cudaGetLastError() after the launch (0 = success)
+// fp32 mode, the fp32 core: x is fp32; w and bias are the f32_pack_layer
+// packing of ops/bilstm_fused.py (per [layer][lane] the (in+H, Hp4, 4)
+// fp32 weights and the (Hp4, 4) bias); ws is an fp32 workspace of
+// ceil(B/tile) * 2 * (T//2+1) * H * tile elements. `split` CTAs a cluster
+// (1, 2 or 4), tile a multiple of 8, ceil(hidden/split) * tile/8 <= 256
+// threads (else cudaErrorInvalidValue); cudaErrorLaunchOutOfResources
+// where no cluster fits. Returns cudaGetLastError() after the launch (0 = success)
 int dmt_bilstm_center_f32(const void* x, long long stride_b,
                           long long stride_t, long long stride_f, int batch,
                           int timesteps, int in_dim, int hidden,
                           int num_layers, const void* w, const void* bias,
-                          float forget_bias, void* out, int tile_b,
-                          void* stream) {
-  return launch<float, false>(x, stride_b, stride_t, stride_f, batch,
-                              timesteps, in_dim, hidden, num_layers, w,
-                              static_cast<const float*>(bias), forget_bias,
-                              static_cast<float*>(out), tile_b, stream);
+                          float forget_bias, void* ws, void* out, int tile,
+                          int split, void* stream) {
+#define DMT_LAUNCH(s)                                                    \
+  return launch_f32<s>(x, stride_b, stride_t, stride_f, batch,          \
+                          timesteps, in_dim, hidden, num_layers, w, bias,  \
+                          forget_bias, ws, out, tile, stream)
+  DMT_F32_DISPATCH(split, DMT_LAUNCH)
+#undef DMT_LAUNCH
 }
 
 // bf16 mode, the tensor-core kernel, 64 windows a block: x is bf16; w and

@@ -1,8 +1,9 @@
-// Helpers shared by the inference LSTM kernels (bilstm_fused.cu: K1,
-// bilstm_mono_merged.cu, bilstm_mono_pregemm.cu, bilstm_mono_wavefront.cu:
-// K5a-c, bilstm_layer.cu: K4, lstm_layer.cu: K6); probe_transcendental.cu
-// (P1) uses the storage-type conversions, lstm_tc.cuh (the tensor-core
-// pieces of K4 and K5a-c in bf16) the conversions and the cell.
+// Helpers shared by the inference LSTM kernels (bilstm_mono_merged.cu,
+// bilstm_mono_pregemm.cu, bilstm_mono_wavefront.cu: K5a-c, lstm_layer.cu:
+// K6); probe_transcendental.cu (P1) uses the storage-type conversions,
+// lstm_tc.cuh (the tensor-core pieces of K1, K4 and K5a-c in bf16) the
+// conversions and the cell, lstm_f32.cuh (the fp32 core of K1 and K4) the
+// cell and kR.
 //
 // The CUDA-core kernels' thread layout is the same: thread (u, g) of a
 // block owns hidden unit u for the kR windows g*kR .. g*kR+kR-1, and

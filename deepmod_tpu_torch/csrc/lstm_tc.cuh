@@ -194,6 +194,17 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the cluster barrier in two halves (lstm_f32.cuh ends a step so, with the
+// global stores of the step between them): every thread's shared-memory
+// writes before the arrive, remote ones included, are seen by every thread
+// of the cluster after the wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // the barrier that ends a step: the block's, or the whole cluster's
 // (barrier.cluster.arrive.release + wait.acquire: every CTA's shared-memory
 // writes before it, remote ones included, are seen by every CTA after it)

@@ -4,7 +4,8 @@ Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
 K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
 ``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
 ``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; the bf16 modes of
-K1, K4 and K5a-c include ``lstm_tc.cuh``) is compiled by its own ``nvcc`` process
+K1, K4 and K5a-c include ``lstm_tc.cuh``, the fp32 modes of K1 and K4
+``lstm_f32.cuh``) is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -122,8 +123,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = ctypes.c_longlong
     n = ctypes.POINTER(ctypes.c_int)
-    for name in ("dmt_bilstm_center_f32", "dmt_bilstm_merged_f32",
-                 "dmt_bilstm_wavefront_f32"):  # K1, K5a, K5c fp32
+    # K1 fp32 (the fp32 core): x, stride_b, stride_t, stride_f, batch,
+    # timesteps, in_dim, hidden, num_layers, w, bias, forget_bias, the
+    # workspace, out, tile, split, stream
+    lib.dmt_bilstm_center_f32.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f,
+                                          p, p, i, i, p]
+    lib.dmt_bilstm_center_f32.restype = ctypes.c_int
+    for name in ("dmt_bilstm_merged_f32", "dmt_bilstm_wavefront_f32"):
+        # K5a, K5c fp32
         fn = getattr(lib, name)
         # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
         # hidden, num_layers, w, bias, forget_bias term, out, tile_b,
@@ -176,12 +183,15 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.argtypes = [p, p, p, p, p, p, p, f, p, p, p, p, p, p, i, i, i, i,
                        i, p]
         fn.restype = ctypes.c_int
-    # K4 fp32: in, s_lane, s_b, s_t, s_f, reverse_bw, batch, in_steps,
-    # steps, in_dim, hidden, w, w_lane, bias, b_lane, forget_bias term,
-    # seq_out, out, fw_step, bw_step, tile_b, stream
-    lib.dmt_bilstm_layer_f32.argtypes = [p, q, q, q, q, i, i, i, i, i, i, p,
-                                         q, p, q, f, p, p, i, i, i, p]
+    # K4 fp32 (the fp32 core): x, s_b, s_t, s_f, reverse_bw, seq_in,
+    # batch, in_steps, steps, in_dim, hidden, w, bias, forget_bias,
+    # seq_out, out, fw_step, bw_step, tile, split, stream; and its clusters
+    # resident at once (in_dim, hidden, tile, split)
+    lib.dmt_bilstm_layer_f32.argtypes = [p, q, q, q, i, p, i, i, i, i, i, p,
+                                         p, f, p, p, i, i, i, i, p]
     lib.dmt_bilstm_layer_f32.restype = ctypes.c_int
+    lib.dmt_bilstm_layer_f32_clusters.argtypes = [i, i, i, i, n]
+    lib.dmt_bilstm_layer_f32_clusters.restype = ctypes.c_int
     # K4 bf16 (tensor cores): x, s_b, s_t, s_f, reverse_bw, seq_in, batch,
     # in_steps, steps, in_dim, hidden, w, bias, forget_bias term, seq_out,
     # out, fw_step, bw_step, stream

@@ -5,12 +5,14 @@ and its two kernels:
 
 - K1, ``bilstm_fused_center_mono`` (Pallas ``_mono_kernel``): the whole
   stack in one launch, odd T <= 25. CUDA: ``csrc/bilstm_fused.cu`` (bf16
-  on the tensor cores, with its own two-dot schedule); plain version
-  ``bilstm_center_plain``;
+  on the tensor cores, with its own two-dot schedule; fp32 on the fp32
+  core, ``csrc/lstm_f32.cuh``); plain version ``bilstm_center_plain``;
 - K4, ``_run_layer`` (Pallas ``_layer_kernel``): one layer, both lanes, a
-  launch, for every other T or when the caller forces it. CUDA:
-  ``csrc/bilstm_layer.cu``; plain versions ``layer_plain`` (one layer)
-  and ``bilstm_layered_plain`` (the layer loop);
+  launch, for every other T or when the caller forces it, each lane
+  stopping at its readout step (``cone``). CUDA: ``csrc/bilstm_layer.cu``
+  (bf16 on the tensor cores, fp32 on the fp32 core); plain versions
+  ``layer_plain`` (one layer) and ``bilstm_layered_plain`` (the layer
+  loop, all T steps at even T, as in JAX);
 - K5a-c, K1's function under the three other schedules of
   ``bilstm_fused_center_mono``, reached through ``bilstm_center_mono``'s
   flags as in JAX: ``merged_gemm`` (``_mono_merged_kernel``, CUDA
@@ -22,11 +24,15 @@ and its two kernels:
 
 In bf16, K1, K4 and K5a-c are tensor-core kernels (``csrc/lstm_tc.cuh``:
 ``wgmma`` chains on the tensor cores, 64 windows a tile; hidden 105-128
-over thread-block clusters, see ``TC_MAX_HP``). This module also
-holds ``pack_bilstm_params`` (the weight operand of K1, K4 fp32 and K5:
-TF ``(in+H, 4H)`` kernels of every layer and lane in one flat buffer,
-i/f/o columns pre-halved in bf16 mode; in bf16 also the padded,
-gate-permuted tensor-core layout, ``tc_pack_layer``) and the public wrapper
+over thread-block clusters, see ``TC_MAX_HP``). In fp32, K1 and K4 run
+the fp32 core (``csrc/lstm_f32.cuh``: each layer's weights resident in
+shared memory, split by units over a thread-block cluster, see
+``f32_shape``). This module also holds ``pack_bilstm_params`` (the
+weight operand of K5 fp32: TF ``(in+H, 4H)`` kernels of every layer and
+lane in one flat buffer, i/f/o columns pre-halved in bf16 mode; in bf16
+also the padded, gate-permuted tensor-core layout, ``tc_pack_layer``; in
+fp32 also the gate-interleaved layout of the fp32 core,
+``f32_pack_layer``) and the public wrapper
 ``bilstm_center_features``, which routes as the JAX package does. A CPU
 tensor goes to the plain version of the chosen kernel; a CUDA tensor
 launches the kernel or raises. The chip smoke test holds each kernel
@@ -55,10 +61,19 @@ _SEQ_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16}
 # largest T the mono kernel (K1) takes: odd T only, T//2+1 <= 13 steps.
 # Every other T goes to the layered kernel (K4), as in the TPU package
 MAX_TIMESTEPS = 25
-# default windows per block of the CUDA-core kernels (a multiple of 8).
-# chip_smoke.py's sweep on an H100 at H=100 measured 24 fastest for K1 in
-# fp32 (two blocks of 300 threads fit an SM)
-TILE_B = 24
+# default windows per tile of K1 and K4 in fp32 (the fp32 core, a
+# multiple of 8): chip_smoke.py's sweep on an H100 at H=100 (PERF.md §6).
+# ``f32_shape`` steps it down where it does not fit
+TILE_B = 40
+# the fp32 core (csrc/lstm_f32.cuh): a layer-lane's [Wx; Wh] weights stay
+# in shared memory, split by units over a thread-block cluster of
+# F32_SPLITS CTAs (the fewest that hold them beside the operand rings);
+# thread (u, g) owns one unit for 8 windows; at most F32_MAX_THREADS
+# threads a CTA; hidden up to F32_MAX_HIDDEN (the JAX fused kernels' LANE,
+# as TC_MAX_HP)
+F32_SPLITS = (1, 2, 4)
+F32_MAX_THREADS = 256
+F32_MAX_HIDDEN = 128
 # the bf16 tensor-core kernels (K1, K4 and K5a-c, csrc/lstm_tc.cuh) take 64
 # windows a tile (the wgmma M) and no other tile, with 256 threads (two
 # warpgroups) a block; H is padded to Hp, a multiple of 8, at most
@@ -77,11 +92,12 @@ TC_ONE_BLOCK_HP = 104
 # flags): "mono" is K1, the other three K5a-c
 SCHEDULES = ("mono", "merged", "pregemm", "wavefront")
 GATE_STORES = ("fp32", "bf16")
-# default windows per block by kernel and precision: each schedule's, the
-# fastest in chip_smoke.py's sweep over 8/16/24 on an H100 at H=100, 3
-# layers, T=21 (fp32 K5c takes 16 at most there: 600 threads), K4's
-# ("layered") K1's, and TC_TILE_B, the only tile, for K1, K4 and K5a-c in
-# bf16 (a K1 caller's TILE_B becomes TC_TILE_B there: ``_mono_tile``)
+# default windows per block by kernel and precision: for K5a-c in fp32
+# each schedule's, the fastest in chip_smoke.py's sweep over 8/16/24 on an
+# H100 at H=100, 3 layers, T=21 (fp32 K5c takes 16 at most there: 600
+# threads); K1 and K4 ("layered") in fp32 TILE_B, the fp32 core's (where
+# it fits: ``f32_shape``); TC_TILE_B, the only tile, for K1, K4 and K5a-c
+# in bf16 (a K1 caller's TILE_B becomes TC_TILE_B there: ``_mono_tile``)
 SCHEDULE_TILE_B = {
     "mono": {"fp32": TILE_B, "bf16": TC_TILE_B},
     "merged": {"fp32": 16, "bf16": TC_TILE_B},
@@ -124,6 +140,17 @@ def use_mono(timesteps: int, mono: Optional[bool] = None) -> bool:
             f"the mono kernel takes odd T <= {MAX_TIMESTEPS}, got "
             f"{timesteps}; pass mono=None or False for the layered kernel")
     return bool(mono)
+
+
+def cone(timesteps: int) -> Tuple[int, int, int]:
+    """(steps, fw readout step, bw readout step) of the readout cone at
+    any T: every layer of the fw lane needs steps 0..T//2 only, and of the
+    time-reversed bw lane 0..T-1-T//2 (one fewer at even T), since a lane's
+    layer reads only the layer below in the same lane. K4 runs fw_step+1
+    and bw_step+1 steps a layer and sizes its sequences for ``steps`` =
+    T//2+1; at odd T this is ``readout``."""
+    center = timesteps // 2
+    return center + 1, center, timesteps - 1 - center
 
 
 def readout(timesteps: int) -> Tuple[int, int, int]:
@@ -370,6 +397,109 @@ def tc_threads(schedule: str, hidden: int) -> int:
     return TC_THREADS // (1 if schedule == "pregemm" else tc_split(hidden))
 
 
+def f32_units(hidden: int) -> int:
+    """Units of the fp32 core's packed weights: ``hidden`` rounded up to a
+    multiple of 4 (the widest split), zero-padded
+    (``lstm_f32.cuh::packed_units``)."""
+    return -(-hidden // 4) * 4
+
+
+def f32_pack_layer(w: torch.Tensor, b: torch.Tensor, in_dim: int,
+                   hidden: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer-lane's fp32 (w, b) as ``layer_weights`` gives them, in the
+    fp32 core's gate-interleaved layout: row k of [Wx; Wh] (TF's row order)
+    holds each unit's (i, j, f, o) adjacently, ``(in+H, Hp4, 4)`` flat with
+    zeros for the padded units (``f32_units``), so a CTA of a split loads
+    its units' 16-byte vectors of each row; the bias as ``(Hp4, 4)``."""
+    hp4 = f32_units(hidden)
+    rows = in_dim + hidden
+    wp = torch.zeros(rows, hp4, 4, dtype=w.dtype, device=w.device)
+    wp[:, :hidden] = w.reshape(rows, 4, hidden).transpose(1, 2)
+    bias = torch.zeros(hp4, 4, dtype=torch.float32, device=b.device)
+    bias[:hidden] = b.reshape(4, hidden).t()
+    return wp.reshape(-1), bias
+
+
+def f32_smem(in_max: int, hidden: int, split: int, tile: int) -> int:
+    """Shared-memory bytes of one CTA of the fp32 core
+    (``lstm_f32.cuh::smem_bytes``): its units' weights of the widest layer
+    plus a spare row, the h ring (2 x [H][tile]), the x ring (2 x
+    [in_max][tile]) and a spare operand row."""
+    units = -(-hidden // split)
+    return ((in_max + hidden + 1) * units * 16
+            + (2 * hidden + 2 * in_max + 1) * tile * 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Shape:
+    """A launch of the fp32 core: ``split`` CTAs a cluster, ``tile``
+    windows a cluster, ``threads`` and ``smem`` bytes a CTA."""
+
+    split: int
+    tile: int
+    threads: int
+    smem: int
+
+
+def f32_shape(in_dim: int, hidden: int,
+              tile_b: Optional[int] = None) -> F32Shape:
+    """The fp32 core's launch at this width (K1 and K4 size their CTAs by
+    the widest layer, ``max(in_dim, hidden)``): the tile ``tile_b``, by
+    default the largest up to ``TILE_B`` at which some split fits, and the
+    fewest CTAs of ``F32_SPLITS`` that hold the weights and operands at
+    that tile.
+    Raises ``ValueError`` for what no launch takes: hidden over
+    ``F32_MAX_HIDDEN``, a tile that is not a multiple of 8, more than
+    ``F32_MAX_THREADS`` threads or ``MAX_SMEM`` bytes a CTA."""
+    if hidden > F32_MAX_HIDDEN:
+        raise ValueError(
+            f"the fp32 kernels (K1, K4) take hidden <= {F32_MAX_HIDDEN} "
+            f"(the JAX fused kernels' padded width), got {hidden}")
+    if tile_b is not None and (tile_b <= 0 or tile_b % 8):
+        raise ValueError(f"tile_b must be a positive multiple of 8: {tile_b}")
+    in_max = max(in_dim, hidden)
+    tiles = [tile_b] if tile_b is not None else range(TILE_B, 0, -8)
+    for tile in tiles:
+        for s in F32_SPLITS:
+            threads = -(-hidden // s) * (tile // 8)
+            smem = f32_smem(in_max, hidden, s, tile)
+            if threads <= F32_MAX_THREADS and smem <= MAX_SMEM:
+                return F32Shape(s, tile, threads, smem)
+    raise ValueError(
+        f"hidden={hidden}, fnum={in_dim}: no fp32 launch of tile "
+        f"{tile_b or 'up to ' + str(TILE_B)} fits {F32_MAX_THREADS} "
+        f"threads and {MAX_SMEM} B of shared memory a CTA in a cluster of "
+        f"{' or '.join(map(str, F32_SPLITS))}")
+
+
+def f32_clusters(config, shape: F32Shape, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of the fp32 core (K4's kernel) at
+    this config and shape: how many clusters of ``shape.split`` CTAs the
+    card holds at once."""
+    import ctypes
+
+    from . import _build
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = _build.library().dmt_bilstm_layer_f32_clusters(
+            max(config.num_input, config.num_hidden), config.num_hidden,
+            shape.tile, shape.split, ctypes.byref(n))
+    _build.check(status, "bilstm fp32 cluster occupancy")
+    return n.value
+
+
+def _check_f32(packed: "PackedBiLSTM", config) -> None:
+    """The fp32 core's packing matches the config."""
+    layers, hp4 = config.num_layers, f32_units(config.num_hidden)
+    want = 2 * sum((config.num_input if layer == 0 else config.num_hidden)
+                   + config.num_hidden for layer in range(layers)) * hp4 * 4
+    if (packed.f32_w is None or packed.f32_w.numel() != want
+            or packed.f32_bias.shape != (layers, 2, hp4, 4)):
+        raise ValueError("packed fp32-core weights do not match the model "
+                         "config")
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedBiLSTM:
     """A BiLSTM's recurrent weights in the CUDA kernels' operand layouts.
@@ -377,8 +507,10 @@ class PackedBiLSTM:
     ``w``: flat, [lane][layer] TF kernels ``(in+H, 4H)`` in the sequence
     dtype; ``bias``: ``(2, layers, 4H)`` fp32; in bf16 also ``tc_w``:
     flat, [layer][lane] ``tc_pack_layer`` weights, and ``tc_bias``:
-    ``(layers, 2, Hp, 4)`` fp32 (K1, K4 and K5a-c); ``params`` keeps the
-    source dict for the plain version."""
+    ``(layers, 2, Hp, 4)`` fp32 (K1, K4 and K5a-c); in fp32 also ``f32_w``:
+    flat, [layer][lane] ``f32_pack_layer`` weights, and ``f32_bias``:
+    ``(layers, 2, Hp4, 4)`` fp32 (K1 and K4); ``params`` keeps the source
+    dict for the plain version."""
 
     w: torch.Tensor
     bias: torch.Tensor
@@ -386,6 +518,8 @@ class PackedBiLSTM:
     params: Dict[str, Any]
     tc_w: Optional[torch.Tensor] = None
     tc_bias: Optional[torch.Tensor] = None
+    f32_w: Optional[torch.Tensor] = None
+    f32_bias: Optional[torch.Tensor] = None
 
 
 def pack_bilstm_params(params: Dict[str, Any], config,
@@ -413,8 +547,23 @@ def pack_bilstm_params(params: Dict[str, Any], config,
         tc_w = torch.cat(tws).contiguous()
         tc_bias = torch.stack(tbs).reshape(
             config.num_layers, 2, *tbs[0].shape).contiguous()
+    f32_w = f32_bias = None
+    if precision == "fp32":
+        fws, fbs = [], []
+        for layer in range(config.num_layers):
+            lin = config.num_input if layer == 0 else config.num_hidden
+            for lane in ("fw", "bw"):
+                fw_, fb_ = f32_pack_layer(
+                    *layer_weights(params[lane][layer], precision), lin,
+                    config.num_hidden)
+                fws.append(fw_)
+                fbs.append(fb_)
+        f32_w = torch.cat(fws).contiguous()
+        f32_bias = torch.stack(fbs).reshape(
+            config.num_layers, 2, *fbs[0].shape).contiguous()
     return PackedBiLSTM(w=w, bias=bias, precision=precision, params=params,
-                        tc_w=tc_w, tc_bias=tc_bias)
+                        tc_w=tc_w, tc_bias=tc_bias, f32_w=f32_w,
+                        f32_bias=f32_bias)
 
 
 def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
@@ -491,13 +640,16 @@ def mono_block(config, schedule: str, tile_b: int,
     """(threads, most threads the kernel takes, shared-memory bytes) of one
     block of a mono schedule, as its CUDA launcher sizes it. In bf16, all
     four are tensor-core kernels (one CTA's ``tc_threads`` and ``tc_smem``,
-    64 windows, any other ``tile_b`` refused). In fp32, K1 and K5b hold the
-    sequence and the staged inputs; K5a adds its [x; h] operand buffer; K5c
-    holds the staged inputs and a 2-row h ring a layer, with one thread
-    group a layer."""
+    64 windows, any other ``tile_b`` refused). In fp32, K1 is the fp32
+    core's CTA at ``f32_shape``; K5b holds the sequence and the staged
+    inputs; K5a adds its [x; h] operand buffer; K5c holds the staged inputs
+    and a 2-row h ring a layer, with one thread group a layer."""
     if tensor_core(schedule, precision):
         threads = tc_threads(schedule, config.num_hidden)
         return threads, threads, tc_smem(config, schedule)
+    if schedule == "mono":
+        shape = f32_shape(config.num_input, config.num_hidden, tile_b)
+        return shape.threads, F32_MAX_THREADS, shape.smem
     h, f, layers = config.num_hidden, config.num_input, config.num_layers
     steps = config.timesteps // 2 + 1
     size = _itemsize(precision)
@@ -524,6 +676,8 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
     from . import _build
 
     precision = packed.precision
+    if schedule == "mono" and precision == "fp32":
+        return _launch_mono_f32(packed, x, config, tile_b)
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
     steps = timesteps // 2 + 1
@@ -582,6 +736,40 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
     return out
 
 
+def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
+                     tile_b: Optional[int]) -> torch.Tensor:
+    """K1 in fp32 on the fp32 core: every layer of a lane in one launch, a
+    cluster of ``f32_shape``'s split a tile-lane, with an fp32 workspace
+    for the inter-layer rows, (ceil(B/tile), 2, T//2+1, H * tile), each
+    layer overwriting the one before in place."""
+    from . import _build
+
+    timesteps, hidden = config.timesteps, config.num_hidden
+    in_dim, layers = config.num_input, config.num_layers
+    _check_f32(packed, config)
+    shape = f32_shape(in_dim, hidden, tile_b)
+    x = _check_inputs(packed, x, config, shape.tile, shape.smem,
+                      shape.threads, F32_MAX_THREADS)
+    batch = x.shape[0]
+    out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
+                      device=x.device)
+    if batch == 0:
+        return out
+    tiles = -(-batch // shape.tile)
+    ws = torch.empty(tiles * 2 * (timesteps // 2 + 1) * hidden * shape.tile,
+                     dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        status = _build.library().dmt_bilstm_center_f32(
+            x.data_ptr(), *x.stride(), batch, timesteps, in_dim, hidden,
+            layers, packed.f32_w.data_ptr(), packed.f32_bias.data_ptr(),
+            config.forget_bias, ws.data_ptr(), out.data_ptr(), shape.tile,
+            shape.split, stream)
+    _build.check(status, "bilstm mono kernel launch")
+    LAUNCHES["fp32"] += 1
+    return out
+
+
 def pregemm_slots(batch: int, in_dim: int, hidden: int, gate_store: str,
                   device) -> int:
     """The persistent grid of bf16 K5b at this shape and gate store: the
@@ -623,67 +811,65 @@ def tc_clusters(schedule: str, config, device) -> int:
 
 
 def _launch_layered(packed: PackedBiLSTM, x: torch.Tensor, config,
-                    tile_b: int = TILE_B) -> torch.Tensor:
-    """K4: one launch a layer, both lanes. Layer 0 reads the windows
-    through their strides; each later layer reads the (2, steps, B, H)
-    sequences of the one before; the last writes the (B, 2H) features.
-    bf16 goes to the tensor-core kernel (``_launch_layered_tc``)."""
+                    tile_b: Optional[int] = None) -> torch.Tensor:
+    """K4: one launch a layer, both lanes, each lane stopping at its
+    readout step (``cone``). Layer 0 reads the windows through their
+    strides; each later layer reads the blocked sequences of the one
+    before, (2, T//2+1, ceil(B/tile), H * tile) fp32, each tile's row
+    [H][tile] (the bw lane kept time-reversed); the last writes the (B,
+    2H) features. fp32 runs the fp32 core at ``f32_shape``'s launch; bf16
+    goes to the tensor-core kernel (``_launch_layered_tc``)."""
     from . import _build
 
     if tensor_core("layered", packed.precision):
-        return _launch_layered_tc(packed, x, config, tile_b)
-    precision = packed.precision
+        return _launch_layered_tc(packed, x, config,
+                                  TC_TILE_B if tile_b is None else tile_b)
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
-    dt = seq_dtype(precision)
-    x = _check_inputs(packed, x, config, tile_b,
-                      (hidden + max(in_dim, hidden)) * tile_b
-                      * _itemsize(precision))
-    steps, fw_step, bw_step = readout(timesteps)
+    _check_f32(packed, config)
+    shape = f32_shape(in_dim, hidden, tile_b)
+    x = _check_inputs(packed, x, config, shape.tile, shape.smem,
+                      shape.threads, F32_MAX_THREADS)
+    steps, fw_step, bw_step = cone(timesteps)
     batch = x.shape[0]
     out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
                       device=x.device)
     if batch == 0:
         return out
     lib = _build.library()
-    fn = (lib.dmt_bilstm_layer_bf16 if precision == "bf16"
-          else lib.dmt_bilstm_layer_f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    w_lane, b_lane = _lane_weights(config), layers * 4 * hidden
-    w_size = packed.w.element_size()
-    src, strides, in_steps = x, (0, *x.stride()), timesteps
-    w_off = 0
+    hp4 = f32_units(hidden)
+    tiles = -(-batch // shape.tile)
+    src, in_steps, w_off = None, timesteps, 0
     with torch.cuda.device(x.device):
         for layer in range(layers):
             lin = in_dim if layer == 0 else hidden
             final = layer == layers - 1
             seq = None if final else torch.empty(
-                2, steps, batch, hidden, dtype=dt, device=x.device)
-            status = fn(
-                src.data_ptr(), *strides, int(layer == 0), batch, in_steps,
-                steps, lin, hidden, packed.w.data_ptr() + w_off * w_size,
-                w_lane, packed.bias[0, layer].data_ptr(), b_lane,
-                _forget_term(config.forget_bias, precision),
+                2, steps, tiles, hidden * shape.tile, dtype=torch.float32,
+                device=x.device)
+            status = lib.dmt_bilstm_layer_f32(
+                x.data_ptr(), *x.stride(), int(src is None),
+                None if src is None else src.data_ptr(), batch, in_steps,
+                steps, lin, hidden, packed.f32_w.data_ptr() + 4 * w_off,
+                packed.f32_bias[layer].data_ptr(), config.forget_bias,
                 None if final else seq.data_ptr(),
                 out.data_ptr() if final else None, fw_step, bw_step,
-                tile_b, stream,
-            )
+                shape.tile, shape.split, stream)
             _build.check(status, f"bilstm layer kernel launch (layer {layer})")
-            LAYERED_LAUNCHES[precision] += 1
-            w_off += (lin + hidden) * 4 * hidden
-            if not final:
-                # (lane, step, window, unit): the bw lane stays reversed
-                src, in_steps = seq, steps
-                strides = (steps * batch * hidden, hidden, batch * hidden, 1)
+            LAYERED_LAUNCHES["fp32"] += 1
+            w_off += 2 * (lin + hidden) * hp4 * 4
+            src, in_steps = seq, steps
     return out
 
 
 def _launch_layered_tc(packed: PackedBiLSTM, x: torch.Tensor, config,
                        tile_b: int) -> torch.Tensor:
     """K4 in bf16 on the tensor cores: one launch a layer, both lanes, 64
-    windows a block. Between layers the sequence is blocked, (2, steps,
-    ceil(B/64), 64 * Hp) bf16, each tile's row in the kernel's operand
-    layout (the bw lane kept time-reversed, as in fp32)."""
+    windows a block, each lane stopping at its readout step (``cone``).
+    Between layers the sequence is blocked, (2, T//2+1, ceil(B/64), 64 *
+    Hp) bf16, each tile's row in the kernel's operand layout (the bw lane
+    kept time-reversed, as in fp32)."""
     from . import _build
 
     timesteps, hidden = config.timesteps, config.num_hidden
@@ -692,7 +878,7 @@ def _launch_layered_tc(packed: PackedBiLSTM, x: torch.Tensor, config,
     threads = tc_threads("layered", hidden)
     x = _check_inputs(packed, x, config, tile_b, tc_smem(config), threads,
                       threads)
-    steps, fw_step, bw_step = readout(timesteps)
+    steps, fw_step, bw_step = cone(timesteps)
     batch = x.shape[0]
     out = torch.empty(batch, 2 * hidden, dtype=torch.float32,
                       device=x.device)
@@ -770,17 +956,15 @@ def bilstm_center_features(
     if packed is None:
         packed = pack_bilstm_params(raw, config, precision)
     if not mono:
-        if tile_b is None:
-            tile_b = SCHEDULE_TILE_B["layered"][precision]
         return _launch_layered(packed, x, config, tile_b)
     return _launch_mono(packed, x, config, _mono_tile(tile_b, precision))
 
 
-def _mono_tile(tile_b: Optional[int], precision: str) -> int:
-    """K1's tile: ``SCHEDULE_TILE_B`` by default; in bf16 the CUDA-core
-    default ``TILE_B`` reads as the tensor-core tile, 64."""
-    if tile_b is None or (precision == "bf16" and tile_b == TILE_B):
-        return SCHEDULE_TILE_B["mono"][precision]
+def _mono_tile(tile_b: Optional[int], precision: str) -> Optional[int]:
+    """K1's tile: in fp32 ``tile_b`` as given (None: ``f32_shape``'s);
+    in bf16 64, which the fp32 default ``TILE_B`` also reads as."""
+    if precision == "bf16" and (tile_b is None or tile_b == TILE_B):
+        return TC_TILE_B
     return tile_b
 
 

@@ -2,6 +2,7 @@
 
     python -m deepmod_tpu_torch.tools.stamp_steps k1 [--out DIR]
     python -m deepmod_tpu_torch.tools.stamp_steps k3 [--out DIR]
+    python -m deepmod_tpu_torch.tools.stamp_steps k1f32 | k4f32 [--out DIR]
 
 Copies the package into ``DIR`` (default ``build/stamp_steps``, ignored by
 git), inserts ``clock64()`` stamps at fixed points of one kernel's step
@@ -15,7 +16,16 @@ with nvcc in a build directory of its own and runs it in a child process:
 - ``k3``: K3's recurrence (``csrc/bilstm_train.cu::train_bwd_kernel``) at
   H=100, batch 2,048, layer 1 fp32; stamps after the cell's backward,
   the first barrier, the dh product, the reduce-scatter, the second
-  barrier.
+  barrier;
+- ``k1f32`` / ``k4f32``: the fp32 core's step (``csrc/lstm_f32.cuh::
+  run_layer``), in K1 fp32 at H=100, T=21 or in K4 fp32 at T=20, on
+  262,144 windows, layers 1-2 of the watched tile-lane (CTA 0 of its
+  cluster); stamps after the operand issue (x_{t+1}), the product, the
+  cell, the h exchange through distributed shared memory with x_{t+1}
+  completed and the cluster barrier's arrive, the step's global stores,
+  the barrier's wait. The core is a header that K1's and K4's sources
+  both include: the stamps are compiled only into the watched kernel's
+  source (``DMT_STAMP`` defined there). Prints the kernel's time.
 
 Prints the cycles of each span for steps 1-10 and their mean. Needs a
 CUDA GPU and nvcc. The stamps cost a few instructions a step, so the
@@ -81,19 +91,59 @@ KERNELS = {
 }
 
 
+# the fp32 core's step (csrc/lstm_f32.cuh::run_layer), which K1 and K4
+# share: (anchor, stamp index, where) as above
+F32_ANCHORS = [
+    ("  for (int t = 0; t < L.steps; ++t) {\n", 0, "after"),
+    ("    float acc[4][kR];\n", 1, "before"),
+    ("    float h[kR];\n", 2, "before"),
+    ("    const int at = s * sm.h_slot", 3, "before"),
+    ("    // the step's global stores, while the barrier settles\n", 4,
+     "before"),
+    ("    if constexpr (kCluster) {\n      tc::cluster_wait();", 5, "before"),
+    ("      tc::cluster_wait();\n    } else {\n      __syncthreads();\n"
+     "    }\n", 6, "after"),
+]
+for _name, _host in (("k1f32", "bilstm_fused.cu"),
+                     ("k4f32", "bilstm_layer.cu")):
+    # an eighth field: the source that includes the header and watches
+    KERNELS[_name] = (
+        "lstm_f32.cuh",
+        "__device__ __forceinline__ void run_layer(const Smem& sm",
+        "// runtime split -> F(kSplit)",
+        "blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 && "
+        "L.in_dim == L.hidden", "t", F32_ANCHORS,
+        ["operand issue", "product", "cell",
+         "h exchange + x complete + arrive", "global stores",
+         "barrier wait"], _host)
+
+
 def patch(kernel: str, text: str) -> str:
     """The source ``text`` of ``kernel`` with the stamps inserted; raises
-    if an anchor is missing or not unique (the source changed)."""
-    _, start, end, cond, step, anchors, _ = KERNELS[kernel]
-    text = text.replace("namespace {\n", DECL, 1)
+    if an anchor is missing or not unique (the source changed). In a
+    header (the fp32 core) the stamps and their buffer compile only where
+    ``DMT_STAMP`` is defined."""
+    _, start, end, cond, step, anchors = KERNELS[kernel][:6]
+    header = KERNELS[kernel][0].endswith(".cuh")
+    if header:
+        text = text.replace(
+            "#pragma once\n", "#pragma once\n#ifdef DMT_STAMP"
+            + DECL.replace("namespace {\n", "") + "#endif\n", 1)
+    else:
+        text = text.replace("namespace {\n", DECL, 1)
     i, j = text.index(start), text.index(end)
     body = text[i:j]
     first = anchors[0][0]
-    body = body.replace(first, f"  const bool watch = {cond};\n" + first, 1)
+    watch = f"  const bool watch = {cond};\n"
+    if header:
+        watch = f"#ifdef DMT_STAMP\n{watch}#endif\n"
+    body = body.replace(first, watch + first, 1)
     for anchor, k, where in anchors:
         if body.count(anchor) != 1:
             raise ValueError(f"{kernel}: anchor not found once: {anchor!r}")
         stamp = _st(k, step)
+        if header:
+            stamp = f"#ifdef DMT_STAMP\n{stamp}#endif\n"
         if where == "after":
             new = anchor + stamp
         elif where == "before":
@@ -116,6 +166,12 @@ def make_copy(kernel: str, out: str) -> str:
         text = fh.read()
     with open(src, "w") as fh:
         fh.write(patch(kernel, text))
+    if len(KERNELS[kernel]) > 7:  # the source that watches the header
+        host = os.path.join(dst, "csrc", KERNELS[kernel][7])
+        with open(host) as fh:
+            text = fh.read()
+        with open(host, "w") as fh:
+            fh.write("#define DMT_STAMP 1\n" + text)
     return out
 
 
@@ -149,7 +205,22 @@ def _run_child(kernel: str) -> None:
             out.append(a.elapsed_time(b))
         return statistics.median(out)
 
-    if kernel == "k1":
+    if kernel in ("k1f32", "k4f32"):
+        from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+        cfg = BiLSTMConfig(timesteps=21 if kernel == "k1f32" else 20)
+        params = init_bilstm_params(2024, cfg, device=dev)
+        packed = ops.pack_bilstm_params(params, cfg, "fp32")
+        x = torch.from_numpy(np.random.default_rng(2024).standard_normal(
+            (262144, cfg.timesteps, cfg.num_input), dtype=np.float32)).to(dev)
+        mono = None if kernel == "k1f32" else False
+        ms = time_ms(lambda: ops.bilstm_center_features(
+            packed, x, cfg, "fp32", mono=mono))
+        print(f"{kernel[:2].upper()} fp32 T={cfg.timesteps} B=262144 at "
+              f"{ops.f32_shape(cfg.num_input, cfg.num_hidden)}: {ms:.3f} ms")
+        ops.bilstm_center_features(packed, x, cfg, "fp32", mono=mono)
+        steps = range(1, 10)
+    elif kernel == "k1":
         from deepmod_tpu_torch.ops import bilstm_fused as ops
 
         packed = ops.pack_bilstm_params(params, cfg, "bf16")

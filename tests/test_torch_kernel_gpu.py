@@ -2,7 +2,9 @@
 plain versions, on the card. In bf16, K1, K4 and K5a-c are the
 tensor-core kernels (``csrc/lstm_tc.cuh``, 64 windows a tile; hidden
 105-128 over 2-CTA clusters in K1, K4, K5a and K5c, K5c a cluster of one
-CTA a layer).
+CTA a layer). In fp32, K1 and K4 run the fp32 core (``csrc/lstm_f32.cuh``,
+a layer's weights resident over a cluster of 1, 2 or 4 CTAs), and K4
+runs every T over the readout cone only.
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -76,6 +78,8 @@ def test_kernel_reads_overlapping_window_view(cuda, precision):
 
 @pytest.mark.parametrize("tile_b", [8, 16, 40])
 def test_kernel_tiles_agree(cuda, tile_b):
+    """K1 fp32 on the fp32 core gives the same bits at every tile (each
+    gate one thread's ordered fmaf chain, whatever the tile)."""
     cfg = BiLSTMConfig(num_input=7)
     params = init_bilstm_params(4, cfg, device=cuda)
     x = torch.from_numpy(np.random.default_rng(4).standard_normal(
@@ -388,8 +392,9 @@ def test_fp32_pregemm_and_wavefront_unchanged(cuda):
 
 
 def test_fp32_merged_and_layered_unchanged(cuda):
-    """The fp32 bodies of K5a and K4 are the CUDA-core kernels as before:
-    K5a gives K1's bits, K4 (forced at T=21) K1's features within 2e-5."""
+    """K5a fp32 (the CUDA-core body) gives the bits of K1 fp32 (the fp32
+    core: the same fmaf chains), K4 fp32 (forced at T=21) K1's features
+    within 2e-5."""
     cfg = BiLSTMConfig(num_input=7)
     params = init_bilstm_params(12, cfg, device=cuda)
     x = torch.from_numpy(np.random.default_rng(12).standard_normal(
@@ -400,6 +405,95 @@ def test_fp32_merged_and_layered_unchanged(cuda):
     torch.cuda.synchronize()
     assert torch.equal(k5a, k1)
     torch.testing.assert_close(k4, k1, **TOL["fp32"])
+
+
+# ---------------------------------------------------------------- the fp32 core
+
+@pytest.mark.parametrize("hidden", [100, 128])
+def test_k1_fp32_core_matches_plain_and_k5a(cuda, hidden):
+    """K1 fp32 on the fp32 core (a 2-CTA cluster a tile-lane at H=100, 4
+    at H=128) against its plain version (2e-5) and against K5a fp32 (the
+    same fmaf chains: the same bits; the max abs is printed), on 1,001
+    random windows (no multiple of the tile) and on the window view of a
+    row block, read in place."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden)
+    assert ops.f32_shape(7, hidden).split == (2 if hidden == 100 else 4)
+    params = init_bilstm_params(hidden, cfg, device=cuda)
+    gen = np.random.default_rng(hidden)
+    x = torch.from_numpy(gen.standard_normal((1001, 21, 7),
+                                             dtype=np.float32)).to(cuda)
+    rows = torch.from_numpy(gen.standard_normal((1021, 7),
+                                                dtype=np.float32)).to(cuda)
+    view = rows.as_strided((1001, 21, 7), (7, 7, 1))
+    for inp in (x, view):
+        before = ops.LAUNCHES["fp32"]
+        got = ops.bilstm_center_features(params, inp, cfg, "fp32")
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["fp32"] == before + 1
+        want = ops.bilstm_center_plain(params, inp, cfg, "fp32")
+        torch.testing.assert_close(got, want, **TOL["fp32"])
+        k5a = ops.bilstm_center_mono(params, inp, cfg, "fp32",
+                                     merged_gemm=True)
+        torch.cuda.synchronize()
+        print(f"K1 fp32 vs K5a fp32, H={hidden}: max abs "
+              f"{float((got - k5a).abs().max()):.3e}")
+        assert torch.equal(got, k5a)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("timesteps", [20, 21, 22, 31, 64])
+def test_layered_cone_at_hidden_128(cuda, precision, timesteps):
+    """K4 at H=128 (fp32: the fp32 core's 4-CTA clusters; bf16: 2-CTA
+    tensor-core clusters) over the readout cone, against the plain
+    version, which runs all T at even T; T=21 forced (mono=False)."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=128, timesteps=timesteps,
+                       num_layers=2 if timesteps == 64 else 3)
+    params = init_bilstm_params(timesteps, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(timesteps).standard_normal(
+        (300, timesteps, 7), dtype=np.float32)).to(cuda)
+    x = x.to(ops.seq_dtype(precision))
+    got = ops.bilstm_center_features(params, x, cfg, precision, mono=False)
+    torch.cuda.synchronize()
+    want = ops.bilstm_layered_plain(params, x, cfg, precision)
+    torch.testing.assert_close(got, want, **TOL[precision])
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K4"])
+def test_fp32_core_launches_agree(cuda, kernel):
+    """K1 and K4 fp32 give the same bits at every tile of the fp32 core
+    at H=100: 8 to 40 windows in 2-CTA clusters, 64 and 80 in 4-CTA
+    ones."""
+    timesteps = 21 if kernel == "K1" else 20
+    cfg = BiLSTMConfig(num_input=7, timesteps=timesteps)
+    params = init_bilstm_params(5, cfg, device=cuda)
+    packed = ops.pack_bilstm_params(params, cfg, "fp32")
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (777, timesteps, 7), dtype=np.float32)).to(cuda)
+    assert [ops.f32_shape(7, 100, t).split for t in (8, 40, 64, 80)] == [
+        2, 2, 4, 4]
+    outs = [ops.bilstm_center_features(packed, x, cfg, "fp32", tile_b=tile,
+                                       mono=kernel == "K1")
+            for tile in (8, 24, ops.TILE_B, 64, 80)]
+    torch.cuda.synchronize()
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+
+
+def test_fp32_core_refuses_what_it_does_not_take(cuda):
+    """Hidden over 128, or a tile that no launch takes, raises
+    ``ValueError`` before any launch; nothing falls back."""
+    wide = BiLSTMConfig(num_input=7, num_hidden=136, num_layers=1)
+    x = torch.zeros(8, 21, 7, device=cuda)
+    params = init_bilstm_params(0, wide, device=cuda)
+    for mono in (None, False):
+        with pytest.raises(ValueError, match="hidden <= 128"):
+            ops.bilstm_center_features(params, x, wide, "fp32", mono=mono)
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(0, cfg, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.bilstm_center_features(params, x, cfg, "fp32", tile_b=12)
+    with pytest.raises(ValueError, match="256 threads"):
+        ops.bilstm_center_features(params, x, cfg, "fp32", tile_b=256)
 
 
 def test_wavefront_rejects_too_many_threads(cuda):

@@ -419,8 +419,8 @@ def test_tc_kernels_refuse_other_tiles_and_widths():
         assert ops.tensor_core(kernel, "bf16")
         assert not ops.tensor_core(kernel, "fp32")
         assert ops.SCHEDULE_TILE_B[kernel]["bf16"] == 64
-    assert ops.SCHEDULE_TILE_B["layered"] == {"fp32": 24, "bf16": 64}
-    assert ops.SCHEDULE_TILE_B["mono"] == {"fp32": 24, "bf16": 64}
+    assert ops.SCHEDULE_TILE_B["layered"] == {"fp32": 40, "bf16": 64}
+    assert ops.SCHEDULE_TILE_B["mono"] == {"fp32": 40, "bf16": 64}
     # K1 in bf16 reads the CUDA-core default tile as the tensor-core tile
     assert ops._mono_tile(ops.TILE_B, "bf16") == 64
     assert ops._mono_tile(None, "bf16") == 64
