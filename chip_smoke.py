@@ -34,12 +34,17 @@ without printing the result line):
    under a mean-scaled cotangent, as the trainer's masked mean gives) and
    bf16 storage (sequences atol 2e-3 + rtol 2e-2, one bf16 step at a
    rounding point; the gradient tree within relative L2 1e-2, cosine
-   0.9999); K3 run twice must give the same bits;
+   0.9999); K2 and K3 run twice must give the same bits; K2 also at
+   batch 2048, 2083, 37 and 5, T = 21 (the readout cone), 20 (all T
+   steps) and 8, hidden 100 and 128 (``K2_CASES``), twice each, and its
+   launch sweep (``K2_SWEEP``: split x tile at batch 2048 and 2083, with
+   the clusters resident, the clusters needed and the waves);
 6. K2, K3 and whole train-step times at 2,048 windows beside their plain
-   versions, cuDNN nn.LSTM forward / backward (K3 and the backward in
-   turns, the median of 3 rounds) and the bound; a torch.profiler split
-   of K3 a layer (recurrence, gate, dx and dW products) and of the train
-   step's device time by kernel, with its idle share;
+   versions, cuDNN nn.LSTM forward / backward (K2 and the forward, K3 and
+   the backward in turns, the median of 3 rounds) and the bound; a
+   torch.profiler split of K3 a layer (recurrence, gate, dx and dW
+   products) and of the train step's device time by kernel, with its
+   idle share;
 7. detect end to end through the CLI over a synthetic pod5 + basecall BAM
    dataset (one 200 kb chromosome, 100 reads of 1.5-3 kb, no h5py) on the
    card at bf16 and fp32, with K1's launch counts read around those runs;
@@ -407,8 +412,9 @@ def f32_sweep_line(cfg, launch, device) -> str:
 
 def f32_build_line() -> str:
     """ptxas's registers and spills of the fp32 core's kernels (K1's
-    ``bilstm_center_f32_kernel`` and K4's ``bilstm_layer_f32_kernel``, one
-    template a split)."""
+    ``bilstm_center_f32_kernel``, K4's ``bilstm_layer_f32_kernel``, one
+    template a split; K2's ``train_fwd_kernel``, one a split and storage
+    type)."""
     import re
 
     from deepmod_tpu_torch.ops import _build
@@ -417,12 +423,16 @@ def f32_build_line() -> str:
     found = []
     for i, line in enumerate(lines):
         m = re.search(r"bilstm_(center|layer)_f32_kernelILi(\d+)E", line)
-        if m and "Compiling entry" in line:
+        m2 = re.search(r"train_fwd_kernelILi(\d+)E(f|13__nv_bfloat16)E",
+                       line)
+        if (m or m2) and "Compiling entry" in line:
             props = [t.split("ptxas info    :")[-1].strip()
                      for t in lines[i + 1:i + 4]
                      if "spill" in t or "registers" in t]
-            found.append(f"{m.group(1)}<split {m.group(2)}>: "
-                         + "; ".join(props))
+            what = (f"{m.group(1)}<split {m.group(2)}>" if m else
+                    f"k2 {'fp32' if m2.group(2) == 'f' else 'bf16'}"
+                    f"<split {m2.group(1)}>")
+            found.append(f"{what}: " + "; ".join(props))
     return " | ".join(found) or "no ptxas log (cached build)"
 
 
@@ -1151,8 +1161,106 @@ def device_time_by_kernel(fn, reps: int = 3) -> tuple:
     return rows, sum(ms for ms, _ in rows)
 
 
+# K2's extra checks beside the train batch's: (batch, T, hidden); odd T
+# runs the readout cone, even T all T steps
+K2_CASES = ((2048, 20, 100), (37, 8, 100), (5, 21, 100), (5, 8, 100),
+            (2048, 21, 128), (2083, 20, 128), (37, 8, 128))
+# K2's launches the sweep times at H=100: (split, tile)
+K2_SWEEP = ((2, 16), (2, 24), (2, 32), (2, 40), (4, 32), (4, 48), (4, 64),
+            (4, 80))
+
+
+def _train_params(cfg, seed, device):
+    """Random weights from ``seed`` with a random bias (the init's bias
+    is zero but for nothing)."""
+    from deepmod_tpu_torch.models.bilstm import init_bilstm_params
+
+    params = init_bilstm_params(seed, cfg, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    for lane in ("fw", "bw"):
+        for lp in params[lane]:
+            lp["bias"] = (0.1 * torch.randn(lp["bias"].shape,
+                                            generator=gen)).to(device)
+    return params
+
+
+def _k2_check(xin, weights, fb, precision: str, what: str) -> float:
+    """K2 against its plain version on the same inputs (fp32 max abs
+    2e-5; bf16 atol 2e-3 + rtol 2e-2), and a second run with the same
+    bits; returns the max abs error."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    hs, cs = tr.train_fwd(xin, weights, fb)
+    hs2, cs2 = tr.train_fwd(xin, weights, fb)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, hs2) and torch.equal(cs, cs2), (
+        f"K2 {precision} {what}: two runs differ")
+    hs_p, cs_p = tr.train_fwd_plain(xin, weights, fb)
+    err = 0.0
+    for got, want in ((hs, hs_p), (cs, cs_p)):
+        got, want = got.float(), want.float()
+        assert torch.isfinite(got).all(), f"K2 {precision} {what}: non-finite"
+        err = max(err, float((got - want).abs().max()))
+        if precision == "fp32":
+            assert err <= 2e-5, f"K2 fp32 {what}: max abs {err}"
+        else:
+            assert torch.allclose(got, want, rtol=2e-2, atol=2e-3), (
+                f"K2 bf16 {what}: max abs {err}")
+    return err
+
+
+def k2_cases_line(precision: str, device) -> tuple:
+    """K2 at each of K2_CASES against its plain version, twice with the
+    same bits: (max abs error, log line)."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    worst, parts = 0.0, []
+    for batch, timesteps, hidden in K2_CASES:
+        cfg = BiLSTMConfig(num_hidden=hidden, timesteps=timesteps)
+        params = _train_params(cfg, SEED + hidden + timesteps, device)
+        _, xin, weights, _ = _train_inputs(cfg, params, batch, precision,
+                                           device)
+        shape = tr.fwd_shape(cfg.num_input, hidden)
+        err = _k2_check(xin, weights, cfg.forget_bias, precision,
+                        f"B={batch} T={timesteps} H={hidden}")
+        worst = max(worst, err)
+        parts.append(f"B={batch} T={timesteps} H={hidden} (split "
+                     f"{shape.split}, tile {shape.tile}) {err:.3e}")
+    return worst, (f"[K2 {precision}] vs plain, twice the same bits: "
+                   + "; ".join(parts))
+
+
+def k2_sweep_line(cfg, params, precision: str, device) -> str:
+    """K2 at each launch of K2_SWEEP at batch 2048 and 2083 (H=100): its
+    threads, shared memory, the clusters the card holds at once, the
+    clusters the batch needs and the waves they make, and the time."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    out = []
+    for batch in (TRAIN_B, TRAIN_B + 35):
+        _, xin, weights, _ = _train_inputs(cfg, params, batch, precision,
+                                           device)
+        got = []
+        for split, tile in K2_SWEEP:
+            shape = tr.fwd_shape(cfg.num_input, cfg.num_hidden, tile, split)
+            resident = tr.fwd_clusters(cfg.num_input, cfg.num_hidden, shape,
+                                       device)
+            need = 2 * -(-batch // tile)
+            ms = time_ms(lambda: tr.train_fwd(xin, weights, cfg.forget_bias,
+                                              tile, split))
+            got.append(f"split {split} tile {tile} ({shape.threads} "
+                       f"threads, {shape.smem} B, {resident} resident, "
+                       f"{need} needed, {need / resident:.2f} waves): "
+                       f"{ms:.4f}")
+        out.append(f"B={batch}: " + "; ".join(got))
+    return (f"[K2 {precision}] shape sweep (ms; default "
+            f"{tr.fwd_shape(cfg.num_input, cfg.num_hidden)}): "
+            + " | ".join(out))
+
+
 def phase_train_kernels(device) -> dict:
-    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
     from deepmod_tpu_torch.models.tf_import import params_from_numpy
     from deepmod_tpu_torch.ops import bilstm_fused_train as tr
     from deepmod_tpu_torch.train.trainer import adam_init, make_train_step
@@ -1160,11 +1268,7 @@ def phase_train_kernels(device) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = BiLSTMConfig()
-    params = init_bilstm_params(SEED + 3, cfg, device=device)
-    gen = torch.Generator().manual_seed(SEED + 3)
-    for lane in ("fw", "bw"):
-        for lp in params[lane]:
-            lp["bias"] = (0.1 * torch.randn(lp["bias"].shape, generator=gen)).to(device)
+    params = _train_params(cfg, SEED + 3, device)
     fb = cfg.forget_bias
     results = {}
     for precision in ("fp32", "bf16"):
@@ -1172,19 +1276,9 @@ def phase_train_kernels(device) -> dict:
         for batch in (TRAIN_B, TRAIN_B + 35):
             _, xin, weights, dh = _train_inputs(cfg, params, batch, precision,
                                                 device)
+            err_fwd = max(err_fwd, _k2_check(xin, weights, fb, precision,
+                                             f"B={batch}"))
             hs, cs = tr.train_fwd(xin, weights, fb)
-            torch.cuda.synchronize()
-            hs_p, cs_p = tr.train_fwd_plain(xin, weights, fb)
-            for got, want in ((hs, hs_p), (cs, cs_p)):
-                got, want = got.float(), want.float()
-                assert torch.isfinite(got).all(), f"K2 {precision}: non-finite"
-                err = float((got - want).abs().max())
-                err_fwd = max(err_fwd, err)
-                if precision == "fp32":
-                    assert err <= 2e-5, f"K2 fp32 B={batch}: {err}"
-                else:
-                    assert torch.allclose(got, want, rtol=2e-2, atol=2e-3), (
-                        f"K2 bf16 B={batch}: max abs {err}")
             got = _bwd_all(tr.train_bwd, xin, hs, cs, dh, weights, fb)
             again = _bwd_all(tr.train_bwd, xin, hs, cs, dh, weights, fb)
             torch.cuda.synchronize()
@@ -1206,20 +1300,31 @@ def phase_train_kernels(device) -> dict:
                 assert rel <= 1e-2 and cos >= 0.9999, (rel, cos)
             log(f"[K2/K3 {precision}] B={batch} K2 max_abs_err={err_fwd:.3e} "
                 f"K3 max_abs_err={err_bwd:.3e} grad rel_l2={rel:.3e} "
-                f"cos={cos:.8f}; K3 twice: same bits")
-            del hs, cs, hs_p, cs_p, got, again, want
+                f"cos={cos:.8f}; K2 and K3 twice: same bits")
+            del hs, cs, got, again, want
+        err_cases, line = k2_cases_line(precision, device)
+        err_fwd = max(err_fwd, err_cases)
+        log(line)
+        log(k2_sweep_line(cfg, params, precision, device))
 
         # times at the train batch
         x, xin, weights, dh = _train_inputs(cfg, params, TRAIN_B, precision,
                                             device)
         hs, cs = tr.train_fwd(xin, weights, fb)
-        k2_ms = time_ms(lambda: tr.train_fwd(xin, weights, fb))
         k2_plain = time_ms(lambda: tr.train_fwd_plain(xin, weights, fb))
         k3_plain = time_ms(lambda: _bwd_all(tr.train_bwd_plain, xin, hs, cs,
                                             dh, weights, fb))
         lib = cudnn_lstms(params, cfg, precision, device, train=True)
         xl = x.to(lib[0].weight_ih_l0.dtype).requires_grad_(True)
-        lib_fwd_ms = time_ms(lambda: cudnn_center(lib, xl, cfg))
+        # K2 and cuDNN's forward (training mode, over the readout cone) in
+        # turns, the median of 3 rounds
+        rounds = interleaved_ms({
+            "k2": lambda: tr.train_fwd(xin, weights, fb),
+            "cudnn_fwd": lambda: cudnn_center(lib, xl, cfg)})
+        k2_ms, lib_fwd_ms = rounds["k2"], rounds["cudnn_fwd"]
+        log(f"[K2 {precision}] interleaved, 3 rounds (ms): K2 {k2_ms:.4f} "
+            f"{rounds['k2_rounds']}, cudnn fwd {lib_fwd_ms:.4f} "
+            f"{rounds['cudnn_fwd_rounds']}")
         out = cudnn_center(lib, xl, cfg)
         gout = torch.randn_like(out) / TRAIN_B
         # K3 (3 layers) and cuDNN's backward in turns, the median of 3
@@ -1708,7 +1813,7 @@ def main() -> int:
         log(f"[build] the bf16 K1 / K4 / K5a-c tensor-core kernels at "
             f"H={hidden}: {tc_build_line(BiLSTMConfig(num_hidden=hidden))}")
     log(f"[build] K3's kernels: {k3_build_line()}")
-    log(f"[build] the fp32 core (K1, K4 fp32): {f32_build_line()}")
+    log(f"[build] the fp32 core (K1, K4 fp32, K2): {f32_build_line()}")
 
     kern = phase_kernel(device)
     tkern = phase_train_kernels(device)

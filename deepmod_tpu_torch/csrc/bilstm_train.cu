@@ -20,16 +20,37 @@
 //   recurrence itself carries h in fp32; the backward recomputes the gates
 //   from the stored rows. Accurate expf/tanhf (no fast-math).
 //
-// K2, train_fwd_kernel: grid (ceil(B / tile_b), 2), blockIdx.y the lane;
-//   one block runs ALL layers of its lane for tile_b windows (one launch
-//   for the whole stack, where the TPU launches once per layer). Thread
-//   (u, g) owns hidden unit u for the kR windows g*kR .. g*kR+kR-1 and
-//   computes all four gates of that unit, so c stays in registers. Shared
-//   memory holds an fp32 h carry [H][tile_b], one sequence buffer
-//   [steps][H][tile_b] in T that layer L reads at row t (layer L-1's
-//   stored h_t) and, after a barrier, overwrites with its own stored h_t,
-//   and the staged layer-0 inputs. Every step's h and c go to global
-//   memory as the residuals (layers, 2, steps, B, H).
+// K2, train_fwd_kernel, on the fp32 core (csrc/lstm_f32.cuh, which K1
+//   and K4 fp32 run too): grid (ceil(B / tile) * split, 2), blockIdx.y the
+//   lane; a cluster of `split` CTAs (1, 2 or 4: 2 at H=100, 4 at
+//   H=105-128; ops/bilstm_fused_train.py::fwd_shape) runs ALL layers of
+//   its lane for `tile` windows (one launch for the whole stack, where the
+//   TPU launches once per layer). Each layer's [Wx; Wh] stays resident in
+//   shared memory for the layer's steps, split by units over the cluster,
+//   h exchanged through distributed shared memory, one cluster barrier a
+//   step (lstm_f32.cuh's header); thread (u, g) owns unit u for 8 windows,
+//   its four gates and its c in registers.
+//   The trainer's batch is small (2,048 windows, 2 lanes), so the launch
+//   shape is K2's own: at H=100 tile 32 in 2-CTA clusters, 200 threads a
+//   CTA, so that batch 2048 needs 128 clusters, two nearly full waves of
+//   the 66 the card holds (chip_smoke.py's sweep; PERF.md §6). What the
+//   core leaves to its policy is TrainFwd below:
+//   - the weights: the prologue of each layer gathers the CTA's units of
+//     the TF (in+H, 4H) kernel into the core's [k][U][i,j,f,o] layout
+//     with 4-byte cp.async copies (four a unit and row, once a layer and
+//     CTA): the weights change on every Adam step, so nothing repacks
+//     them on the host;
+//   - the cell: the train contract above;
+//   - the stores, between the step barrier's arrive and wait: h_t and c_t
+//     of every window into the residuals (layers, 2, steps, B, H) in T
+//     (consecutive threads on consecutive units), and the stored h_t
+//     (rounded to T) as the blocked [H][tile] fp32 row of the workspace
+//     that the next layer reads through the core's x ring. The workspace
+//     (tiles, 2, steps, H * tile) is overwritten in place by the next
+//     layer, as in K1 fp32: its step t writes row t, which every CTA of
+//     the cluster read in step t-1's prefetch, before that step's barrier.
+//   Layer 0 reads the wrapper's (2, steps, B, F) inputs in T through the
+//   core's strided register path.
 // K3, one call a layer for both lanes, four kernels on the CUDA cores:
 //   0. rows_kernel: the operand rows [x_t; h_{t-1}; 1] in fp32, one dense
 //      (steps*B) x (in+H+1) matrix the two products below read;
@@ -65,15 +86,16 @@
 // against a few kB of sequence traffic: they are bound by operations
 // (67 TFLOP/s fp32), and the 11 dependent steps a layer set the latency
 // floor of the recurrences. Tensor cores are out: tf32 or bf16 inputs
-// would change the fp32 contract. PERF.md holds the measured times.
+// would change the fp32 contract. K2's step follows the FMA instructions
+// the busiest SM sub-partition issues (2 of the CTA's 7 warps at tile
+// 32); PERF.md holds the measured times.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-namespace {
+#include "lstm_f32.cuh"
 
-constexpr int kR = 4;  // windows per thread of K2
-constexpr int kMaxThreads = 512;
+namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -91,183 +113,194 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// kR consecutive values from shared memory as floats (16-byte aligned for
-// float, 8-byte for bf16)
-__device__ __forceinline__ void load_r(const float* p, float (&v)[kR]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void load_r(const __nv_bfloat16* p,
-                                       float (&v)[kR]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h2[0]);
-  const float2 b = __bfloat1622float2(h2[1]);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-
-__device__ __forceinline__ void store_r(float* p, const float (&v)[kR]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store_r(__nv_bfloat16* p,
-                                        const float (&v)[kR]) {
-  uint2 raw;
-  __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-  h2[0] = __floats2bfloat162_rn(v[0], v[1]);
-  h2[1] = __floats2bfloat162_rn(v[2], v[3]);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
 __device__ __forceinline__ float sigmoid_tanh(float v) {
   return 0.5f * tanhf(0.5f * v) + 0.5f;
 }
 
-// acc[g][r] += sum_k src[k * src_stride + r] * w[k * 4H + g * H] over
-// `rows` rows; w points at the thread's unit column of a TF (rows, 4H)
-// fp32 kernel
-template <typename S>
-__device__ __forceinline__ void accumulate(const S* src, int src_stride,
-                                           const float* __restrict__ w,
-                                           int rows, int hidden,
-                                           float (&acc)[4][kR]) {
-  const int row = 4 * hidden;
-#pragma unroll 4
-  for (int k = 0; k < rows; ++k) {
-    float xv[kR];
-    load_r(src + static_cast<size_t>(k) * src_stride, xv);
-    const float* wk = w + static_cast<size_t>(k) * row;
-    const float wi = __ldg(wk);
-    const float wj = __ldg(wk + hidden);
-    const float wf = __ldg(wk + 2 * hidden);
-    const float wo = __ldg(wk + 3 * hidden);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      acc[0][r] = fmaf(wi, xv[r], acc[0][r]);
-      acc[1][r] = fmaf(wj, xv[r], acc[1][r]);
-      acc[2][r] = fmaf(wf, xv[r], acc[2][r]);
-      acc[3][r] = fmaf(wo, xv[r], acc[3][r]);
-    }
-  }
+// ------------------------------------------------------------------ K2
+
+namespace f32 = dmt::f32;
+
+// 4 bytes from global into shared memory with no register in between
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   dmt::tc::smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
 }
 
+// K2's policy of the fp32 core (lstm_f32.cuh::run_layer; its Infer is
+// K1's and K4's): L.w and L.bias are the layer-lane's TF (in+H, 4H) kernel
+// and (4H) bias; T is the storage type
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+struct TrainFwd {
+  T* hs;  // this layer-lane's (steps, B, H) h sequence
+  T* cs;  // and its c sequence
+
+  // rows 0 .. in+H-1 of units u0 .. u0+units-1 into dst as [k][units]
+  // (i, j, f, o) vectors, gathered from the TF columns g*H + u (a warp's
+  // threads on consecutive units: four coalesced reads a row); zeros past
+  // the hidden width. The caller waits for the copies.
+  __device__ __forceinline__ void weights(float4* dst, const f32::Layer& L,
+                                          int u0, int units) const {
+    const int hidden = L.hidden;
+    const int n = (L.in_dim + hidden) * units;
+    float* d = reinterpret_cast<float*>(dst);
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int k = i / units;
+      const int u = u0 + (i - k * units);
+      float* e = d + 4 * i;
+      if (u < hidden) {
+        const float* src = L.w + static_cast<long long>(k) * 4 * hidden + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) cp_async4(e + g, src + g * hidden);
+      } else {
+        *reinterpret_cast<float4*>(e) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+  __device__ __forceinline__ float4 bias(const f32::Layer& L, int u) const {
+    if (u >= L.hidden) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float* b = L.bias + u;
+    return make_float4(b[0], b[L.hidden], b[2 * L.hidden], b[3 * L.hidden]);
+  }
+  // the train cell (forget_bias added after the f bias, as the TPU kernel
+  // does)
+  __device__ __forceinline__ float cell_h(float gi, float gj, float gf,
+                                          float go, float fb,
+                                          float& c) const {
+    const float si = sigmoid_tanh(gi);
+    const float sj = tanhf(gj);
+    const float sf = sigmoid_tanh(gf + fb);
+    const float so = sigmoid_tanh(go);
+    c = c * sf + si * sj;
+    return tanhf(c) * so;
+  }
+  // unit u's h_t and c_t of windows w0 .. w0+kR-1 of the tile
+  template <typename TX>
+  __device__ __forceinline__ void stores(const f32::LayerIOT<TX>& io,
+                                         const f32::Layer& L, int t, int u,
+                                         int w0, const float (&h)[dmt::kR],
+                                         const float (&c)[dmt::kR]) const {
+    if (io.seq_out != nullptr) {  // the next layer reads the stored h
+      float hr[dmt::kR];
+#pragma unroll
+      for (int r = 0; r < dmt::kR; ++r) hr[r] = to_f(from_f<T>(h[r]));
+      f32::store_vec(io.seq_out + t * io.seq_out_t + u * L.tile + w0, hr);
+    }
+    const long long b0 = L.b0 + w0;
+    const long long at =
+        (static_cast<long long>(t) * L.batch + b0) * L.hidden + u;
+#pragma unroll
+    for (int r = 0; r < dmt::kR; ++r) {
+      if (b0 + r < L.batch) {
+        hs[at + r * L.hidden] = from_f<T>(h[r]);
+        cs[at + r * L.hidden] = from_f<T>(c[r]);
+      }
+    }
+  }
+};
+
+// one lane of one tile, every layer, a cluster of kSplit CTAs (each its
+// units)
+template <int kSplit, typename T>
+__global__ void __launch_bounds__(dmt::f32::kMaxThreads, 1)
 train_fwd_kernel(const T* __restrict__ xin, int batch, int steps, int in_dim,
                  int hidden, int num_layers, const float* __restrict__ w,
                  const float* __restrict__ bias, float forget_bias,
-                 T* __restrict__ hs, T* __restrict__ cs, int tile_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = blockIdx.y;
-  const long long b0 = static_cast<long long>(blockIdx.x) * tile_b;
-  float* hc = reinterpret_cast<float*>(smem_raw);  // [hidden][tile_b]
-  T* seq = reinterpret_cast<T*>(hc + static_cast<size_t>(hidden) * tile_b);
-  // seq: [steps][hidden][tile_b]; xs: [steps][in_dim][tile_b]
-  T* xs = seq + static_cast<size_t>(steps) * hidden * tile_b;
+                 T* __restrict__ hs, T* __restrict__ cs,
+                 float* __restrict__ ws, int tile) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  const int lane = blockIdx.y;  // 0 = fw, 1 = bw
+  const int tile_i = blockIdx.x / kSplit;
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const f32::Smem sm = f32::carve(f32_smem, widest, hidden,
+                                  f32::units_of(hidden, kSplit), tile);
+  // this tile-lane's rows of the workspace: (tiles, 2, steps, H * tile)
+  const long long row = static_cast<long long>(hidden) * tile;
+  float* rows = ws + (static_cast<long long>(tile_i) * 2 + lane) * steps * row;
+  const long long gates = 4 * hidden;
+  const long long seq = static_cast<long long>(steps) * batch * hidden;
 
-  // stage this lane's layer-0 inputs, reading consecutive features with
-  // consecutive threads; windows past the batch read zeros and are never
-  // written out
-  const T* xl = xin + static_cast<size_t>(lane) * steps * batch * in_dim;
-  const int n_stage = steps * tile_b * in_dim;
-  for (int i = threadIdx.x; i < n_stage; i += blockDim.x) {
-    const int k = i % in_dim;
-    const int wi = (i / in_dim) % tile_b;
-    const int t = i / (in_dim * tile_b);
-    const long long b = b0 + wi;
-    T v = from_f<T>(0.0f);
-    if (b < batch) v = xl[(static_cast<size_t>(t) * batch + b) * in_dim + k];
-    xs[(static_cast<size_t>(t) * in_dim + k) * tile_b + wi] = v;
-  }
-
-  const int u = threadIdx.x % hidden;
-  const int w0 = (threadIdx.x / hidden) * kR;
-  const int gates = 4 * hidden;
-  const size_t lane_w =
-      static_cast<size_t>(in_dim + hidden) * gates +
-      static_cast<size_t>(num_layers - 1) * 2 * hidden * gates;
-  const float* wl = w + lane * lane_w;
-  const float* bl = bias + static_cast<size_t>(lane) * num_layers * gates;
-  const size_t seq_elems = static_cast<size_t>(steps) * batch * hidden;
-  __syncthreads();
-
+  f32::Layer L;
+  // [lane][layer] TF kernels, flat; bias (2, layers, 4H)
+  L.w = w + lane * ((in_dim + hidden) * gates +
+                    (num_layers - 1) * 2 * hidden * gates);
+  L.bias = bias + lane * num_layers * gates;
+  L.hidden = hidden;
+  L.steps = steps;
+  L.batch = batch;
+  L.lane = lane;
+  L.tile = tile;
+  L.b0 = static_cast<long long>(tile_i) * tile;
+  L.fb = forget_bias;
   for (int layer = 0; layer < num_layers; ++layer) {
-    const int lin = layer == 0 ? in_dim : hidden;
-    const T* src = layer == 0 ? xs : seq;
-    const float bi = bl[u];
-    const float bj = bl[hidden + u];
-    const float bf = bl[2 * hidden + u];
-    const float bo = bl[3 * hidden + u];
-    T* hl = hs + (static_cast<size_t>(layer) * 2 + lane) * seq_elems;
-    T* cl = cs + (static_cast<size_t>(layer) * 2 + lane) * seq_elems;
-    float c[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) c[r] = 0.0f;
-
-    for (int t = 0; t < steps; ++t) {
-      float acc[4][kR];
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-#pragma unroll
-        for (int r = 0; r < kR; ++r) acc[g][r] = 0.0f;
-      accumulate(src + static_cast<size_t>(t) * lin * tile_b + w0, tile_b,
-                 wl + u, lin, hidden, acc);
-      if (t > 0) {  // h_{-1} = 0 contributes nothing
-        accumulate(hc + w0, tile_b,
-                   wl + static_cast<size_t>(lin) * gates + u, hidden, hidden,
-                   acc);
-      }
-      // every thread has read row t and the carry before either changes
-      __syncthreads();
-      float h[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const float si = sigmoid_tanh(acc[0][r] + bi);
-        const float sj = tanhf(acc[1][r] + bj);
-        const float sf = sigmoid_tanh(acc[2][r] + bf + forget_bias);
-        const float so = sigmoid_tanh(acc[3][r] + bo);
-        c[r] = c[r] * sf + si * sj;
-        h[r] = tanhf(c[r]) * so;
-      }
-      // the fp32 carry for this layer's next step, the stored (rounded)
-      // row for the next layer
-      store_r(hc + static_cast<size_t>(u) * tile_b + w0, h);
-      store_r(seq + (static_cast<size_t>(t) * hidden + u) * tile_b + w0, h);
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        const long long b = b0 + w0 + r;
-        if (b < batch) {
-          const size_t off = (static_cast<size_t>(t) * batch + b) * hidden + u;
-          hl[off] = from_f<T>(h[r]);
-          cl[off] = from_f<T>(c[r]);
-        }
-      }
-      __syncthreads();
-    }
-    wl += static_cast<size_t>(lin + hidden) * gates;
-    bl += gates;
+    L.in_dim = layer == 0 ? in_dim : hidden;
+    f32::LayerIOT<T> io;
+    // layer 0: the (2, steps, B, F) inputs, the bw lane already reversed
+    io.x = layer == 0 ? xin + lane * steps * static_cast<long long>(batch) *
+                                  in_dim
+                      : nullptr;
+    io.sb = in_dim;
+    io.st = static_cast<long long>(batch) * in_dim;
+    io.sf = 1;
+    io.reversed = 0;
+    io.in_steps = steps;
+    io.seq_in = rows;
+    io.seq_in_t = row;
+    io.seq_out = layer == num_layers - 1 ? nullptr : rows;
+    io.seq_out_t = row;
+    io.out = nullptr;
+    io.out_step = -1;
+    const long long at = (layer * 2LL + lane) * seq;
+    f32::run_layer<kSplit>(sm, L, io, TrainFwd<T>{hs + at, cs + at});
+    L.w += (L.in_dim + hidden) * gates;
+    L.bias += gates;
   }
 }
 
-template <typename T>
+template <int kSplit, typename T>
 int launch_fwd(const void* xin, int batch, int steps, int in_dim, int hidden,
                int num_layers, const void* w, const void* bias,
-               float forget_bias, void* hs, void* cs, int tile_b,
+               float forget_bias, void* hs, void* cs, void* ws, int tile,
                void* stream) {
-  const size_t smem = static_cast<size_t>(hidden) * tile_b * sizeof(float) +
-                      static_cast<size_t>(steps) * (hidden + in_dim) *
-                          tile_b * sizeof(T);
-  auto kernel = train_fwd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + tile_b - 1) / tile_b, 2);
-  const dim3 block(hidden * (tile_b / kR));
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(xin), batch, steps, in_dim, hidden, num_layers,
-      static_cast<const float*>(w), static_cast<const float*>(bias),
-      forget_bias, static_cast<T*>(hs), static_cast<T*>(cs), tile_b);
-  return static_cast<int>(cudaGetLastError());
+  const int threads = f32::threads_of(hidden, kSplit, tile);
+  if (tile % dmt::kR != 0 || threads > f32::kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const size_t smem = f32::smem_bytes(widest, hidden, kSplit, tile);
+  auto kernel = train_fwd_kernel<kSplit, T>;
+  const dim3 grid((batch + tile - 1) / tile * kSplit, 2);
+  const auto* x = static_cast<const T*>(xin);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* h = static_cast<T*>(hs);
+  auto* c = static_cast<T*>(cs);
+  auto* wsf = static_cast<float*>(ws);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if constexpr (kSplit > 1) {
+    return static_cast<int>(dmt::tc::launch_cluster(
+        kernel, grid, threads, smem, st, kSplit, x, batch, steps, in_dim,
+        hidden, num_layers, wf, bf, forget_bias, h, c, wsf, tile));
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, threads, smem, st>>>(x, batch, steps, in_dim, hidden,
+                                        num_layers, wf, bf, forget_bias, h,
+                                        c, wsf, tile);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
+template <int kSplit>
+int clusters_fwd(int in_dim, int hidden, int tile, int* n) {
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  return static_cast<int>(dmt::tc::cluster_occupancy(
+      train_fwd_kernel<kSplit, float>, f32::threads_of(hidden, kSplit, tile),
+      f32::smem_bytes(widest, hidden, kSplit, tile), kSplit, n));
 }
 
 // ------------------------------------------------------------------ K3
@@ -849,25 +882,44 @@ extern "C" {
 
 // K2: xin (2, steps, B, in) in the storage type; w the fp32 TF kernels of
 // every [lane][layer], flat; bias (2, layers, 4H) fp32; hs, cs (layers, 2,
-// steps, B, H) in the storage type. Returns cudaGetLastError() after the
-// launch (0 = success).
+// steps, B, H) in the storage type; ws the fp32 workspace (ceil(B/tile),
+// 2, steps, H * tile) when layers > 1. `split` CTAs a cluster (1, 2 or
+// 4), tile a multiple of 8, ceil(hidden/split) * tile/8 <= 256 threads
+// (else cudaErrorInvalidValue); cudaErrorLaunchOutOfResources where no
+// cluster fits. Returns the launch's error (0 = success).
 int dmt_bilstm_train_fwd_f32(const void* xin, int batch, int steps,
                              int in_dim, int hidden, int num_layers,
                              const void* w, const void* bias,
-                             float forget_bias, void* hs, void* cs,
-                             int tile_b, void* stream) {
-  return launch_fwd<float>(xin, batch, steps, in_dim, hidden, num_layers, w,
-                           bias, forget_bias, hs, cs, tile_b, stream);
+                             float forget_bias, void* hs, void* cs, void* ws,
+                             int tile, int split, void* stream) {
+#define DMT_LAUNCH(s)                                                       \
+  return launch_fwd<s, float>(xin, batch, steps, in_dim, hidden,           \
+                              num_layers, w, bias, forget_bias, hs, cs, ws, \
+                              tile, stream)
+  DMT_F32_DISPATCH(split, DMT_LAUNCH)
+#undef DMT_LAUNCH
 }
 
 int dmt_bilstm_train_fwd_bf16(const void* xin, int batch, int steps,
                               int in_dim, int hidden, int num_layers,
                               const void* w, const void* bias,
-                              float forget_bias, void* hs, void* cs,
-                              int tile_b, void* stream) {
-  return launch_fwd<__nv_bfloat16>(xin, batch, steps, in_dim, hidden,
-                                   num_layers, w, bias, forget_bias, hs, cs,
-                                   tile_b, stream);
+                              float forget_bias, void* hs, void* cs, void* ws,
+                              int tile, int split, void* stream) {
+#define DMT_LAUNCH(s)                                                   \
+  return launch_fwd<s, __nv_bfloat16>(xin, batch, steps, in_dim, hidden, \
+                                      num_layers, w, bias, forget_bias,  \
+                                      hs, cs, ws, tile, stream)
+  DMT_F32_DISPATCH(split, DMT_LAUNCH)
+#undef DMT_LAUNCH
+}
+
+// cudaOccupancyMaxActiveClusters of K2 at this shape (a cluster of
+// `split` CTAs), into *n
+int dmt_bilstm_train_fwd_clusters(int in_dim, int hidden, int tile,
+                                  int split, int* n) {
+#define DMT_CLUSTERS(s) return clusters_fwd<s>(in_dim, hidden, tile, n)
+  DMT_F32_DISPATCH(split, DMT_CLUSTERS)
+#undef DMT_CLUSTERS
 }
 
 // K3 for one layer, both lanes: xin (2, steps, B, in), hs, cs, dh (2,

@@ -1,16 +1,21 @@
 // The fp32 LSTM layer for Hopper (sm_90a): the fp32 modes of K1
 // (bilstm_fused.cu, every layer of a lane in one launch) and of K4
-// (bilstm_layer.cu, one layer of both lanes a launch) run one lane of one
-// layer over a tile of windows through run_layer below, as the bf16 modes
-// run lstm_tc.cuh's.
+// (bilstm_layer.cu, one layer of both lanes a launch), and the training
+// forward K2 in both precisions (bilstm_train.cu, every layer of a lane in
+// one launch), run one lane of one layer over a tile of windows through
+// run_layer below, as the bf16 inference modes run lstm_tc.cuh's.
 //
-// Numerics: K1's fp32 contract (lstm_common.cuh::cell<false>): fp32
-// inputs, weights and stored h, exp sigmoids, forget_bias added inside the
-// f sigmoid. Each gate pre-activation is one thread's ordered fmaf chain
+// Numerics: each gate pre-activation is one thread's ordered fmaf chain
 // from 0: the x rows in ascending k, then the h rows (skipped at t = 0,
 // where h is 0), then the bias, as in K5a fp32 (bilstm_mono_merged.cu) and
-// in the CUDA-core body that this core replaced; so K1 fp32 keeps K5a
-// fp32's bits at every tile, split and thread shape.
+// in the CUDA-core bodies that this core replaced; so K1 fp32 keeps K5a
+// fp32's bits at every tile, split and thread shape. What follows the
+// product is a policy of run_layer (Infer below, or K2's TrainFwd): where
+// the weights and bias come from, the cell, and the step's global stores.
+// Infer is K1's fp32 contract (lstm_common.cuh::cell<false>): fp32 inputs,
+// weights and stored h, exp sigmoids, forget_bias added inside the f
+// sigmoid; the packed weights below; the blocked row for the next layer or
+// the readout row. K2's contract is bilstm_train.cu's.
 //
 // Why not the tensor cores: fp32 there is TF32 (or 3xTF32 with hi/lo
 // operands, twice the resident weights and h rounded every step), and the
@@ -28,7 +33,8 @@
 //     of every row k of [Wx; Wh], [k][U][i,j,f,o] (the packing of
 //     ops/bilstm_fused.py::f32_pack_layer, (in+H, Hp4, 4) with the units
 //     padded to a multiple of 4: zero weights and bias, so a padded unit's
-//     h is exactly 0 and is never stored). At H=100 in a 2-CTA cluster:
+//     h is exactly 0 and is never stored; K2 gathers the same layout from
+//     the TF kernels in its prologue). At H=100 in a 2-CTA cluster:
 //     200 x 50 x 16 B = 160,000 B a CTA.
 //   threads: U x tile/8; thread (u, g) owns unit u for the 8 windows
 //     g*8 .. g*8+7, its four gates in registers (32 accumulators) and its
@@ -47,11 +53,12 @@
 //     row from global memory; at layer 0 register loads through the
 //     caller's strides), the product over x_t then h_{t-1}, the cell, h_t
 //     into the rings, x_{t+1} completed, the cluster barrier's arrive, the
-//     step's global stores (the blocked row of h_t for the next layer, or
-//     the readout row), the barrier's wait. Two slots a ring make that one
-//     barrier enough: no slot is written in the step that reads it, and a
-//     CTA writes a peer's slot t&1 in the step in which every CTA reads
-//     slot (t-1)&1 (lstm_tc.cuh's argument, the same split).
+//     step's global stores (the policy's: the blocked row of h_t for the
+//     next layer, the readout row, K2's residuals), the barrier's wait.
+//     Two slots a ring make that one barrier enough: no slot is written
+//     in the step that reads it, and a CTA writes a peer's slot t&1 in the
+//     step in which every CTA reads slot (t-1)&1 (lstm_tc.cuh's argument,
+//     the same split).
 //   the blocked sequence between layers: per (lane, step, tile) one
 //     [H][tile] fp32 block, so a row is one contiguous copy in and out.
 //
@@ -127,11 +134,13 @@ struct Layer {
   float fb;  // forget_bias
 };
 
-// where a layer reads its inputs and writes its outputs, for this CTA
-struct LayerIO {
+// where a layer reads its inputs and writes its outputs, for this CTA; TX
+// is the type of the layer-0 windows (float; K2 in bf16 reads bf16)
+template <typename TX>
+struct LayerIOT {
   // layer 0: the (B, T, F) windows through the caller's strides, the bw
   // lane reading step in_steps-1-t when `reversed`; otherwise null
-  const float* x;
+  const TX* x;
   long long sb, st, sf;
   int reversed, in_steps;
   // later layers: the blocked row ([H][tile]) of step t at
@@ -145,20 +154,23 @@ struct LayerIO {
   float* out;
   int out_step;
 };
+using LayerIO = LayerIOT<float>;
 
 // x_t[k][w] of a layer-0 tile through the caller's strides (zero past the
 // batch)
-__device__ __forceinline__ float window_value(const LayerIO& io,
+template <typename TX>
+__device__ __forceinline__ float window_value(const LayerIOT<TX>& io,
                                               const Layer& L, int tt, int i) {
   const int k = i / L.tile;
   const long long b = L.b0 + (i - k * L.tile);
-  return b < L.batch ? io.x[b * io.sb + tt * io.st + k * io.sf] : 0.0f;
+  return b < L.batch ? to_f(io.x[b * io.sb + tt * io.st + k * io.sf]) : 0.0f;
 }
 
 // x_t into ring slot `slot`: issue (cp.async of the blocked row, or
 // register loads at layer 0) ...
-__device__ __forceinline__ void x_issue(const LayerIO& io, const Layer& L,
-                                        int t, float* slot,
+template <typename TX>
+__device__ __forceinline__ void x_issue(const LayerIOT<TX>& io,
+                                        const Layer& L, int t, float* slot,
                                         float (&v)[kXRegs]) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int n = L.in_dim * L.tile;
@@ -177,7 +189,9 @@ __device__ __forceinline__ void x_issue(const LayerIO& io, const Layer& L,
   }
 }
 // ... and complete it (every thread, before the barrier)
-__device__ __forceinline__ void x_complete(const LayerIO& io, const Layer& L,
+template <typename TX>
+__device__ __forceinline__ void x_complete(const LayerIOT<TX>& io,
+                                           const Layer& L,
                                            int t, float* slot,
                                            const float (&v)[kXRegs]) {
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -262,13 +276,54 @@ __device__ __forceinline__ void store_vec(float* p, const float (&v)[kR]) {
   }
 }
 
+// K1's and K4's policy for run_layer: the f32_pack_layer weights and bias
+// (L.w, L.bias), the exp-sigmoid cell, and the step's global stores: the
+// blocked row of h_t for the next layer, or the readout row (a policy has
+// these three members; K2's is bilstm_train.cu::TrainFwd)
+struct Infer {
+  // the CTA's units u0 .. u0+units-1 of every row into dst (cp.async; the
+  // caller waits) and unit u's (i, j, f, o) bias
+  __device__ __forceinline__ void weights(float4* dst, const Layer& L,
+                                          int u0, int units) const {
+    load_weights(dst, L.w, L.in_dim + L.hidden, packed_units(L.hidden), u0,
+                 units);
+  }
+  __device__ __forceinline__ float4 bias(const Layer& L, int u) const {
+    return reinterpret_cast<const float4*>(L.bias)[u];
+  }
+  __device__ __forceinline__ float cell_h(float gi, float gj, float gf,
+                                          float go, float fb,
+                                          float& c) const {
+    return cell<false>(gi, gj, gf, go, fb, c);
+  }
+  // unit u's h_t of windows w0 .. w0+kR-1 of the tile (u a live unit)
+  template <typename TX>
+  __device__ __forceinline__ void stores(const LayerIOT<TX>& io,
+                                         const Layer& L, int t, int u, int w0,
+                                         const float (&h)[kR],
+                                         const float (&c)[kR]) const {
+    if (io.seq_out != nullptr) {
+      store_vec(io.seq_out + t * io.seq_out_t + u * L.tile + w0, h);
+    }
+    if (io.out != nullptr && t == io.out_step) {
+      const long long b0 = L.b0 + w0;
+      float* o = io.out + L.lane * L.hidden + u;
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        if (b0 + r < L.batch) o[(b0 + r) * 2 * L.hidden] = h[r];
+      }
+    }
+  }
+};
+
 // One layer of one lane over L.steps steps for the CTA's tile (kSplit > 1:
 // this CTA's units, the peers of the cluster holding the others). Starts
 // with a barrier of the whole cluster (the previous layer's reads of this
 // CTA's buffers are over, and every peer has started) and ends with one.
-template <int kSplit>
+template <int kSplit, typename TX, typename Policy = Infer>
 __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
-                                          const LayerIO& io) {
+                                          const LayerIOT<TX>& io,
+                                          const Policy& pol = Policy()) {
   constexpr bool kCluster = kSplit > 1;
   const int tid = threadIdx.x;
   const int rank =
@@ -278,7 +333,6 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
   const int w0 = (tid / units) * kR;
   const int u = rank * units + ul;  // this thread's unit
   const bool live = u < L.hidden;   // not a padded unit
-  const int hp4 = packed_units(L.hidden);
   // every CTA's h ring (this one's too), where the cell's h goes
   float* peer_h[kSplit];
   if constexpr (kCluster) {
@@ -291,8 +345,8 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
   }
 
   // prologue: the CTA's weights, x_0
-  load_weights(sm.w, L.w, L.in_dim + L.hidden, hp4, rank * units, units);
-  const float4 bias = reinterpret_cast<const float4*>(L.bias)[u];
+  pol.weights(sm.w, L, rank * units, units);
+  const float4 bias = pol.bias(L, u);
   {
     float v[kXRegs];
     x_issue(io, L, 0, sm.x, v);
@@ -311,7 +365,6 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
   for (int r = 0; r < kR; ++r) c[r] = 0.0f;
   const float4* wx = sm.w + ul;
   const float4* wh = wx + L.in_dim * units;
-  const long long b0 = L.b0 + w0;
 
   for (int t = 0; t < L.steps; ++t) {
     const int s = t & 1;
@@ -332,8 +385,8 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
     float h[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
-      h[r] = cell<false>(acc[0][r] + bias.x, acc[1][r] + bias.y,
-                         acc[2][r] + bias.z, acc[3][r] + bias.w, L.fb, c[r]);
+      h[r] = pol.cell_h(acc[0][r] + bias.x, acc[1][r] + bias.y,
+                        acc[2][r] + bias.z, acc[3][r] + bias.w, L.fb, c[r]);
     }
     const int at = s * sm.h_slot + u * L.tile + w0;
     if (live) {
@@ -344,16 +397,7 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
     if constexpr (kCluster) tc::cluster_arrive();
 
     // the step's global stores, while the barrier settles
-    if (live && io.seq_out != nullptr) {
-      store_vec(io.seq_out + t * io.seq_out_t + u * L.tile + w0, h);
-    }
-    if (live && io.out != nullptr && t == io.out_step) {
-      float* o = io.out + L.lane * L.hidden + u;
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        if (b0 + r < L.batch) o[(b0 + r) * 2 * L.hidden] = h[r];
-      }
-    }
+    if (live) pol.stores(io, L, t, u, w0, h, c);
     if constexpr (kCluster) {
       tc::cluster_wait();
     } else {

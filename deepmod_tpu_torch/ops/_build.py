@@ -5,7 +5,7 @@ K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
 ``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
 ``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; the bf16 modes of
 K1, K4 and K5a-c include ``lstm_tc.cuh``, the fp32 modes of K1 and K4
-``lstm_f32.cuh``) is compiled by its own ``nvcc`` process
+and K2 ``lstm_f32.cuh``) is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -36,7 +36,7 @@ LIB_NAME = "libdmt_torch_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # launch limits every wrapper checks before it launches: threads a block
-# (kMaxThreads in csrc/lstm_common.cuh and bilstm_train.cu) and the bytes
+# (kMaxThreads in csrc/lstm_common.cuh) and the bytes
 # of shared memory a block may use on Hopper
 MAX_THREADS = 512
 MAX_SMEM = 232448
@@ -172,10 +172,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
     for name in ("dmt_bilstm_train_fwd_f32", "dmt_bilstm_train_fwd_bf16"):
         fn = getattr(lib, name)
-        # xin, batch, steps, in_dim, hidden, num_layers, w, bias,
-        # forget_bias, hs, cs, tile_b, stream
-        fn.argtypes = [p, i, i, i, i, i, p, p, f, p, p, i, p]
+        # K2 (the fp32 core): xin, batch, steps, in_dim, hidden,
+        # num_layers, w, bias, forget_bias, hs, cs, the workspace, tile,
+        # split, stream
+        fn.argtypes = [p, i, i, i, i, i, p, p, f, p, p, p, i, i, p]
         fn.restype = ctypes.c_int
+    # K2's clusters resident at once (in_dim, hidden, tile, split)
+    lib.dmt_bilstm_train_fwd_clusters.argtypes = [i, i, i, i, n]
+    lib.dmt_bilstm_train_fwd_clusters.restype = ctypes.c_int
     for name in ("dmt_bilstm_train_bwd_f32", "dmt_bilstm_train_bwd_bf16"):
         fn = getattr(lib, name)
         # xin, hs, cs, dh, w, wht, bias, forget_bias, dx, rows, gates, da,

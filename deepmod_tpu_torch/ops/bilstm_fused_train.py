@@ -38,19 +38,24 @@ lane's layer-0 input is the time-reversed window.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from ._build import MAX_SMEM, MAX_THREADS
-from .bilstm_fused import readout
+from ._build import MAX_SMEM
+from .bilstm_fused import (F32_MAX_HIDDEN, F32_MAX_THREADS, F32_SPLITS,
+                           F32Shape, f32_smem, readout)
 
 PRECISIONS = ("fp32", "bf16")
 _STORAGE = {"fp32": torch.float32, "bf16": torch.bfloat16}
-# K2's windows per block; a thread owns one hidden unit for KR of them (kR
-# in the CUDA source): hidden * TILE_B / KR threads a block
-TILE_B = 16
-KR = 4
+# K2 runs the fp32 core of K1 and K4 fp32 (csrc/lstm_f32.cuh): a cluster
+# of F32_SPLITS CTAs a tile-lane, the layer's weights resident in shared
+# memory split by units, thread (u, g) one unit for 8 windows, at most
+# F32_MAX_THREADS threads a CTA. FWD_TILE_B is its default tile,
+# chip_smoke.py's sweep at the trainer's batch 2048 on an H100 (PERF.md
+# §6); ``fwd_shape`` steps it down where it does not fit. K1's and K4's
+# tile (``bilstm_fused.TILE_B``) is their own
+FWD_TILE_B = 32
 # K3's recurrence: BWD_TILE_B windows a block in cells of 8 units x 8
 # windows, 4 threads a cell, so 2 * (H rounded up to 8) threads rounded up
 # to whole warps (at most BWD_MAX_THREADS); shared memory holds the step's
@@ -217,17 +222,55 @@ def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
                          f"{tuple(t.shape)}")
 
 
-def _check_block(hidden: int, in_dim: int, smem: int) -> None:
-    """K2's block limits (and the training kernels' fnum <= hidden)."""
+def fwd_shape(in_dim: int, hidden: int, tile_b: Optional[int] = None,
+              split: Optional[int] = None) -> F32Shape:
+    """K2's launch at this width: the tile ``tile_b``, by default the
+    largest up to ``FWD_TILE_B`` at which some split fits, and the fewest
+    CTAs of ``F32_SPLITS`` (or ``split``) that hold a layer's weights and
+    the operand rings at that tile (``f32_smem`` of the widest layer,
+    ``hidden``). Raises ``ValueError`` for what the kernel does not take:
+    fnum over hidden, hidden over ``F32_MAX_HIDDEN``, a tile that is not a
+    multiple of 8, another split, more than ``F32_MAX_THREADS`` threads or
+    ``MAX_SMEM`` bytes a CTA."""
     if in_dim > hidden:
         raise ValueError(f"the training kernels need fnum <= hidden, got "
                          f"{in_dim} > {hidden}")
-    threads = hidden * TILE_B // KR
-    if threads > MAX_THREADS or smem > MAX_SMEM:
+    if hidden > F32_MAX_HIDDEN:
         raise ValueError(
-            f"hidden={hidden} needs {threads} threads and {smem} B of shared "
-            f"memory per block; the kernels take at most {MAX_THREADS} and "
-            f"{MAX_SMEM}")
+            f"the training forward (K2) takes hidden <= {F32_MAX_HIDDEN} "
+            f"(the JAX fused kernels' padded width), got {hidden}")
+    if tile_b is not None and (tile_b <= 0 or tile_b % 8):
+        raise ValueError(f"tile_b must be a positive multiple of 8: {tile_b}")
+    if split is not None and split not in F32_SPLITS:
+        raise ValueError(f"split must be one of {F32_SPLITS}: {split}")
+    tiles = [tile_b] if tile_b is not None else range(FWD_TILE_B, 0, -8)
+    splits = [split] if split is not None else F32_SPLITS
+    for tile in tiles:
+        for s in splits:
+            threads = -(-hidden // s) * (tile // 8)
+            smem = f32_smem(hidden, hidden, s, tile)
+            if threads <= F32_MAX_THREADS and smem <= MAX_SMEM:
+                return F32Shape(s, tile, threads, smem)
+    raise ValueError(
+        f"hidden={hidden}: no launch of the training forward (K2) at tile "
+        f"{tile_b or 'up to ' + str(FWD_TILE_B)} fits {F32_MAX_THREADS} "
+        f"threads and {MAX_SMEM} B of shared memory a CTA in a cluster of "
+        f"{split or ' or '.join(map(str, F32_SPLITS))}")
+
+
+def fwd_clusters(in_dim: int, hidden: int, shape: F32Shape, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of K2 at this shape: how many
+    clusters of ``shape.split`` CTAs the card holds at once."""
+    import ctypes
+
+    from . import _build
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = _build.library().dmt_bilstm_train_fwd_clusters(
+            in_dim, hidden, shape.tile, shape.split, ctypes.byref(n))
+    _build.check(status, "bilstm train forward (K2) cluster occupancy")
+    return n.value
 
 
 def bwd_block(hidden: int) -> Tuple[int, int, bool]:
@@ -270,7 +313,8 @@ def dw_splits(rows: int, in_dim: int, hidden: int) -> int:
 
 
 def _train_fwd_cuda(xin: torch.Tensor, weights: Sequence[LayerWeights],
-                    forget_bias: float):
+                    forget_bias: float, tile_b: Optional[int] = None,
+                    split: Optional[int] = None):
     from . import _build
 
     precision = _precision_of(xin.dtype)
@@ -283,9 +327,7 @@ def _train_fwd_cuda(xin: torch.Tensor, weights: Sequence[LayerWeights],
         lin = in_dim if layer == 0 else hidden
         _check(f"w[{layer}]", w, dev, torch.float32, (2, lin + hidden, 4 * hidden))
         _check(f"b[{layer}]", b, dev, torch.float32, (2, 4 * hidden))
-    _check_block(hidden, in_dim,
-                 hidden * TILE_B * 4
-                 + steps * (hidden + in_dim) * TILE_B * xin.element_size())
+    shape = fwd_shape(in_dim, hidden, tile_b, split)
     # the kernel's operand: [lane][layer] TF kernels, flat; (2, layers, 4H)
     w_all = torch.cat([w[lane].reshape(-1) for lane in range(2)
                        for w, _ in weights])
@@ -294,6 +336,11 @@ def _train_fwd_cuda(xin: torch.Tensor, weights: Sequence[LayerWeights],
     cs = torch.empty_like(hs)
     if batch == 0:
         return hs, cs
+    # the inter-layer rows, blocked [H][tile] fp32 a (tile, lane, step),
+    # overwritten in place by each next layer
+    tiles = -(-batch // shape.tile)
+    ws = torch.empty(tiles, 2, steps, hidden * shape.tile if layers > 1 else 1,
+                     dtype=torch.float32, device=dev)
     lib = _build.library()
     fn = (lib.dmt_bilstm_train_fwd_bf16 if precision == "bf16"
           else lib.dmt_bilstm_train_fwd_f32)
@@ -301,7 +348,8 @@ def _train_fwd_cuda(xin: torch.Tensor, weights: Sequence[LayerWeights],
         status = fn(
             xin.data_ptr(), batch, steps, in_dim, hidden, layers,
             w_all.data_ptr(), b_all.data_ptr(), forget_bias, hs.data_ptr(),
-            cs.data_ptr(), TILE_B, torch.cuda.current_stream(dev).cuda_stream,
+            cs.data_ptr(), ws.data_ptr(), shape.tile, shape.split,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(status, "bilstm train forward (K2) launch")
     LAUNCHES[f"fwd_{precision}"] += 1
@@ -369,12 +417,15 @@ def _on(t: torch.Tensor) -> str:
 
 
 def train_fwd(xin: torch.Tensor, weights: Sequence[LayerWeights],
-              forget_bias: float):
+              forget_bias: float, tile_b: Optional[int] = None,
+              split: Optional[int] = None):
     """K2: layer-0 inputs (2, steps, B, F) -> (hs, cs), each (layers, 2,
-    steps, B, H) in xin's dtype (the storage dtype)."""
+    steps, B, H) in xin's dtype (the storage dtype). ``tile_b`` and
+    ``split`` choose the kernel's launch (``fwd_shape``; the default fits
+    the width); the plain version on the CPU ignores them."""
     if _on(xin) == "cpu":
         return train_fwd_plain(xin, weights, forget_bias)
-    return _train_fwd_cuda(xin, weights, forget_bias)
+    return _train_fwd_cuda(xin, weights, forget_bias, tile_b, split)
 
 
 def train_bwd(xin, hs, cs, dh, w, b, forget_bias: float):

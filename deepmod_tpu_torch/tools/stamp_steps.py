@@ -3,6 +3,7 @@
     python -m deepmod_tpu_torch.tools.stamp_steps k1 [--out DIR]
     python -m deepmod_tpu_torch.tools.stamp_steps k3 [--out DIR]
     python -m deepmod_tpu_torch.tools.stamp_steps k1f32 | k4f32 [--out DIR]
+    python -m deepmod_tpu_torch.tools.stamp_steps k2 [--out DIR]
 
 Copies the package into ``DIR`` (default ``build/stamp_steps``, ignored by
 git), inserts ``clock64()`` stamps at fixed points of one kernel's step
@@ -25,7 +26,14 @@ with nvcc in a build directory of its own and runs it in a child process:
   completed and the cluster barrier's arrive, the step's global stores,
   the barrier's wait. The core is a header that K1's and K4's sources
   both include: the stamps are compiled only into the watched kernel's
-  source (``DMT_STAMP`` defined there). Prints the kernel's time.
+  source (``DMT_STAMP`` defined there). Prints the kernel's time;
+- ``k2``: the same core's step in K2 (``csrc/bilstm_train.cu``, the
+  training forward) at its default launch (``fwd_shape``) at H=100, T=21
+  on the trainer's 2,048 windows, layers 1-2 of the watched tile-lane in
+  fp32; the global stores are K2's residuals (h and c of every window,
+  and the rounded h row for the next layer). Prints K2's time in fp32
+  and bf16, and the digests of its outputs that ``stamp_old_fp32.py
+  --kernels k2`` prints for the old K2.
 
 Prints the cycles of each span for steps 1-10 and their mean. Needs a
 CUDA GPU and nvcc. The stamps cost a few instructions a step, so the
@@ -105,7 +113,7 @@ F32_ANCHORS = [
      "    }\n", 6, "after"),
 ]
 for _name, _host in (("k1f32", "bilstm_fused.cu"),
-                     ("k4f32", "bilstm_layer.cu")):
+                     ("k4f32", "bilstm_layer.cu"), ("k2", "bilstm_train.cu")):
     # an eighth field: the source that includes the header and watches
     KERNELS[_name] = (
         "lstm_f32.cuh",
@@ -114,7 +122,8 @@ for _name, _host in (("k1f32", "bilstm_fused.cu"),
         "blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0 && "
         "L.in_dim == L.hidden", "t", F32_ANCHORS,
         ["operand issue", "product", "cell",
-         "h exchange + x complete + arrive", "global stores",
+         "h exchange + x complete + arrive",
+         "residual stores" if _name == "k2" else "global stores",
          "barrier wait"], _host)
 
 
@@ -205,7 +214,27 @@ def _run_child(kernel: str) -> None:
             out.append(a.elapsed_time(b))
         return statistics.median(out)
 
-    if kernel in ("k1f32", "k4f32"):
+    if kernel == "k2":
+        from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+        x = torch.from_numpy(np.random.default_rng(2024).standard_normal(
+            (2048, cfg.timesteps, cfg.num_input), dtype=np.float32)).to(dev)
+        weights = tr.stack_lanes(params)
+        steps = tr.readout(cfg.timesteps)[0]
+        shape = tr.fwd_shape(cfg.num_input, cfg.num_hidden)
+        for precision in ("bf16", "fp32"):  # fp32's stamps are read
+            xin = tr.layer_inputs(x.to(tr.storage_dtype(precision)), steps)
+            ms = time_ms(lambda: tr.train_fwd(xin, weights, cfg.forget_bias),
+                         reps=5)
+            print(f"K2 {precision} T={cfg.timesteps} B=2048 at {shape}: "
+                  f"{ms:.4f} ms")
+        from deepmod_tpu_torch.tools.stamp_old_fp32 import k2_digests
+
+        for line in k2_digests(dev):
+            print(line)
+        tr.train_fwd(xin, weights, cfg.forget_bias)
+        steps = range(1, 10)
+    elif kernel in ("k1f32", "k4f32"):
         from deepmod_tpu_torch.ops import bilstm_fused as ops
 
         cfg = BiLSTMConfig(timesteps=21 if kernel == "k1f32" else 20)

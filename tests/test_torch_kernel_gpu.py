@@ -4,7 +4,8 @@ tensor-core kernels (``csrc/lstm_tc.cuh``, 64 windows a tile; hidden
 105-128 over 2-CTA clusters in K1, K4, K5a and K5c, K5c a cluster of one
 CTA a layer). In fp32, K1 and K4 run the fp32 core (``csrc/lstm_f32.cuh``,
 a layer's weights resident over a cluster of 1, 2 or 4 CTAs), and K4
-runs every T over the readout cone only.
+runs every T over the readout cone only; K2, the training forward, runs
+the same core in both precisions.
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -560,7 +561,8 @@ def _train_case(cuda, batch, timesteps, precision, seed):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-@pytest.mark.parametrize("batch,timesteps", [(2083, 21), (37, 8), (5, 5)])
+@pytest.mark.parametrize("batch,timesteps", [(2083, 21), (37, 8), (5, 5),
+                                             (2048, 20)])
 def test_train_kernels_match_plain(cuda, precision, batch, timesteps):
     """K2 (all layers) and K3 (each layer) against their plain versions.
     fp32: sequences 2e-5 absolute, gradients rtol 5e-4 / atol 5e-5 (a
@@ -600,6 +602,76 @@ def test_train_kernels_match_plain(cuda, precision, batch, timesteps):
     b = torch.cat([t.float().ravel() for t in want])
     assert float((a - b).norm() / b.norm()) <= 1e-2
     assert float(a @ b / (a.norm() * b.norm())) >= 0.9999
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("batch,timesteps", [(2048, 21), (2048, 20),
+                                             (37, 8)])
+def test_train_fwd_at_hidden_128(cuda, precision, batch, timesteps):
+    """K2 at hidden 128 (4-CTA clusters: ``fwd_shape``) against its plain
+    version, odd T over the readout cone, even T all T steps; two runs
+    give the same bits."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg = BiLSTMConfig(num_input=7, num_hidden=128, timesteps=timesteps)
+    params = init_bilstm_params(batch + timesteps, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(batch).standard_normal(
+        (batch, timesteps, 7), dtype=np.float32)).to(cuda)
+    xin = tr.layer_inputs(x.to(tr.storage_dtype(precision)),
+                          tr.readout(timesteps)[0])
+    weights = tr.stack_lanes(params)
+    assert tr.fwd_shape(7, 128).split == 4
+    hs, cs = tr.train_fwd(xin, weights, cfg.forget_bias)
+    hs2, cs2 = tr.train_fwd(xin, weights, cfg.forget_bias)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, hs2) and torch.equal(cs, cs2)
+    hs_p, cs_p = tr.train_fwd_plain(xin, weights, cfg.forget_bias)
+    torch.testing.assert_close(hs.float(), hs_p.float(), **TOL[precision])
+    torch.testing.assert_close(cs.float(), cs_p.float(), **TOL[precision])
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_train_fwd_is_deterministic(cuda, precision):
+    """Two K2 runs on the trainer's batch give the same bits."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg, _, _, xin, weights = _train_case(cuda, 2048, 21, precision, 4)
+    runs = [tr.train_fwd(xin, weights, cfg.forget_bias) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_train_fwd_shapes_agree(cuda, precision):
+    """K2 at every tile and split it takes at H=100 gives the default
+    launch's bits: each gate is one thread's ordered chain whatever the
+    shape."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg, _, _, xin, weights = _train_case(cuda, 301, 21, precision, 6)
+    want = tr.train_fwd(xin, weights, cfg.forget_bias)
+    for split, tile in ((2, 8), (2, 16), (2, 40), (4, 32), (4, 40), (4, 80)):
+        got = tr.train_fwd(xin, weights, cfg.forget_bias, tile, split)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), (split, tile)
+
+
+def test_train_fwd_refuses_what_it_does_not_take(cuda):
+    """Over hidden 128, fnum over hidden, a tile not a multiple of 8, a
+    split of 3 or a CTA over 256 threads raise before any launch."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    cfg, _, _, xin, weights = _train_case(cuda, 64, 21, "fp32", 1)
+    before = tr.LAUNCHES["fwd_fp32"]
+    for tile, split in ((44, 2), (128, 2), (40, 3)):
+        with pytest.raises(ValueError):
+            tr.train_fwd(xin, weights, cfg.forget_bias, tile, split)
+    wide = [(torch.zeros(2, 7 + 136, 544, device=cuda),
+             torch.zeros(2, 544, device=cuda))]
+    with pytest.raises(ValueError, match="hidden <= 128"):
+        tr.train_fwd(xin, wide, cfg.forget_bias)
+    assert tr.LAUNCHES["fwd_fp32"] == before
 
 
 def test_train_bwd_is_deterministic(cuda):

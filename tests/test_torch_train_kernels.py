@@ -15,7 +15,7 @@ Inputs are made with numpy from a seed and go through both packages:
 - even T and depths 1 and 3 against the scan path in fp32;
 - the hand-written backward against torch.autograd through the plain
   forward loop, which has no custom backward;
-- K3's block limits, and the dW product's tiling and ordered split-K
+- K2's and K3's block limits, and the dW product's tiling and ordered split-K
   ranges replayed from the wrapper's sizing (every output once, every
   row once, the ordered fp32 sum within 1e-6 of fp64).
 """
@@ -180,13 +180,19 @@ def test_bf16_storage_keeps_fp32_weights_and_grads():
 
 
 def test_kernel_block_limits_raise():
-    tr._check_block(hidden=128, in_dim=7, smem=tr.MAX_SMEM)
+    # K2 (the fp32 core, ``fwd_shape``): hidden up to 128, fnum <= hidden,
+    # a tile a multiple of 8 and a CTA within 256 threads and 232,448 B
+    assert tr.fwd_shape(7, 128).smem <= tr.MAX_SMEM
+    with pytest.raises(ValueError, match="hidden <= 128"):
+        tr.fwd_shape(7, 200)
     with pytest.raises(ValueError, match="threads"):
-        tr._check_block(hidden=200, in_dim=7, smem=0)
+        tr.fwd_shape(7, 100, tile_b=128, split=2)
     with pytest.raises(ValueError, match="shared memory"):
-        tr._check_block(hidden=100, in_dim=7, smem=tr.MAX_SMEM + 1)
+        tr.fwd_shape(7, 100, tile_b=48, split=2)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tr.fwd_shape(7, 100, tile_b=44)
     with pytest.raises(ValueError, match="fnum <= hidden"):
-        tr._check_block(hidden=16, in_dim=57, smem=0)
+        tr.fwd_shape(57, 16)
     # K3's recurrence: 2 x (H rounded up to 8) threads in whole warps, the
     # step's da and, up to H = 104, Wh^T in shared memory (H = 100: 51,200
     # + 166,400 B)
