@@ -46,8 +46,9 @@ without printing the result line):
    products) and of the train step's device time by kernel, with its
    idle share;
 7. detect end to end through the CLI over a synthetic pod5 + basecall BAM
-   dataset (one 200 kb chromosome, 100 reads of 1.5-3 kb, no h5py) on the
-   card at bf16 and fp32, with K1's launch counts read around those runs;
+   dataset (one 200 kb chromosome, 100 reads of 1.5-3 kb over 16 pod5
+   files sharing one calls.bam, no h5py) on the card at bf16 and fp32,
+   with K1's launch counts read around those runs;
    the fp32 run's BEDs against a --device cpu run's, and the window-level
    predictions of the two devices, where every disagreement must be a
    near tie (|logit margin| below the two devices' logit difference);
@@ -99,6 +100,30 @@ without printing the result line):
    each against its plain version (fp32 2e-5, bf16 atol 2e-3 + rtol
    2e-2), with kernel, plain and cuDNN times at that width and the
    clusters resident.
+16. (after the build) the native host library (``deepmod_tpu_torch/native``,
+   g++ from the checkout's sources): its build seconds and the functions
+   it exports; it must load;
+17. (after phase 7) HostPool: detect through the CLI over phase 7's 16
+   pod5 files in batches of 2 (8 batches), bf16 on the card, at
+   --threads 1 and --threads 4 (spawn workers; the engine process alone
+   launches K1, counted around each run), with per-read and index files
+   where h5py is present: the two runs' BEDs and index files must be the
+   same bytes; walls, windows/s, stage seconds, the host's share of the
+   wall and os.cpu_count(); then a --threads 4 run with --trace, whose
+   torch.profiler trace gives the card's idle share in detect (a fresh
+   pool over 100 reads: start-up weighs heavily);
+18. (last) the host tools, each once in its own process: bench_host (the
+   host stage's one-thread rate on the numpy twins and on the native
+   library, which must give the same feature rows) and bench_e2e (warm
+   detect at --threads 1 and 4 with a shared predictor and pool, and
+   the card's idle share in a traced warm pass).
+
+Every process the script starts is stopped and reaped before it exits,
+whether it passed or failed: it adopts its descendants' orphans (Linux
+PR_SET_CHILD_SUBREAPER), stops multiprocessing's resource tracker (which
+the HostPool's queues start and which would otherwise outlive the
+script), and then waits for, or kills, every child left; a ``[procs]``
+line names each one found.
 
 Prints the ``{"kernels": [...]}`` line (a name ending in ``_tc``: a
 tensor-core kernel), the nvidia-smi line and, last,
@@ -112,11 +137,13 @@ path in the repo), ``replaces`` (file:line of the TPU kernel),
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import glob
 import json
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -124,7 +151,10 @@ import tempfile
 import time
 
 import numpy as np
-import torch
+
+# torch is imported in main(): the detect runs' HostPool workers are spawned
+# and re-import this file, and a worker must not load torch
+torch = None
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -137,6 +167,9 @@ TIME_B = 262144
 LONG_B = 4096          # windows of the T=64 and T=21 K4 checks
 LAYERED_T = (20, 31)   # window sizes the layered kernel (K4) serves
 DETECT_T_READS = 20    # reads of the K4 detect dataset
+DETECT_FILES = 16      # pod5 files the detect dataset's reads are spread over
+POOL_FILES_PER_BATCH = 2   # --files_per_thread of the HostPool runs: 8 batches
+POOL_THREADS = 4
 TRAIN_B = 2048
 TRAIN_READS = 12
 SEED = 2024
@@ -153,6 +186,79 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants' orphans, so that a
+    process whose parent exits first (the resource tracker of a tool run
+    in a subprocess) comes back here to be reaped."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:  # PR_SET_CHILD_SUBREAPER
+        log(f"[procs] prctl(PR_SET_CHILD_SUBREAPER) failed: errno "
+            f"{ctypes.get_errno()}")
+
+
+def _children() -> list:
+    """(pid, state, command line) of every child of this process."""
+    me, out = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                stat = fh.read()
+            with open(f"/proc/{entry}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        # after the command's closing parenthesis: state, ppid, ...
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) == me:
+            out.append((int(entry), state, cmd.strip()))
+    return out
+
+
+def stop_children(grace: float = 10.0) -> None:
+    """Stop and reap every process this one started or adopted: live
+    multiprocessing children, then the resource tracker (it ignores
+    SIGTERM and stops when its pipe closes), then any child left, which
+    gets ``grace`` seconds, SIGTERM, and SIGKILL 5 s later. The collection
+    first lets finished HostPools' semaphores unlink themselves, so the
+    tracker has none left to clean up."""
+    import gc
+    import multiprocessing
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    for proc in multiprocessing.active_children():
+        log(f"[procs] stopping {proc.name} (pid {proc.pid})")
+        proc.terminate()
+        proc.join(5.0)
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        os.close(tracker._fd)
+        os.waitpid(tracker._pid, 0)
+        tracker._fd = tracker._pid = None
+    deadline = time.time() + grace
+    sent = {}
+    while True:
+        kids = _children()
+        if not kids:
+            return
+        for pid, state, cmd in kids:
+            if pid not in sent:
+                log(f"[procs] child {pid} ({state}) left: {cmd}")
+                sent[pid] = None
+            if os.waitpid(pid, os.WNOHANG)[0]:
+                continue
+            now = time.time()
+            if now > deadline and sent[pid] is None:
+                os.kill(pid, signal.SIGTERM)
+                sent[pid] = now
+            elif sent[pid] is not None and now > sent[pid] + 5.0:
+                os.kill(pid, signal.SIGKILL)
+        time.sleep(0.05)
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
@@ -1414,23 +1520,38 @@ def read_beds(folder: str) -> dict:
 
 
 def run_detect(ds: str, out: str, device: str, precision: str,
-               model: str = "", windowsize: int = 21) -> float:
+               model: str = "", windowsize: int = 21,
+               extra: tuple = ()) -> float:
+    return run_detect_logged(ds, out, device, precision, model, windowsize,
+                             extra)[0]
+
+
+def run_detect_logged(ds: str, out: str, device: str, precision: str,
+                      model: str = "", windowsize: int = 21,
+                      extra: tuple = ()) -> tuple:
+    """detect through the CLI; (wall seconds, what it printed)."""
+    import contextlib
+    import io
+
     from deepmod_tpu_torch.cli import main as cli_main
 
     t0 = time.perf_counter()
-    rc = cli_main([
-        "detect", "--wrkBase", os.path.join(ds, "pod5"),
-        "--Ref", os.path.join(ds, "ref.fa"),
-        "--modfile", model or os.path.join(ds, "model.npz"),
-        "--basecalls", os.path.join(ds, "calls.bam"),
-        "--outFolder", out, "--alignStr", "builtin", "--Base", "C",
-        "--precision", precision, "--device", device, "--outLevel", "0",
-        "--perRead", "0", "--windowsize", str(windowsize),
-    ])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main([
+            "detect", "--wrkBase", os.path.join(ds, "pod5"),
+            "--Ref", os.path.join(ds, "ref.fa"),
+            "--modfile", model or os.path.join(ds, "model.npz"),
+            "--basecalls", os.path.join(ds, "calls.bam"),
+            "--outFolder", out, "--alignStr", "builtin", "--Base", "C",
+            "--precision", precision, "--device", device, "--outLevel", "0",
+            "--perRead", "0", "--windowsize", str(windowsize), *extra,
+        ])
     wall = time.perf_counter() - t0
-    assert rc == 0, f"detect {device}/{precision} exited {rc}"
+    sys.stdout.write(buf.getvalue())
+    assert rc == 0, f"detect {device}/{precision} {extra} exited {rc}"
     assert os.path.exists(out + ".done")
-    return wall
+    return wall, buf.getvalue()
 
 
 def phase_detect(device, workdir: str) -> dict:
@@ -1448,11 +1569,12 @@ def phase_detect(device, workdir: str) -> dict:
         genome_sizes={"chrS": 200_000}, num_reads=100,
         read_length=(1500, 3000), seed=SEED, fast5_style="move",
         mod_motif="CG", mod_level_shift=0.5,
-    ))
+    ), n_files=DETECT_FILES)
     cfg = BiLSTMConfig()
     save_bilstm_npz(os.path.join(ds, "model.npz"),
                     init_bilstm_params(SEED + 1, cfg, device="cpu"), cfg)
-    log(f"[detect] dataset: {len(reads)} reads, "
+    log(f"[detect] dataset: {len(reads)} reads over "
+        f"{len({r.path for r in reads})} pod5 files, "
         f"{time.perf_counter() - t0:.2f} s to write")
 
     # the main path: counts from 0 just before, read just after
@@ -1586,6 +1708,152 @@ def phase_detect_layered(device, workdir: str) -> dict:
             log(f"[detect T={windowsize}] {key}: wall {wall:.2f} s, "
                 f"{res['windows'] / wall:.1f} windows/s end to end")
         out[windowsize] = dict(res, launches=launches, walls=walls)
+    return out
+
+
+def phase_native() -> dict:
+    """Build the native host library from the checkout's sources (g++) and
+    list the functions it exports; fails where it does not load."""
+    from deepmod_tpu_torch.native import lib
+    from deepmod_tpu_torch.native.fast5_native import native_fast5_available
+
+    t0 = time.perf_counter()
+    ok = lib.native_available()
+    secs = time.perf_counter() - t0
+    info = lib.build_info
+    assert ok, f"the native host library did not load: {info['error']}"
+    funcs = lib.loaded_functions()
+    log(f"[native] built in {secs:.2f} s (g++ {info['seconds']:.2f} s, "
+        f"cached {info['cached']}) at {os.path.relpath(info['path'], REPO)}")
+    log(f"[native] functions loaded: "
+        f"{sorted(k for k, v in funcs.items() if v)}; missing: "
+        f"{sorted(k for k, v in funcs.items() if not v)}; fast5 reader "
+        f"(needs h5py's libhdf5): {native_fast5_available()}")
+    assert all(funcs.values()), funcs
+    return {"seconds": secs, "functions": funcs}
+
+
+def _stages(printed: str) -> dict:
+    """The CLI's ``stage NAME: SECONDSs`` lines (--outLevel 0)."""
+    out = {}
+    for line in printed.splitlines():
+        line = line.strip()
+        if line.startswith("stage ") and line.endswith("s"):
+            name, _, secs = line[len("stage "):].rpartition(": ")
+            out[name] = float(secs[:-1])
+    return out
+
+
+def _run_files(folder: str) -> dict:
+    """The BEDs and index files of a detect run, by name; an index file's
+    header names its run's output folder, written here as <out>."""
+    out = read_beds(folder)
+    own = os.path.abspath(folder).encode()
+    for path in sorted(glob.glob(os.path.join(folder, "mod", "rnn.pred.ind.*"))):
+        with open(path, "rb") as fh:
+            out["mod/" + os.path.basename(path)] = fh.read().replace(
+                own, b"<out>")
+    return out
+
+
+def phase_pool(workdir: str, windows: int) -> dict:
+    """detect through the CLI over the detect dataset's DETECT_FILES pod5
+    files in batches of POOL_FILES_PER_BATCH: --threads 1 (the engine's
+    prefetch thread) and --threads POOL_THREADS (HostPool spawn workers;
+    the engine process alone launches K1), bf16 on the card. Their BEDs
+    and index files (where h5py writes the per-read files) must be the
+    same bytes; then a --trace run of the pooled path gives the card's
+    idle share in detect."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.tools._host_bench import trace_idle_share
+    from deepmod_tpu_torch.tools.bench_e2e import HOST_WAIT_STAGES
+
+    ds = os.path.join(workdir, "ds")
+    try:
+        import h5py  # noqa: F401
+        per_read = ("--perRead", "1")
+    except ImportError:
+        per_read = ()  # the predetail writer (and index files) need h5py
+    n_batches = -(-DETECT_FILES // POOL_FILES_PER_BATCH)
+    assert n_batches >= 4, n_batches
+    res = {"cpu_count": os.cpu_count(), "batches": n_batches,
+           "index_files": bool(per_read)}
+    log(f"[pool] os.cpu_count()={os.cpu_count()}; {DETECT_FILES} pod5 files "
+        f"in {n_batches} batches; per-read files and index files: "
+        f"{bool(per_read)}")
+    files = {}
+    for threads in (1, POOL_THREADS):
+        out = os.path.join(workdir, f"pool_t{threads}")
+        ops.reset_launch_counts()
+        wall, printed = run_detect_logged(
+            ds, out, "cuda", "bf16",
+            extra=("--threads", str(threads), "--files_per_thread",
+                   str(POOL_FILES_PER_BATCH), *per_read))
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        assert launches["bf16"] > 0, launches
+        stages = _stages(printed)
+        wait = sum(stages.get(k, 0.0) for k in HOST_WAIT_STAGES)
+        if threads > 1:
+            assert "wait_for_host_workers" in stages, stages
+        res[threads] = {"wall": wall, "windows_per_s": windows / wall,
+                        "host_share": wait / wall, "stages": stages,
+                        "k1_launches": launches["bf16"]}
+        log(f"[pool] --threads {threads}: wall {wall:.3f} s, "
+            f"{windows / wall:.1f} windows/s, host wait {wait:.3f} s "
+            f"({100 * wait / wall:.1f}% of the wall), K1 launches in the "
+            f"engine {launches['bf16']}, stage_seconds {stages}")
+        files[threads] = _run_files(out)
+    assert files[1] and files[1] == files[POOL_THREADS], (
+        sorted(files[1]), sorted(files[POOL_THREADS]))
+    assert any(k.startswith("mod/") for k in files[1]) == bool(per_read)
+    log(f"[pool] --threads {POOL_THREADS} gives --threads 1's bytes: "
+        f"{sorted(files[1])}")
+
+    trace = os.path.join(workdir, "pool_trace")
+    ops.reset_launch_counts()
+    wall = run_detect(
+        ds, os.path.join(workdir, "pool_traced"), "cuda", "bf16",
+        extra=("--threads", str(POOL_THREADS), "--files_per_thread",
+               str(POOL_FILES_PER_BATCH), "--trace", trace))
+    busy, span, idle = trace_idle_share(os.path.join(trace, "detect.json"))
+    assert ops.LAUNCHES["bf16"] > 0 and busy > 0, (ops.LAUNCHES, busy)
+    res["trace"] = {"wall": wall, "busy_s": busy, "span_s": span,
+                    "idle_share": idle}
+    log(f"[pool] traced --threads {POOL_THREADS} run: wall {wall:.3f} s, "
+        f"card busy {busy:.4f} s of the trace's {span:.3f} s: idle share "
+        f"{idle:.4f}")
+    return res
+
+
+def phase_host_tools() -> dict:
+    """bench_host (the host stage's one-thread rate, numpy twins against
+    the native library) and bench_e2e (warm detect wall at 1 and
+    POOL_THREADS threads, and the card's idle share in a traced warm
+    pass), each once in its own process."""
+    out = {}
+    for tool, args, limit in (
+            ("bench_host", ("--repeats", "1"), 300),
+            ("bench_e2e", ("--threads", f"1,{POOL_THREADS}"), 300)):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"deepmod_tpu_torch.tools.{tool}", *args],
+            capture_output=True, text=True, timeout=limit, cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO),
+        )
+        for line in proc.stdout.splitlines():
+            log(f"[{tool}] {line}")
+        assert proc.returncode == 0, f"{tool} exited {proc.returncode}:\n" \
+            + proc.stderr[-3000:]
+        rows = [json.loads(ln) for ln in proc.stdout.splitlines()
+                if ln.startswith("{")]
+        assert rows, proc.stdout
+        if tool == "bench_host":
+            assert all(r["rows_equal"] for r in rows), rows
+        else:
+            assert all(r["traced"]["busy_s"] > 0 for r in rows), rows
+        log(f"[{tool}] {time.perf_counter() - t0:.1f} s")
+        out[tool] = rows
     return out
 
 
@@ -1780,11 +2048,28 @@ def phase_train_layered(device, workdir: str, feats: dict) -> dict:
 
 
 def main() -> int:
+    global torch
+    import torch
+
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA GPU available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
     import deepmod_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    adopt_orphans()
+    try:
+        kind = smoke()
+    finally:
+        stop_children()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def smoke() -> str:
+    """Every phase; the card's name."""
     from deepmod_tpu_torch.ops import _build
 
     device = torch.device("cuda", 0)
@@ -1814,6 +2099,7 @@ def main() -> int:
             f"H={hidden}: {tc_build_line(BiLSTMConfig(num_hidden=hidden))}")
     log(f"[build] K3's kernels: {k3_build_line()}")
     log(f"[build] the fp32 core (K1, K4 fp32, K2): {f32_build_line()}")
+    phase_native()
 
     kern = phase_kernel(device)
     tkern = phase_train_kernels(device)
@@ -1828,9 +2114,15 @@ def main() -> int:
     log(f"[H128] phase: {time.perf_counter() - t_wide:.2f} s")
     with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as workdir:
         det = phase_detect(device, workdir)
+        t_pool = time.perf_counter()
+        phase_pool(workdir, det["windows"])
+        log(f"[pool] phase: {time.perf_counter() - t_pool:.2f} s")
         det_k4 = phase_detect_layered(device, workdir)
         trn = phase_train(device, workdir)
         trn_k4 = phase_train_layered(device, workdir, trn["feats"])
+    t_tools = time.perf_counter()
+    phase_host_tools()
+    log(f"[host tools] phase: {time.perf_counter() - t_tools:.2f} s")
     for key, wall in det["walls"].items():
         log(f"[detect] {key}: wall {wall:.2f} s, "
             f"{det['windows'] / wall:.1f} windows/s end to end")
@@ -1896,10 +2188,7 @@ def main() -> int:
     assert len(kernels) == 17 and len(line) < 5500, (len(kernels), len(line))
     log(line)
     log(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return name
 
 
 if __name__ == "__main__":

@@ -2,7 +2,8 @@
 
 The JAX package ``deepmod_tpu`` stays the reference; this package imports
 nothing of it. Host layers (io, align, features, aggregate, engine host
-stages, testing) are its own copies of the JAX package's numpy code; the
+stages, testing) are its own copies of the JAX package's numpy code and
+of its C++ host library (``native``); the
 BiLSTM classifier runs on ``torch`` with kernels hand-written in CUDA for
 Hopper (``csrc/bilstm_fused.cu`` and ``csrc/bilstm_layer.cu`` for
 inference, ``csrc/bilstm_mono_*.cu`` for the mono kernel's other
@@ -17,7 +18,9 @@ used only when asked for (``device="cpu"``, ``--device cpu``).
     deepmod_tpu_torch.ops     - the CUDA kernel wrappers and their plain versions
     deepmod_tpu_torch.engine  - the detect and getfeatures pipelines
     deepmod_tpu_torch.train   - feature-file loading and the trainer
-    deepmod_tpu_torch.tools   - the transcendental-rate and mono-schedule probes
+    deepmod_tpu_torch.tools   - the transcendental-rate and mono-schedule probes,
+                                the host-stage and detect benchmarks
+    deepmod_tpu_torch.native  - the native host library (C++, built at first use)
     deepmod_tpu_torch.io, align, features, aggregate, utils, testing
 """
 

@@ -7,8 +7,8 @@ out to ``minimap2 -ax map-ont`` or ``bwa mem -x ont2d`` per batch
 - ``ExternalAligner``: the same subprocess contract, used when the binary
   exists (flag-compatible with the reference's --alignStr);
 - ``BuiltinAligner`` via ``MinimizerAligner``: in-process seed-chain-extend
-  (deepmod_tpu_torch.align.minimizer) in numpy — no temp files, no
-  subprocesses;
+  (deepmod_tpu_torch.align.minimizer), with an optional C++ native core
+  (deepmod_tpu_torch.native) when built — no temp files, no subprocesses;
 - ``get_aligner('auto')`` prefers the external binary if present and falls
   back to the built-in mapper.
 """

@@ -137,8 +137,15 @@ def _cpg_swap(ref_codes: np.ndarray, read_codes: np.ndarray) -> None:
     """In-place CpG indel canonicalization (myDetect.py:680-700).
 
     Sequential, like the reference, so each swap is visible to later
-    positions; only candidate indices are visited.
+    positions; the C path (native.lib.cpg_swap_native) runs the full
+    reference scan, the Python fallback only candidate indices.
     """
+    if (ref_codes.flags.c_contiguous and read_codes.flags.c_contiguous
+            and read_codes.flags.writeable):
+        from deepmod_tpu_torch.native.lib import cpg_swap_native
+
+        if cpg_swap_native(ref_codes, read_codes):
+            return
     c, g, dash = ord("C"), ord("G"), _DASH
     n = len(ref_codes)
     candidates = np.flatnonzero(

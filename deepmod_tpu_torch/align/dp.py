@@ -19,6 +19,11 @@ import numpy as np
 # CIGAR op characters produced here
 M, I, D = "M", "I", "D"
 
+try:
+    from deepmod_tpu_torch.native.lib import global_align_ops_native as _native_align
+except Exception:  # pragma: no cover
+    _native_align = None
+
 
 def _encode(s: str) -> np.ndarray:
     return np.frombuffer(s.encode(), np.uint8)
@@ -29,12 +34,18 @@ def global_align_ops(a: str, b: str) -> List[Tuple[str, int]]:
 
     Returns run-length CIGAR ops (M/I/D) with unit costs
     (mismatch=1, gap=1). I consumes read (a); D consumes ref (b).
-    The JAX package's C++ core shares this cost model and tie-breaking.
+    Dispatches to the C++ core (deepmod_tpu_torch.native) when built; the two
+    implementations share cost model and tie-breaking and are pinned
+    equal by tests/test_torch_native.py.
 
     FULL-matrix O(n*m) DP (int32 backpointers): callers must bound the
     segment sizes — BuiltinAligner caps every gap/tail at max_dp (2000,
     a 16 MB matrix) and soft-clips / splits past it.
     """
+    if _native_align is not None:
+        result = _native_align(a, b)
+        if result is not None:
+            return result
     n, m = len(a), len(b)
     if n == 0 and m == 0:
         return []

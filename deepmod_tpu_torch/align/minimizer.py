@@ -28,6 +28,18 @@ from deepmod_tpu_torch.utils.common import reverse_complement
 from .cigar import _OP_INDEX
 from .dp import global_align_ops
 
+try:
+    from deepmod_tpu_torch.native.lib import minimizers_native as _native_minimizers
+    from deepmod_tpu_torch.native.lib import chain_band_native as _native_chain
+    from deepmod_tpu_torch.native.lib import (
+        global_align_multi_bytes as _native_align_multi,
+    )
+    from deepmod_tpu_torch.native.lib import hash_index_native as _native_hash_index
+except Exception:  # pragma: no cover
+    _native_minimizers = None
+    _native_chain = None
+    _native_align_multi = None
+    _native_hash_index = None
 from .sam import SamRecord
 
 _M_BYTE = ord("M")
@@ -69,8 +81,15 @@ def _kmer_hashes(seq: str, k: int) -> np.ndarray:
 
 
 def _minimizers(seq: str, k: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
-    """(positions, hashes) of (k, w) minimizers (splitmix64 hashing,
-    leftmost-min window semantics)."""
+    """(positions, hashes) of (k, w) minimizers.
+
+    Uses the C++ core when built (identical splitmix64 hashing and
+    leftmost-min window semantics; pinned equal by tests/test_torch_native.py).
+    """
+    if _native_minimizers is not None:
+        result = _native_minimizers(seq, k, w)
+        if result is not None:
+            return result
     hashes = _kmer_hashes(seq, k)
     if len(hashes) == 0:
         return np.empty(0, np.int64), np.empty(0, np.uint64)
@@ -79,7 +98,7 @@ def _minimizers(seq: str, k: int, w: int) -> Tuple[np.ndarray, np.ndarray]:
         sel = hashes[pos]
         # an all-invalid-kmer sequence must yield NO minimizers (the BAD
         # sentinel would otherwise enter the index and match other all-N
-        # sequences); mirrors the long path
+        # sequences); mirrors the long path and the native core
         keep = sel != np.uint64(0xFFFFFFFFFFFFFFFF)
         return pos[keep], sel[keep]
     windows = np.lib.stride_tricks.sliding_window_view(hashes, w)
@@ -110,9 +129,9 @@ class MinimizerIndex:
         self.w = w
         self.max_hits = max_hits
         self.names: List[str] = list(seqs.keys())
-        # ONE copy of the genome per index, as bytes (the DP decodes tiny
-        # slices) — a parallel str list would double per-worker genome
-        # memory
+        # ONE copy of the genome per index, as bytes (the native DP reads
+        # bytes directly; the python fallback decodes tiny slices) — a
+        # parallel str list would double per-worker genome memory
         self.seqs_b: List[bytes] = [seqs[n].encode() for n in self.names]
         # hash -> concatenated (rid, pos) hit lists, built via sorting
         all_hash = []
@@ -130,9 +149,23 @@ class MinimizerIndex:
         self._hashes = hashes[order]
         self._rids = rids[order]
         self._positions = positions[order]
+        # native open-addressing table: O(1)/query vs searchsorted's
+        # O(log n) — the log factor dominates lookups on large genomes
+        self._table = (
+            _native_hash_index(self._hashes)
+            if _native_hash_index is not None
+            else None
+        )
 
     def lookup(self, query_hashes: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """For each query hash, all index hits: (query_idx, rid, rpos)."""
+        if self._table is not None:
+            qidx, src = self._table.lookup(query_hashes, self.max_hits)
+            return (
+                qidx,
+                self._rids[src].astype(np.int64),
+                self._positions[src],
+            )
         left = np.searchsorted(self._hashes, query_hashes, side="left")
         right = np.searchsorted(self._hashes, query_hashes, side="right")
         counts = np.minimum(right - left, self.max_hits)
@@ -169,6 +202,27 @@ def _best_chain(
         mask = rid == cur_rid
         q = qpos[mask]
         r = rpos[mask]
+        if _native_chain is not None:
+            native = _native_chain(q, r, band)
+            if native is not None:
+                keep_q_n, keep_r_n, second_n = native
+                if len(keep_q_n) == 0:
+                    continue
+                chain = _Chain(
+                    rid=int(cur_rid),
+                    strand=strand,
+                    anchors_q=keep_q_n,
+                    anchors_r=keep_r_n,
+                    score=len(keep_q_n),
+                    second_score=second_n,
+                )
+                if best is None or chain.score > best.score:
+                    if best is not None:
+                        runner_up_score = max(runner_up_score, best.score)
+                    best = chain
+                else:
+                    runner_up_score = max(runner_up_score, chain.score)
+                continue
         diag = r - q
         # histogram diagonals into `band`-wide bins; densest bin wins
         bins = diag // band
@@ -264,9 +318,10 @@ class BuiltinAligner:
         ref_b = self.index.seqs_b[chain.rid]
         # The alignment is a sequence of PIECES: exact-match M runs between
         # same-diagonal anchors, interleaved with DP segments (anchor gaps
-        # + read tails), optionally bracketed by soft clips. The piece
-        # layout is computed with vectorized numpy — no per-anchor Python
-        # loop.
+        # + read tails), optionally bracketed by soft clips. All segments
+        # run in ONE native DP call (per-call ctypes marshalling dominates
+        # at the typical ~18 gaps/read) and the piece layout is computed
+        # with vectorized numpy — no per-anchor Python loop.
         aq = chain.anchors_q
         ar = chain.anchors_r
         # break the chain at gaps the DP must not bridge (> max_dp on
@@ -319,19 +374,30 @@ class BuiltinAligner:
             segs[-1] = (last_q, last_q + tail_len, last_r, tail_r_end)
 
         # per-column op bytes for every DP segment, as one flat buffer
-        seg_parts: List[np.ndarray] = []
-        for qs, qe, rs, re in segs:
-            runs = global_align_ops(oseq[qs:qe], ref_b[rs:re].decode())
-            if runs:
-                chars = np.frombuffer(
-                    "".join(op for op, _ in runs).encode(), np.uint8
-                )
-                counts = np.asarray([c for _, c in runs], np.int64)
-                seg_parts.append(np.repeat(chars, counts))
-            else:
-                seg_parts.append(np.empty(0, np.uint8))
-        buf = np.concatenate(seg_parts) if seg_parts else np.empty(0, np.uint8)
-        seg_lens = np.asarray([len(b) for b in seg_parts], np.int64)
+        raw = None
+        if len(segs) and _native_align_multi is not None:
+            raw = _native_align_multi(oseq.encode(), ref_b, segs)
+        if raw is not None:
+            buf, seg_lens = raw
+            seg_lens = np.asarray(seg_lens, np.int64)
+        else:
+            seg_parts: List[np.ndarray] = []
+            for qs, qe, rs, re in segs:
+                runs = global_align_ops(oseq[qs:qe], ref_b[rs:re].decode())
+                if runs:
+                    chars = np.frombuffer(
+                        "".join(op for op, _ in runs).encode(), np.uint8
+                    )
+                    counts = np.asarray([c for _, c in runs], np.int64)
+                    seg_parts.append(np.repeat(chars, counts))
+                else:
+                    seg_parts.append(np.empty(0, np.uint8))
+            buf = (
+                np.concatenate(seg_parts)
+                if seg_parts
+                else np.empty(0, np.uint8)
+            )
+            seg_lens = np.asarray([len(b) for b in seg_parts], np.int64)
 
         # piece table: [soft_left?] [head seg?] body(M|seg)* M(k)
         #              [tail seg?] [soft_right?]  — a capped tail emits

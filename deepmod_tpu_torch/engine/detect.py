@@ -6,7 +6,9 @@ mPredict1 -> sum_handler, myDetect.py:1124-1263, 948-984, 392-465,
 488-782, 787-834, 1028-1120):
 
 - fast5/pod5 batches are ingested, aligned and featurized on the host
-  (the numpy host layers, ``engine.host_worker``);
+  (``engine.host_worker``; with ``--threads N`` over several file
+  batches, in N spawn workers of ``engine.host_pool``, which also write
+  their batches' per-read outputs);
 - ALL windows of a file batch are classified in large bucketed chunks by
   ``WindowPredictor`` on one device: the BiLSTM center features come from
   the CUDA kernels (``ops.bilstm_fused``: K1 for odd windows up to 25, K4
@@ -17,9 +19,8 @@ mPredict1 -> sum_handler, myDetect.py:1124-1263, 948-984, 392-465,
   per-(chr, strand) counters for the BEDs.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--threads > 1`` over several batches (HostPool), ``--predDet 0``,
-``--mod_cluster``, device aggregation, the fnum-57 histogram pack, and
-multi-device or multi-process runs.
+item): ``--predDet 0``, ``--mod_cluster``, device aggregation, the
+fnum-57 histogram pack, and multi-device or multi-process runs.
 """
 
 from __future__ import annotations
@@ -30,13 +31,17 @@ import dataclasses
 import glob
 import os
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from deepmod_tpu_torch.aggregate.summarize import CountsMap, write_bed
+from deepmod_tpu_torch.aggregate.summarize import (
+    CountsMap,
+    PositionCounts,
+    write_bed,
+)
 from deepmod_tpu_torch.engine.outputs import (
     OutputOptions,
     build_batch_request,
@@ -484,6 +489,16 @@ def _output_options(config: DetectConfig) -> OutputOptions:
     )
 
 
+def _merge_counts_coo(counts: CountsMap, coo) -> None:
+    """Fold a worker batch's COO count summary into the engine's counters
+    — the only serialized piece of the output stage under HostPool."""
+    for chrom, strand, length, pos, cov, mod in coo:
+        key = (chrom, strand)
+        if key not in counts:
+            counts[key] = PositionCounts.zeros(length)
+        counts[key].add_coo(pos, cov, mod)
+
+
 def _write_index_files(
     index_entries: List[List[str]], config: DetectConfig
 ) -> None:
@@ -518,21 +533,25 @@ def _check_ported(config: DetectConfig) -> None:
 def detect_run(
     config: DetectConfig,
     predictor: Optional[WindowPredictor] = None,
+    host_pool=None,
 ) -> DetectResult:
     """Full detect: per-read prediction + genomic summaries + BED.
 
     ``predictor`` reuses an already-built WindowPredictor (device-resident
-    weights) across runs; it must match the configured model."""
+    weights) across runs; it must match the configured model.
+    ``host_pool`` likewise reuses a warm ``engine.host_pool.HostPool``
+    (spawned workers with their aligner index loaded); its HostOptions
+    must match the config's."""
     _check_ported(config)
     if not config.trace_dir:
-        return _detect_run_inner(config, predictor)
+        return _detect_run_inner(config, predictor, host_pool)
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.device(config.device).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        result = _detect_run_inner(config, predictor)
+        result = _detect_run_inner(config, predictor, host_pool)
     os.makedirs(config.trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(config.trace_dir, "detect.json"))
     return result
@@ -541,6 +560,7 @@ def detect_run(
 def _detect_run_inner(
     config: DetectConfig,
     predictor: Optional[WindowPredictor] = None,
+    host_pool=None,
 ) -> DetectResult:
     start_time = time.time()
     os.makedirs(os.path.join(config.out_folder, config.file_id), exist_ok=True)
@@ -594,12 +614,6 @@ def _detect_run_inner(
         files[i * config.files_per_batch : (i + 1) * config.files_per_batch]
         for i in range(n_batches)
     ]
-    if config.threads > 1 and len(batches) > 1:
-        raise _not_ported(
-            "--threads > 1 over several file batches (HostPool workers)",
-            "HostPool",
-        )
-
     def ct_folder_for(batch_id: int) -> str:
         folder = os.path.join(
             config.out_folder, config.file_id, str(batch_id // sub_folder_size)
@@ -607,46 +621,147 @@ def _detect_run_inner(
         os.makedirs(folder, exist_ok=True)
         return folder
 
-    # a prefetch thread prepares the NEXT batch's host work while the
-    # device consumes the current one, and a writer thread overlaps the
-    # output stage with the next batch's inference
-    init_worker(host_opts)
     todo = [(batch_id, batch) for batch_id, batch in enumerate(batches) if batch]
-    with cf.ThreadPoolExecutor(max_workers=1) as prefetch, \
-            cf.ThreadPoolExecutor(max_workers=1) as writer:
-        future = (
-            prefetch.submit(host_process_files, todo[0][1]) if todo else None
+    if config.threads > 1 and len(batches) > 1:
+        # host stages AND output writes in spawn workers (they never touch
+        # the device): each worker ingests a batch, ships the compact
+        # feature block up for classification here, receives the
+        # predictions back and writes ITS batch's predetail HDF5 in
+        # parallel with the other workers (per-batch files, the
+        # reference's own exclusivity, myDetect.py:714-760). Only the COO
+        # count merge is serialized here.
+        from .host_pool import HostPool
+
+        out_opts = _output_options(config)
+        target_base = config.base if config.target_only else None
+        own_pool = host_pool is None
+        pool = host_pool if host_pool is not None else HostPool(
+            config.threads, host_opts
         )
-        for pos, (batch_id, batch) in enumerate(todo):
-            try:
-                with timer.stage("host_ingest_align_features"):
-                    results, batch_errors = future.result()
-            except Exception as exc:
-                errors.add(
-                    f"Batch worker failed: {type(exc).__name__}",
-                    f"batch_{batch_id}",
-                )
-                results, batch_errors = [], {}
-            if pos + 1 < len(todo):
-                future = prefetch.submit(host_process_files, todo[pos + 1][1])
-            for kind, paths in batch_errors.items():
-                errors.extend(kind, paths)
-            if not results:
-                continue
-            preds = predict_batch_windows(
-                results, predictor, timer,
-                target_base=config.base if config.target_only else None,
+        if pool.host_opts != host_opts:
+            raise ValueError(
+                "host_pool was built with different HostOptions than this "
+                "config resolves to — reuse is only valid across runs over "
+                "the same reference/aligner/feature settings"
             )
-            for r in results:
-                r.features = None  # outputs never read them
-            out_futs.append(
-                writer.submit(
-                    apply_batch_outputs, results, preds, config, counts,
-                    batch_id, ct_folder_for(batch_id), timer,
-                )
+        queued = deque(todo)
+        bid_to_batch: Dict[int, int] = {}  # pool bid -> run batch id
+        outstanding = 0
+        ok = False
+        try:
+            while queued or outstanding:
+                # keep every live worker ~2 batches deep: one being
+                # ingested, one awaiting preds/writing outputs
+                while queued:
+                    load = pool.min_load()
+                    if load is None:  # every worker died: fail the rest
+                        while queued:
+                            batch_id, _ = queued.popleft()
+                            errors.add(
+                                "Batch worker failed: WorkerDied",
+                                f"batch_{batch_id}",
+                            )
+                        break
+                    if load >= 2:
+                        break
+                    batch_id, batch = queued.popleft()
+                    bid = pool.submit_ingest(
+                        batch_id, batch, ct_folder_for(batch_id),
+                        out_opts, target_base,
+                    )
+                    bid_to_batch[bid] = batch_id
+                    outstanding += 1
+                if not outstanding:
+                    continue
+                # the engine's wait on the host stage (the single-process
+                # path's counterpart: host_ingest_align_features)
+                with timer.stage("wait_for_host_workers"):
+                    msg = pool.next_message()
+                kind = msg[0]
+                if kind == "features":
+                    _, wid, bid, feats, centers, batch_errors = msg
+                    for ekind, paths in batch_errors.items():
+                        errors.extend(ekind, paths)
+                    with timer.stage("device_inference"):
+                        preds_sel = predictor.predict_from_features(
+                            feats, centers,
+                            window=predictor.config.timesteps,
+                            assume_packable=True,
+                        )
+                    pool.send_preds(wid, bid, preds_sel)
+                elif kind == "outputs":
+                    (_, wid, bid, n_r, n_w, idx, coo, secs,
+                     batch_errors) = msg
+                    for ekind, paths in batch_errors.items():
+                        errors.extend(ekind, paths)
+                    n_reads += n_r
+                    n_windows += n_w
+                    all_index.extend(idx)
+                    if secs:
+                        timer.add("outputs_in_workers", secs)
+                    with timer.stage("counts_merge"):
+                        _merge_counts_coo(counts, coo)
+                    bid_to_batch.pop(bid, None)
+                    outstanding -= 1
+                elif kind == "error":
+                    _, wid, bid, phase, message = msg
+                    errors.add(
+                        f"Batch worker failed: {message.split(':')[0]}",
+                        f"batch_{bid_to_batch.pop(bid, bid)}",
+                    )
+                    outstanding -= 1
+            ok = True
+        finally:
+            if own_pool:
+                pool.close()
+            elif not ok:
+                # a shared pool must come back clean after this run's
+                # exception: drop its in-flight state and the workers'
+                # stashed batches so the next run schedules freshly
+                pool.abandon_inflight()
+    else:
+        # a prefetch thread prepares the NEXT batch's host work while the
+        # device consumes the current one, and a writer thread overlaps
+        # the output stage with the next batch's inference
+        init_worker(host_opts)
+        with cf.ThreadPoolExecutor(max_workers=1) as prefetch, \
+                cf.ThreadPoolExecutor(max_workers=1) as writer:
+            future = (
+                prefetch.submit(host_process_files, todo[0][1])
+                if todo else None
             )
-            drain_outputs(2)  # bound the writer backlog
-        drain_outputs(0)
+            for pos, (batch_id, batch) in enumerate(todo):
+                try:
+                    with timer.stage("host_ingest_align_features"):
+                        results, batch_errors = future.result()
+                except Exception as exc:
+                    errors.add(
+                        f"Batch worker failed: {type(exc).__name__}",
+                        f"batch_{batch_id}",
+                    )
+                    results, batch_errors = [], {}
+                if pos + 1 < len(todo):
+                    future = prefetch.submit(
+                        host_process_files, todo[pos + 1][1]
+                    )
+                for kind, paths in batch_errors.items():
+                    errors.extend(kind, paths)
+                if not results:
+                    continue
+                preds = predict_batch_windows(
+                    results, predictor, timer,
+                    target_base=config.base if config.target_only else None,
+                )
+                for r in results:
+                    r.features = None  # outputs never read them
+                out_futs.append(
+                    writer.submit(
+                        apply_batch_outputs, results, preds, config, counts,
+                        batch_id, ct_folder_for(batch_id), timer,
+                    )
+                )
+                drain_outputs(2)  # bound the writer backlog
+            drain_outputs(0)
 
     if config.write_per_read:
         _write_index_files(all_index, config)

@@ -93,13 +93,21 @@ class _FeatureFlusher:
 
     @staticmethod
     def _write_xy_gz(path: str, feat: np.ndarray) -> None:
-        """np.savetxt(fmt='%.3f') into a level-4 gzip stream. The text is
-        the reference format; the gzip level only changes the file's
-        size, not what any reader decodes."""
+        """np.savetxt(fmt='%.3f') equivalent: native formatter + one gzip
+        write. savetxt formats row-by-row through a level-9 gzip stream —
+        ~80% of getfeatures wall time; the text content here is byte-
+        identical (pinned by test) and gzip level only changes the
+        intermediate file's size, not what any reader decodes."""
+        from deepmod_tpu_torch.native.lib import format_matrix_f3_native
+
+        buf = format_matrix_f3_native(feat) if len(feat) else None
+        if buf is None:
+            np.savetxt(path, feat, fmt="%.3f")
+            return
         import gzip
 
         with gzip.open(path, "wb", compresslevel=4) as fh:
-            np.savetxt(fh, feat, fmt="%.3f")
+            fh.write(buf)
 
     def add(self, mfeat: np.ndarray, f5path: str) -> None:
         if self.nbytes > self.limit:

@@ -299,13 +299,31 @@ def move_table_events(
     Builds one event per base: boundaries at stride*i + first for each
     move==1, 5-mer model_state cut from the fastq with N padding at the
     read ends. The reference hardcodes stride 2 (MoveTable.py:31-43).
+
+    The boundaries are found in one numpy pass (the reference walks the move
+    table in python); start, length and model_state are the reference's,
+    and a table with more moves than bases or a negative start or length
+    raises ValueError where the reference fails. Mean and stdv are left
+    0: the reference's per-event ``np.mean``/``np.std`` of the raw
+    signal are overwritten by the normalized signal's
+    (``normalize_and_event_stats``) before anything reads them, and they
+    were most of the host stage's time on move tables.
     """
     nrow = len(fq_seq)
     nsig = len(raw_signals)
     first = int(first_sample_template)
-    move_info = np.empty(nrow, dtype=EVENT_DTYPE)
-    pivot = first
-    seg_count = 0
+    moves = np.asarray(move_data)
+    ends = stride * (np.flatnonzero(moves[1:] == 1) + 1) + first
+    n = len(ends) + 1
+    starts = np.concatenate([[first], ends]).astype(np.int64)
+    lengths = np.concatenate([ends, [nsig]]) - starts
+    # the reference fails on these too (with numpy's IndexError or
+    # OverflowError); every caller files them as an open error
+    if n > nrow or first < 0 or lengths[-1] < 0:
+        raise ValueError(
+            f"move table: {n} events for {nrow} bases, first sample "
+            f"{first}, last length {int(lengths[-1])}"
+        )
 
     def kmer(i: int) -> str:
         if i == 0:
@@ -316,21 +334,10 @@ def move_table_events(
             return fq_seq[i - 2 : i + 2] + "N"
         return fq_seq[i - 2 : i + 3]
 
-    for i in range(1, len(move_data)):
-        if move_data[i] == 1:
-            end = stride * i + first
-            seg = raw_signals[pivot:end]
-            move_info[seg_count]["mean"] = np.mean(seg)
-            move_info[seg_count]["stdv"] = np.std(seg)
-            move_info[seg_count]["start"] = pivot
-            move_info[seg_count]["length"] = end - pivot
-            move_info[seg_count]["model_state"] = kmer(seg_count)
-            pivot = end
-            seg_count += 1
-    seg = raw_signals[pivot:nsig]
-    move_info[seg_count]["mean"] = np.mean(seg)
-    move_info[seg_count]["stdv"] = np.std(seg)
-    move_info[seg_count]["start"] = pivot
-    move_info[seg_count]["length"] = nsig - pivot
-    move_info[seg_count]["model_state"] = fq_seq[seg_count - 2 : seg_count + 1] + "N" * 2
-    return move_info[: seg_count + 1], (0, 0)
+    move_info = np.zeros(n, dtype=EVENT_DTYPE)
+    move_info["start"] = starts
+    move_info["length"] = lengths
+    move_info["model_state"] = [kmer(i) for i in range(n - 1)] + [
+        fq_seq[n - 3 : n] + "N" * 2
+    ]
+    return move_info, (0, 0)

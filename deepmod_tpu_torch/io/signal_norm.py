@@ -29,11 +29,18 @@ def normalize_signal(
     ``span_start/span_end`` delimit the event-covered slice
     (m_event start[0] .. start[-1]+length[-1], myDetect.py:271-274); the
     whole array is transformed but statistics come from the span only.
-    ``in_place`` is accepted for signature parity with the JAX package,
-    whose native C++ path may overwrite ``raw_signals``; this numpy
-    version never does.
+    ``in_place=True`` lets the native path overwrite ``raw_signals``
+    (only safe when the caller owns and discards the input).
     """
     raw = np.asarray(raw_signals, np.float64)
+    if span_end > span_start:
+        from deepmod_tpu_torch.native.lib import normalize_signal_native
+
+        native = normalize_signal_native(
+            raw, span_start, span_end, in_place=in_place
+        )
+        if native is not None:
+            return native
     span = raw[span_start:span_end]
     mshift = np.median(span)
     mscale = np.median(np.abs(span - mshift))
@@ -50,12 +57,29 @@ def normalize_and_event_stats(
     m_event: np.ndarray, raw_signals: np.ndarray,
     span_start: int, span_end: int, in_place: bool = False,
 ) -> Tuple[np.ndarray, np.ndarray, int]:
-    """``normalize_signal`` followed by ``event_mean_std``.
+    """Fused ``normalize_signal`` + ``event_mean_std`` for the ingestion
+    hot path: one native call per read instead of a normalize pass plus a
+    python re-quantization and two full-signal cumulative sums.
 
-    Returns (normalized_signals, m_event, n_valid). The JAX package fuses
-    the two into one native C++ call; the port runs the numpy twins,
-    which that native path is pinned bit-exact against.
+    Returns (normalized_signals, m_event, n_valid) — identical results to
+    calling the two functions in sequence (pinned by
+    tests/test_torch_native.py).
     """
+    if span_end > span_start:
+        from deepmod_tpu_torch.native.lib import normalize_event_stats_native
+
+        fused = normalize_event_stats_native(
+            raw_signals, span_start, span_end,
+            m_event["start"], m_event["length"], in_place=in_place,
+        )
+        if fused is not None:
+            sig, means, stds, n_valid = fused
+            if n_valid < 0:
+                raise SignalRangeError("Less event")
+            out = m_event[:n_valid].copy()
+            out["mean"] = means[:n_valid]
+            out["stdv"] = stds[:n_valid]
+            return sig, out, n_valid
     sig = normalize_signal(
         raw_signals, span_start, span_end, in_place=in_place
     )
@@ -107,7 +131,9 @@ def event_mean_std(
     # python float's correctly-rounded decimal — and np.mean's pairwise
     # summation order decides exact .0005 ties, so any re-derivation
     # (integer milli-arithmetic included) flips the last digit on ~3% of
-    # events.
+    # events. The native kernel replicates this arithmetic step for step
+    # (numpy 8-accumulator pairwise sum + rint(x*1000)/1000), pinned
+    # bit-exact against this path in tests/test_torch_native.py.
     sig = np.asarray(raw_signals, np.float64)
     m_event = m_event[:n_valid].copy()
     means = m_event["mean"]

@@ -569,14 +569,16 @@ def convert_move_dataset_to_pod5(
 
 
 def write_move_dataset_pod5(
-    out_dir: str, config: SynthConfig,
+    out_dir: str, config: SynthConfig, n_files: int = 1,
 ) -> Tuple[Dict[str, str], List[SimulatedRead], Dict[str, str]]:
     """Move-style dataset as the modern ONT stack, without h5py.
 
     Simulates the reads exactly as ``generate_dataset`` does for
     ``fast5_style='move'`` (same RNG stream: genome, then per read the
     read and its signal) and writes ``ref.fa``, ``pod5/reads.pod5`` (raw
-    signal, uncompressed, so no zstandard is needed) and ``calls.bam``
+    signal, uncompressed, so no zstandard is needed; with ``n_files`` > 1
+    the reads in order over ``pod5/reads_<k>.pod5``, k = 0..n_files-1,
+    as even as they divide) and one ``calls.bam`` for all of them
     (sequence + mv:B:c stride/moves + ts:i trim) under ``out_dir``. The
     signal, moves and trim are those ``convert_move_dataset_to_pod5``
     would copy out of the fast5 files, so a detect run over this pair
@@ -600,12 +602,17 @@ def write_move_dataset_pod5(
     pod_dir = os.path.join(out_dir, "pod5")
     os.makedirs(pod_dir, exist_ok=True)
     write_fasta(os.path.join(out_dir, "ref.fa"), genome)
-    pod5_path = os.path.join(pod_dir, "reads.pod5")
+    if n_files == 1:
+        paths = [os.path.join(pod_dir, "reads.pod5")]
+    else:
+        paths = [os.path.join(pod_dir, f"reads_{k:03d}.pod5")
+                 for k in range(n_files)]
     reads: List[SimulatedRead] = []
-    pod_reads = []
+    pod_reads: List[list] = [[] for _ in paths]
     bam_reads = []
     id_map: Dict[str, str] = {}
     for i in range(config.num_reads):
+        k = i * len(paths) // config.num_reads
         chrom, strand, start, segment, seq, _ = simulate_read(
             rng, genome, config, return_ref_pos=True
         )
@@ -614,12 +621,13 @@ def write_move_dataset_pod5(
         move, signal, first = _move_layout(seq, signal)
         rid = uuid_mod.uuid5(uuid_mod.NAMESPACE_URL, read_id)
         id_map[read_id] = str(rid)
-        pod_reads.append((rid.bytes, signal))
+        pod_reads[k].append((rid.bytes, signal))
         bam_reads.append((str(rid), seq, 2, move.astype(np.int64), first))
         reads.append(
             SimulatedRead(read_id, chrom, strand, start, segment, seq,
-                          pod5_path)
+                          paths[k])
         )
-    write_pod5(pod5_path, pod_reads, compress=False)
+    for path, file_reads in zip(paths, pod_reads):
+        write_pod5(path, file_reads, compress=False)
     write_basecall_bam(os.path.join(out_dir, "calls.bam"), bam_reads)
     return genome, reads, id_map

@@ -13,7 +13,7 @@ setup(
     ]),
     package_data={
         "deepmod_tpu.native": ["*.cpp", "Makefile", "*.so"],
-        "deepmod_tpu_torch": ["csrc/*.cu"],
+        "deepmod_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp"],
     },
     python_requires=">=3.10",
     install_requires=[

@@ -18,6 +18,7 @@ from deepmod_tpu.ops.bilstm_fused import bilstm_fused_center_mono
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import bilstm_fused as tf_ops
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 
 
 def _numpy_params(seed, cfg):

@@ -12,6 +12,7 @@ from deepmod_tpu.models import bilstm as jb
 from deepmod_tpu.models import tf_import as jt
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models import tf_import as tt
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 
 
 def _assert_same_tree(a, b):

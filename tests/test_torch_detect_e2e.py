@@ -25,6 +25,8 @@ from deepmod_tpu.models.bilstm import BiLSTMConfig, init_bilstm_params
 from deepmod_tpu.models.tf_import import save_bilstm_npz
 from deepmod_tpu.testing.synthetic import SynthConfig, generate_dataset
 from deepmod_tpu_torch.engine.detect import DetectConfig, detect_run
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -230,7 +232,7 @@ def test_pod5_writer_matches_fast5_conversion(tmp_path):
 def test_cli_detect_on_cpu(runs, tmp_path):
     root, common, _ = runs
     out = str(tmp_path / "cli_out")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "deepmod_tpu_torch", "detect",
          "--wrkBase", common["wrk_base"], "--Ref", common["ref"],
@@ -254,7 +256,6 @@ def test_unported_options_raise(runs, tmp_path):
     base = DetectConfig(**dict(common, out_folder=str(tmp_path / "x")),
                         device="cpu")
     for change in (dict(pred_det=False), dict(mod_cluster=True),
-                   dict(device_aggregation=True),
-                   dict(threads=2, files_per_batch=3)):
+                   dict(device_aggregation=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             detect_run(dataclasses.replace(base, **change))

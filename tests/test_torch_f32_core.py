@@ -34,16 +34,7 @@ from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import bilstm_fused as ops
 from deepmod_tpu_torch.ops import bilstm_fused_train as tr
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one thread: under the suite's parallel workers its
-    intra-op threads contend."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 
 
 def _tree(seed, cfg):

@@ -4,6 +4,7 @@ port's train / getfeatures / predfeatures command lines.
 The datasets are those of tests/test_train_e2e.py (a 15 kb genome, 6
 reads, a CG signal shift on 'mod' only). Both packages extract features
 from the same files; their ``.xy.npz`` arrays (``pos`` included), the
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 decompressed ``.xy.gz`` text (the gzip bytes may differ: the JAX package
 formats natively, the port with np.savetxt), the ``.xy.ind`` files and
 the counts must be equal. The pod5 + basecall BAM route runs the port on
@@ -23,6 +24,7 @@ from deepmod_tpu.engine.getfeatures import GetFeaturesConfig as JaxConfig
 from deepmod_tpu.engine.getfeatures import getfeatures_run as jax_run
 from deepmod_tpu.testing.synthetic import SynthConfig, generate_dataset
 from deepmod_tpu_torch.engine.getfeatures import GetFeaturesConfig, getfeatures_run
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMMON = dict(genome_sizes={"chrS": 15000}, num_reads=6,
@@ -178,7 +180,7 @@ def _cli(*args):
     proc = subprocess.run(
         [sys.executable, "-m", "deepmod_tpu_torch", *args],
         capture_output=True, text=True, timeout=300, cwd=REPO,
-        env=dict(os.environ, PYTHONPATH=REPO),
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     return proc.stdout

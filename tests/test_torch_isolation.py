@@ -10,6 +10,8 @@ import os
 
 import pytest
 import torch
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -109,3 +111,28 @@ def test_chip_smoke_refuses_without_gpu(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_port_cpu_tests_pin_torch_to_one_thread():
+    """Every port test file runs torch on one thread (it imports the
+    module-scoped autouse fixture ``testing.threads.one_thread``), and its
+    CLI subprocesses get ``OMP_NUM_THREADS=1``: under the suite's parallel
+    workers torch's own threads made its small CPU ops hundreds of times
+    slower. ``test_torch_kernel_gpu.py`` runs only on the card."""
+    files = sorted(glob.glob(os.path.join(REPO, "tests", "test_torch_*.py")))
+    assert len(files) > 10
+    bad = []
+    for path in files:
+        name = os.path.basename(path)
+        with open(path) as fh:
+            src = fh.read()
+        if name == "test_torch_kernel_gpu.py":
+            continue
+        if "from deepmod_tpu_torch.testing.threads import one_thread" \
+                not in src:
+            bad.append(name)
+        if "subprocess" in src and "sys.executable" in src and \
+                "-m\", \"deepmod_tpu_torch" in src and \
+                "OMP_NUM_THREADS" not in src:
+            bad.append(name + " (CLI subprocess)")
+    assert not bad, bad

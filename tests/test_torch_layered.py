@@ -20,6 +20,8 @@ from deepmod_tpu.ops import bilstm_fused as jf
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import bilstm_fused as tf_ops
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
+
 
 TOL = {"fp32": dict(rtol=0, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-3)}
 

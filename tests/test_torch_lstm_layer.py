@@ -21,6 +21,7 @@ from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import lstm_layer as k6
 from deepmod_tpu_torch.tools import probe_transcendental as p1
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 
 
 def _layers(seed, in_dim=7, hidden=100, layers=3):

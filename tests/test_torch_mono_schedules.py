@@ -25,6 +25,7 @@ from deepmod_tpu.ops.bilstm_fused import bilstm_fused_center_mono
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import bilstm_fused as tf_ops
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 
 TOL = {"fp32": dict(rtol=0, atol=2e-5), "bf16": dict(rtol=2e-2, atol=2e-3)}
 # (label, flags of both packages' mono function)
@@ -71,18 +72,6 @@ def _jax_mono(tree, x, cfg, precision, **flags):
         tree, jnp.asarray(x), num_layers=cfg.num_layers,
         num_hidden=cfg.num_hidden, timesteps=cfg.timesteps, tile_b=8,
         interpret=True, precision=precision, **flags))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The plain versions here are thousands of tiny ops. Under the
-    suite's parallel workers, torch's intra-op threads contend for the
-    cores and a 0.4 s test took minutes, so this module runs torch on
-    one thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,8 @@ from deepmod_tpu.models import bilstm as jb
 from deepmod_tpu_torch.engine.detect import WindowPredictor
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_to_numpy
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
+
 
 CFG = tb.BiLSTMConfig(num_input=7)
 

@@ -24,20 +24,11 @@ import torch
 
 from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
 from deepmod_tpu_torch.ops import bilstm_fused as ops
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 
 ROWS = ops.TC_TILE_B
 COL = ROWS * 8  # elements of one core column: 64 rows x 8
 FORGET_BIAS = 1.0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Torch on one thread: under the suite's parallel workers its
-    intra-op threads contend."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _layer(seed, in_dim, hidden):

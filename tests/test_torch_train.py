@@ -31,6 +31,7 @@ from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models import tf_import as tt
 from deepmod_tpu_torch.train import trainer as ttrain
 from deepmod_tpu_torch.train.loader import find_feature_files, load_feature_file
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
 
 
 def _np_tree(params):

@@ -31,6 +31,8 @@ from deepmod_tpu.ops.bilstm_fused_train import bilstm_fused_center_train
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
+
 
 FP32_TOL = dict(rtol=5e-4, atol=5e-5)
 
