@@ -116,7 +116,26 @@ without printing the result line):
    host stage's one-thread rate on the numpy twins and on the native
    library, which must give the same feature rows) and bench_e2e (warm
    detect at --threads 1 and 4 with a shared predictor and pool, and
-   the card's idle share in a traced warm pass).
+   the card's idle share in a traced warm pass);
+19. (after phase 13) the second stage on the card: the bundled cluster
+   model (``tests/golden/cluster_weights.npz``) on the golden input with
+   TF32 off, within 1e-6 of the TF1 session's output and of the cpu run;
+20. the paper's 5mC loop through the CLI (``tools/validate_cluster_loop``'s
+   steps) over a clustered pod5 cohort on chrT and chrE: a first-stage
+   model trained on the card (K2/K3, counted), detect on the card at bf16
+   and fp32 with --mod_cluster 0 and 1 (K1 counted around those four
+   runs; walls with and without the rescue) and on the cpu at fp32 (BEDs
+   byte-equal, phase 7's near-tie rule), merge, motif, clustertrain on the
+   card (the loss must fall), clusterpred on the card and the cpu with the
+   chrT-trained and the bundled model (predictions within 1e-5, rewritten
+   percentages equal but where p*100 lies within 1e-4 of an integer), and
+   chrE's site-level AUC/AP before and after the second stage (against
+   the landscape's truth, and by ``ecoli_performance`` against a control
+   cohort);
+21. clusterpred over a synthesized merged BED of 1,000,000 lines on one
+   chromosome: the time split (BED read, features, the MLP on the card by
+   CUDA events, write) and sites/s through the CLI, beside the card's name
+   and power limit.
 
 Every process the script starts is stopped and reaped before it exits,
 whether it passed or failed: it adopts its descendants' orphans (Linux
@@ -172,6 +191,11 @@ POOL_FILES_PER_BATCH = 2   # --files_per_thread of the HostPool runs: 8 batches
 POOL_THREADS = 4
 TRAIN_B = 2048
 TRAIN_READS = 12
+CLUSTER_CHROM = 12_000      # bases of chrT and of chrE in the cluster loop
+CLUSTER_TRAIN_READS = 100   # reads of each first-stage training cohort
+CLUSTER_READS = 200         # reads of the clustered cohort
+CLUSTER_SHIFT = 2.5         # CG signal shift of the loop's cohorts
+SCALE_LINES = 1_000_000     # lines of clusterpred's merged BED at scale
 SEED = 2024
 
 
@@ -1511,9 +1535,9 @@ def phase_train_kernels(device) -> dict:
     return results
 
 
-def read_beds(folder: str) -> dict:
+def read_beds(folder: str, prefix: str = "mod_pos") -> dict:
     out = {}
-    for path in sorted(glob.glob(os.path.join(folder, "mod_pos.*.bed"))):
+    for path in sorted(glob.glob(os.path.join(folder, f"{prefix}.*.bed"))):
         with open(path, "rb") as fh:
             out[os.path.basename(path)] = fh.read()
     return out
@@ -2047,6 +2071,340 @@ def phase_train_layered(device, workdir: str, feats: dict) -> dict:
             "steps": n_steps}
 
 
+def phase_cluster_golden(device) -> dict:
+    """The bundled cluster model (the reference's TF1 checkpoint, converted)
+    on the golden input, TF32 off: within 1e-6 of the TF1 session's output
+    and of the port's CPU run."""
+    from deepmod_tpu_torch.models.cluster_mlp import (
+        cluster_forward,
+        cluster_params_from_numpy,
+    )
+    from deepmod_tpu_torch.tools.cluster_predict import load_cluster_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    golden = os.path.join(REPO, "tests", "golden")
+    x = np.load(os.path.join(golden, "cluster_parity_x.npy"))
+    want = np.load(os.path.join(golden, "cluster_parity_y.npy")).ravel()
+    params = load_cluster_model(os.path.join(golden, "cluster_weights.npz"))
+    got = {}
+    for tag, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        p = cluster_params_from_numpy(params, dev)
+        with torch.no_grad():
+            got[tag] = cluster_forward(
+                p, torch.from_numpy(x).to(dev)).cpu().numpy()
+    err = float(np.abs(got["card"] - want).max())
+    err_cpu = float(np.abs(got["card"] - got["cpu"]).max())
+    log(f"[cluster golden] {len(x)} sites on the card: max abs difference "
+        f"{err:.3e} from the TF1 session's output, {err_cpu:.3e} from the "
+        f"port's cpu run (both must be <= 1e-6) | {nvidia_smi_line()}")
+    assert err <= 1e-6 and err_cpu <= 1e-6, (err, err_cpu)
+    return {"err": err, "err_cpu": err_cpu}
+
+
+def _refined_bed(det_beds: list, rewritten: str, out: str) -> str:
+    """detect's BED lines with the percentage column replaced by the second
+    stage's where it rewrote the site (what ecoli_performance scores)."""
+    new = {}
+    if os.path.isfile(rewritten):  # none where merge kept no site
+        with open(rewritten) as fh:
+            for line in fh:
+                p = line.split()
+                new[(p[5], int(p[1]))] = p[-1]
+    with open(out, "w") as fh:
+        for path in filter(os.path.isfile, det_beds):
+            with open(path) as src:
+                for line in src:
+                    p = line.split()
+                    if (p[5], int(p[1])) in new:
+                        p[10] = new[(p[5], int(p[1]))]
+                    fh.write(" ".join(p) + "\n")
+    return out
+
+
+def _mod_total(beds: dict) -> int:
+    return sum(int(line.split()[11]) for b in beds.values()
+               for line in b.decode().splitlines())
+
+
+def phase_cluster(device, workdir: str) -> dict:
+    """The paper's 5mC loop through the CLI (tools/validate_cluster_loop's
+    steps): a clustered pod5 cohort over chrT and chrE, a first-stage model
+    trained on the card, detect on the card at bf16 and fp32 with
+    --mod_cluster 0 and 1 (K1's launches counted around those four runs)
+    and on the cpu at fp32 (BEDs byte-equal, phase 7's near-tie rule),
+    merge, motif, clustertrain on the card (the loss must fall),
+    clusterpred on the card and the cpu with the chrT-trained and the
+    bundled model (predictions within 1e-5; percentages equal but where
+    p*100 is within 1e-4 of an integer), and chrE's site-level AUC/AP
+    before and after the second stage."""
+    from deepmod_tpu_torch.models.cluster_mlp import cluster_params_from_numpy
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+    from deepmod_tpu_torch.tools import cluster_predict as cp
+    from deepmod_tpu_torch.tools import validate_cluster_loop as loop
+    from deepmod_tpu_torch.tools.evaluate import ecoli_performance
+
+    cfg = loop.LoopConfig(
+        out=os.path.join(workdir, "cluster"), device="cuda",
+        chrom_size=CLUSTER_CHROM, n_train=CLUSTER_TRAIN_READS,
+        n_cohort=CLUSTER_READS, shift=CLUSTER_SHIFT, threads=POOL_THREADS)
+    os.makedirs(cfg.out)
+    t0 = time.perf_counter()
+    landscape = loop.synth_cohorts(cfg)
+    log(f"[cluster] cohorts (chrT + chrE, {CLUSTER_CHROM} bases each): "
+        f"{CLUSTER_READS} clustered reads, {CLUSTER_TRAIN_READS} + "
+        f"{CLUSTER_TRAIN_READS} training reads (CG shift "
+        f"{CLUSTER_SHIFT}), {time.perf_counter() - t0:.2f} s to write")
+
+    # the first stage is trained here: phase 8's one-epoch model calls no
+    # window methylated (its log: p=0.000 r=0.000); K2/K3 on this path
+    tr.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = loop.train_first_stage(cfg)
+    torch.cuda.synchronize()
+    train_launches = dict(tr.LAUNCHES)
+    log(f"[cluster] first stage: getfeatures + {loop.EPOCHS} + {loop.EPOCHS} "
+        f"epochs on the card in {time.perf_counter() - t0:.2f} s; K2/K3 "
+        f"launches {train_launches}")
+    assert train_launches["fwd_fp32"] > 0 and train_launches["bwd_fp32"] > 0
+    ds = os.path.join(cfg.out, "clustered")
+    shutil.copy(model, os.path.join(ds, "model.npz"))  # compare_devices's
+
+    # the main path: counts from 0 just before, read just after
+    ops.reset_launch_counts()
+    walls = {}
+    for mc in (0, 1):
+        for precision in ("bf16", "fp32"):
+            walls[f"mc{mc}_gpu_{precision}"] = loop.detect(
+                cfg, "clustered", model,
+                os.path.join(cfg.out, f"mc{mc}_gpu_{precision}"), precision,
+                mc)[0]
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    log(f"[cluster] K1 launches on the main path: {launches}")
+    assert launches["bf16"] > 0 and launches["fp32"] > 0, launches
+    assert not any(ops.LAYERED_LAUNCHES.values()), ops.LAYERED_LAUNCHES
+    for mc in (0, 1):
+        walls[f"mc{mc}_cpu_fp32"] = loop.detect(
+            cfg, "clustered", model,
+            os.path.join(cfg.out, f"mc{mc}_cpu_fp32"), "fp32", mc,
+            device="cpu")[0]
+    cmp = compare_devices(device, ds, cfg.out, "mc0_", 21)
+    mc1 = {k: read_beds(os.path.join(cfg.out, f"mc1_{k}"), "cluster_mod_pos")
+           for k in ("gpu_bf16", "gpu_fp32", "cpu_fp32")}
+    assert all(mc1.values()), {k: sorted(v) for k, v in mc1.items()}
+    mc1_equal = mc1["gpu_fp32"] == mc1["cpu_fp32"]
+    assert mc1_equal or cmp["flips"] > 0, "--mod_cluster 1 BEDs differ"
+    plain = read_beds(os.path.join(cfg.out, "mc0_gpu_bf16"))
+    rescued = _mod_total(mc1["gpu_bf16"])
+    assert rescued > _mod_total(plain), (rescued, _mod_total(plain))
+    log(f"[cluster] --mod_cluster 1: fp32 card BEDs equal the cpu's: "
+        f"{mc1_equal}; bf16 methylated calls {_mod_total(plain)} -> "
+        f"{rescued} with the rescue")
+    for key, wall in walls.items():
+        log(f"[cluster] detect {key}: wall {wall:.2f} s, "
+            f"{cmp['windows'] / wall:.1f} windows/s end to end")
+
+    # merge + motif over the card's default run (bf16, no rescue)
+    det = os.path.join(cfg.out, "runs", "det")
+    os.makedirs(det)
+    for name in plain:
+        shutil.copy(os.path.join(cfg.out, "mc0_gpu_bf16", name), det)
+    t0 = time.perf_counter()
+    prefix = loop.merge_and_motif(cfg, os.path.join(cfg.out, "runs"))
+    merged = {c: sum(1 for _ in open(f"{prefix}.{c}.C.bed"))
+              for c in loop.CHROMS}
+    log(f"[cluster] merge + motif {time.perf_counter() - t0:.2f} s; merged "
+        f"sites {merged}")
+    assert min(merged.values()) >= 20, merged
+
+    cluster_model = os.path.join(cfg.out, "cluster.npz")
+    t0 = time.perf_counter()
+    printed = loop.cluster_train(cfg, prefix, loop.write_truth(cfg, landscape),
+                                 cluster_model, "cuda")
+    wall = time.perf_counter() - t0
+    first, last = (float(v) for v in
+                   printed.split("loss ")[1].split(";")[0].split(" -> "))
+    log(f"[cluster] clustertrain on the card ({loop.CLUSTER_EPOCHS} epochs): "
+        f"{wall:.2f} s; {printed.strip()}")
+    assert last < first, (first, last)
+
+    bundled_prefix = os.path.join(cfg.out, "runs", "pred_bundled")
+    for c in loop.CHROMS:
+        shutil.copy(f"{prefix}.{c}.C.bed", f"{bundled_prefix}.{c}.C.bed")
+    pred_err = {}
+    for tag, pre, mdl in (("trained", prefix, cluster_model),
+                          ("bundled", bundled_prefix, loop.BUNDLED_MODEL)):
+        loop.cluster_pred(cfg, pre, mdl, "cpu")
+        for c in loop.CHROMS:
+            os.replace(f"{pre}_clusterCpG.{c}.C.bed",
+                       f"{pre}_cpu_clusterCpG.{c}.C.bed")
+        t0 = time.perf_counter()
+        loop.cluster_pred(cfg, pre, mdl, "cuda")
+        wall = time.perf_counter() - t0
+        params = {dev: cluster_params_from_numpy(cp.load_cluster_model(mdl),
+                                                 dev)
+                  for dev in (device, "cpu")}
+        n_diff = n_sites = 0
+        pred_err[tag] = 0.0
+        for c in loop.CHROMS:
+            cg = cp._read_motif_positions(
+                os.path.join(cfg.out, "motif", f"motif_{c}_C.bed"))
+            keys, frac, _ = cp._read_pred_bed(f"{pre}.{c}.C.bed", cg)
+            feats = cp.build_cluster_features(keys, frac)
+            p_gpu = cp.predict_sites(params[device], feats)
+            p_cpu = cp.predict_sites(params["cpu"], feats)
+            pred_err[tag] = max(pred_err[tag],
+                                float(np.abs(p_gpu - p_cpu).max()))
+            with open(f"{pre}_clusterCpG.{c}.C.bed") as a, \
+                    open(f"{pre}_cpu_clusterCpG.{c}.C.bed") as b:
+                rows = list(zip(a.read().splitlines(), b.read().splitlines()))
+            assert len(rows) == len(keys) > 0, (len(rows), len(keys))
+            for (ga, gb), p in zip(rows, p_cpu):
+                if ga != gb:
+                    n_diff += 1
+                    assert ga.rsplit(" ", 1)[0] == gb.rsplit(" ", 1)[0]
+                    assert abs(p * 100 - round(p * 100)) < 1e-4, (ga, gb, p)
+            n_sites += len(keys)
+        log(f"[cluster] clusterpred {tag} model on the card: {wall:.2f} s, "
+            f"{n_sites} sites; card vs cpu predictions max abs "
+            f"{pred_err[tag]:.3e} (<= 1e-5), rewritten percentages that "
+            f"differ {n_diff} (each a near-integer p*100) | "
+            f"{nvidia_smi_line()}")
+        assert pred_err[tag] <= 1e-5, pred_err
+
+    report = loop.score(landscape, det, prefix, bundled_prefix)
+    for tag, m in report.items():
+        log(f"[cluster] {tag}: {m} | {nvidia_smi_line()}")
+    assert report["chrE_cov5_trained"] is not None, report
+
+    # ecoli_performance: the clustered cohort against the unmethylated
+    # training cohort as control, CpG motif sites positive, on chrE
+    ctl_runs = os.path.join(cfg.out, "ctl_runs")
+    ctl_det = os.path.join(ctl_runs, "det")
+    loop.detect(cfg, "train_ctl", model, ctl_det)
+    ctl_prefix = loop.merge_and_motif(cfg, ctl_runs)
+    loop.cluster_pred(cfg, ctl_prefix, cluster_model, "cuda")
+    ref = loop.ref_path(cfg)
+    mod_beds = [os.path.join(det, f"mod_pos.chrE{s}.C.bed") for s in "+-"]
+    ctl_beds = [os.path.join(ctl_det, f"mod_pos.chrE{s}.C.bed") for s in "+-"]
+    ecoli = {"before": ecoli_performance(mod_beds, ctl_beds, ref,
+                                         chrom="chrE", make_plots=False)}
+    ecoli["after"] = ecoli_performance(
+        [_refined_bed(mod_beds, f"{prefix}_clusterCpG.chrE.C.bed",
+                      os.path.join(cfg.out, "after_mod.bed"))],
+        [_refined_bed(ctl_beds, f"{ctl_prefix}_clusterCpG.chrE.C.bed",
+                      os.path.join(cfg.out, "after_ctl.bed"))],
+        ref, chrom="chrE", make_plots=False)
+    for when, m in ecoli.items():
+        log(f"[cluster] ecoli_performance chrE {when} the second stage: "
+            + ", ".join(f"{k} {m[k]:.4f}" for k in
+                        ("auc_cov1", "ap_cov1", "auc_cov5", "ap_cov5"))
+            + f", {int(m['num_sites'])} sites | {nvidia_smi_line()}")
+        assert np.isfinite(m["auc_cov1"]), m
+    return {"launches": launches, "train_launches": train_launches,
+            "walls": walls, "report": report, "ecoli": ecoli,
+            "pred_err": pred_err}
+
+
+def phase_cluster_scale(device, workdir: str) -> dict:
+    """clusterpred over a synthesized merged BED of SCALE_LINES lines on one
+    chromosome (a human chromosome averages ~2.4 M strand CpG sites), with
+    the bundled model: the time split (read, features, the MLP on the card
+    by CUDA events, write) and sites/s through the CLI."""
+    from deepmod_tpu_torch.models.cluster_mlp import (
+        cluster_forward,
+        cluster_params_from_numpy,
+    )
+    from deepmod_tpu_torch.tools import cluster_predict as cp
+    from deepmod_tpu_torch.tools.validate_cluster_loop import BUNDLED_MODEL
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(SEED + 11)
+    root = os.path.join(workdir, "cluster_scale")
+    os.makedirs(os.path.join(root, "motif"))
+    t0 = time.perf_counter()
+    n_dyads = SCALE_LINES  # a dyad is two strand sites; rows with mod 0 go
+    dyad = np.cumsum(2 + rng.geometric(1 / 48, n_dyads))
+    tile_meth = rng.random(int(dyad[-1]) // 250 + 1) < 0.5
+    prob = np.where(tile_meth[dyad // 250], rng.uniform(0.7, 0.95, n_dyads),
+                    rng.uniform(0.02, 0.15, n_dyads))
+    pos = np.stack([dyad, dyad + 1], 1).ravel()
+    cov = rng.integers(1, 40, 2 * n_dyads)
+    mod = rng.binomial(cov, np.repeat(prob, 2))
+    keep = np.flatnonzero(mod > 0)[:SCALE_LINES]  # merge drops mod 0
+    assert len(keep) == SCALE_LINES, len(keep)
+    with open(os.path.join(root, "motif", "motif_chr1_C.bed"), "w") as fh:
+        fh.write("".join(f"chr1\t{p}\t+\nchr1\t{p + 1}\t-\n" for p in dyad))
+    prefix = os.path.join(root, "pred")
+    with open(f"{prefix}.chr1.C.bed", "w") as fh:
+        fh.write("".join(
+            "chr1 %d %d C %d %s  %d %d 0,0,0 %d %d %d\n" % (
+                p, p + 1, min(c, 1000), "+-"[i % 2], p, p + 1, c,
+                int(m * 100 / c), m)
+            for i, p, c, m in zip(keep.tolist(), pos[keep].tolist(),
+                                  cov[keep].tolist(), mod[keep].tolist())))
+    log(f"[cluster scale] merged BED of {SCALE_LINES} lines on chr1 "
+        f"({n_dyads} dyads over {int(dyad[-1])} bases): "
+        f"{time.perf_counter() - t0:.2f} s to write")
+
+    split = {}
+    t0 = time.perf_counter()
+    cg = cp._read_motif_positions(os.path.join(root, "motif",
+                                               "motif_chr1_C.bed"))
+    keys, frac, lines = cp._read_pred_bed(f"{prefix}.chr1.C.bed", cg)
+    split["read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feats = cp.build_cluster_features(keys, frac)
+    split["features_s"] = time.perf_counter() - t0
+    params = cluster_params_from_numpy(cp.load_cluster_model(BUNDLED_MODEL),
+                                       device)
+    x = torch.as_tensor(feats, device=device)
+
+    def mlp():
+        with torch.no_grad():
+            return torch.cat([cluster_forward(params, x[lo : lo + cp.BATCH_SIZE])
+                              for lo in range(0, len(x), cp.BATCH_SIZE)])
+
+    mlp()
+    torch.cuda.synchronize()
+    split["mlp_ms"] = time_ms(mlp, reps=3)
+    t0 = time.perf_counter()
+    pred = cp.predict_sites(params, feats)
+    split["h2d_mlp_d2h_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred_cpu = cp.predict_sites(cluster_params_from_numpy(
+        cp.load_cluster_model(BUNDLED_MODEL), "cpu"), feats)
+    split["cpu_mlp_s"] = time.perf_counter() - t0
+    err = float(np.abs(pred - pred_cpu).max())
+    assert err <= 1e-5 and pred.shape == (len(keys),), (err, pred.shape)
+    assert np.isfinite(pred).all() and ((pred >= 0) & (pred <= 1)).all()
+    t0 = time.perf_counter()
+    cp.write_rewritten(os.path.join(root, "split_out.bed"), lines, pred)
+    split["write_s"] = time.perf_counter() - t0
+    cli_wall = run_cli("clusterpred", prefix, os.path.join(root, "motif"),
+                       "--model", BUNDLED_MODEL, "--chrs", "chr1",
+                       "--device", "cuda")
+    with open(f"{prefix}_clusterCpG.chr1.C.bed") as a, \
+            open(os.path.join(root, "split_out.bed")) as b:
+        assert a.read() == b.read()
+    # 2 * (14*100 + 100*20 + 20*1) operations a site; features in, p out
+    bound = max(len(keys) * 6840 / PEAK_OPS["fp32"],
+                len(keys) * (14 + 1) * 4 / PEAK_BYTES) * 1e3
+    log(f"[cluster scale] {len(keys)} sites: read {split['read_s']:.2f} s, "
+        f"features {split['features_s']:.2f} s, MLP on the card "
+        f"{split['mlp_ms']:.3f} ms (CUDA events; "
+        f"{-(-len(keys) // cp.BATCH_SIZE)} calls of {cp.BATCH_SIZE} rows; "
+        f"bound {bound:.4f} ms), H2D + MLP + D2H {split['h2d_mlp_d2h_s']:.3f}"
+        f" s, the MLP on the cpu {split['cpu_mlp_s']:.3f} s (card vs cpu max "
+        f"abs {err:.2e}), write {split['write_s']:.2f} s; clusterpred "
+        f"through the CLI {cli_wall:.2f} s = {len(keys) / cli_wall:.1f} "
+        f"sites/s end to end, the MLP alone "
+        f"{len(keys) / split['mlp_ms'] * 1e3:.1f} sites/s | "
+        f"{nvidia_smi_line()}")
+    return dict(split, sites=len(keys), cli_wall=cli_wall, err=err)
+
+
 def main() -> int:
     global torch
     import torch
@@ -2120,6 +2478,11 @@ def smoke() -> str:
         det_k4 = phase_detect_layered(device, workdir)
         trn = phase_train(device, workdir)
         trn_k4 = phase_train_layered(device, workdir, trn["feats"])
+        t_cluster = time.perf_counter()
+        phase_cluster_golden(device)
+        clu = phase_cluster(device, workdir)
+        phase_cluster_scale(device, workdir)
+        log(f"[cluster] phase: {time.perf_counter() - t_cluster:.2f} s")
     t_tools = time.perf_counter()
     phase_host_tools()
     log(f"[host tools] phase: {time.perf_counter() - t_tools:.2f} s")
@@ -2139,6 +2502,8 @@ def smoke() -> str:
             "library_ms": None if lib is None else round(lib, 3),
         }
 
+    # K1's main paths: detect (phase 7) and the cluster loop's detect runs;
+    # K2/K3's: train (phase 8) and the loop's first stage.
     # K4's main path: detect at every LAYERED_T window size
     k4_launches = {p: sum(r["launches"][p] for r in det_k4.values())
                    for p in ("fp32", "bf16")}
@@ -2148,13 +2513,16 @@ def smoke() -> str:
         kernels.append(entry(
             f"k1_center_{precision}" + ("_tc" if precision == "bf16" else ""),
             "bilstm_fused.cu",
-            "deepmod_tpu/ops/bilstm_fused.py:551", det["launches"][precision],
+            "deepmod_tpu/ops/bilstm_fused.py:551",
+            det["launches"][precision] + clu["launches"][precision],
             kern[precision]))
         for kind, line in (("fwd", 101), ("bwd", 222)):
             kernels.append(entry(
                 f"k{2 if kind == 'fwd' else 3}_train_{kind}_{precision}",
                 "bilstm_train.cu", f"deepmod_tpu/ops/bilstm_fused_train.py:{line}",
-                trn["launches"][f"{kind}_{precision}"], tkern[precision][kind]))
+                trn["launches"][f"{kind}_{precision}"]
+                + clu["train_launches"][f"{kind}_{precision}"],
+                tkern[precision][kind]))
         kernels.append(entry(
             f"k4_layer_{precision}" + ("_tc" if precision == "bf16" else ""),
             "bilstm_layer.cu",

@@ -1,12 +1,15 @@
 """Command-line interface of the PyTorch port.
 
 ``detect``, ``train``, ``getfeatures`` and ``predfeatures`` take the JAX
-package's flags (bin/DeepMod.py:304-383 names and defaults). ``detect``,
-``train`` and ``predfeatures`` add ``--device`` (``cuda`` by default;
-``cpu`` only when asked for); ``detect`` adds ``--perRead 0`` (BEDs only,
-no per-read HDF5). ``getfeatures`` is host-only. ``synth`` generates a
-synthetic dataset (fast5, or with ``--pod5`` a pod5 + basecall BAM pair
-that needs no h5py).
+package's flags (bin/DeepMod.py:304-383 names and defaults), and the
+post-hoc commands ``merge``, ``motif``, ``clusterpred``, ``clustertrain``,
+``evaluate`` and ``align`` take the JAX CLI's. ``detect``, ``train``,
+``predfeatures``, ``clusterpred`` and ``clustertrain`` add ``--device``
+(``cuda`` by default; ``cpu`` only when asked for); ``detect`` adds
+``--perRead 0`` (BEDs only, no per-read HDF5). ``getfeatures`` and the
+other post-hoc commands are host-only. ``synth`` generates a synthetic
+dataset (fast5, or with ``--pod5`` a pod5 + basecall BAM pair that needs
+no h5py).
 """
 
 from __future__ import annotations
@@ -110,6 +113,7 @@ def cmd_detect(args) -> int:
         recursive=bool(args.recursive),
         files_per_batch=args.files_per_thread,
         pred_det=bool(args.predDet),
+        pred_path=args.predpath,
         mod_cluster=bool(args.mod_cluster),
         threads=args.threads,
         precision=args.precision,
@@ -321,6 +325,129 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def cmd_align(args) -> int:
+    """Standalone aligner: FASTA reads -> SAM on stdout (the in-process
+    replacement for the reference's minimap2/bwa subprocess calls)."""
+    from deepmod_tpu_torch.align.aligner import get_aligner
+    from deepmod_tpu_torch.io.fasta import read_fasta
+
+    aligner = get_aligner(args.Ref, args.alignStr)
+    reads = read_fasta(args.fasta)
+    out = open(args.out, "w") if args.out else sys.stdout
+    try:
+        out.write("@HD\tVN:1.6\tSO:unknown\n")
+        ref = read_fasta(args.Ref)
+        for name, seq in ref.items():
+            out.write(f"@SQ\tSN:{name}\tLN:{len(seq)}\n")
+        n = 0
+        for rec in aligner.align(reads):
+            out.write(
+                "\t".join(
+                    [rec.qname, str(rec.flag), rec.rname, str(rec.pos),
+                     str(rec.mapq), rec.cigar, "*", "0", "0", rec.seq, "*"]
+                ) + "\n"
+            )
+            n += 1
+        print(f"aligned {n}/{len(reads)} reads", file=sys.stderr)
+    finally:
+        if args.out:
+            out.close()
+    return 0
+
+
+def cmd_merge(args) -> int:
+    from deepmod_tpu_torch.tools.sum_chr_mod import merge_runs
+
+    n = merge_runs(args.pred_folder, args.base, args.file_id, args.chrs)
+    print(f"merged {n} BED files")
+    return 0
+
+
+def cmd_motif(args) -> int:
+    from deepmod_tpu_torch.tools.motif_index import generate_motif_positions
+
+    n = generate_motif_positions(args.ref, args.out, args.motif, args.base)
+    print(f"wrote {n} index files")
+    return 0
+
+
+def cmd_clusterpred(args) -> int:
+    from deepmod_tpu_torch.tools.cluster_predict import cluster_predict_run
+
+    n = cluster_predict_run(
+        args.pred_prefix, args.motif_folder, args.model, args.chrs,
+        device=args.device,
+    )
+    print(f"rewrote {n} sites")
+    return 0
+
+
+def cmd_clustertrain(args) -> int:
+    """Train the cluster-effect MLP from a merged BED + per-site truth
+    fractions (chr strand pos fraction whitespace files)."""
+    import numpy as np
+
+    from deepmod_tpu_torch.tools.cluster_predict import (
+        _read_motif_positions,
+        _read_pred_bed,
+        build_cluster_features,
+    )
+    from deepmod_tpu_torch.train.cluster_trainer import (
+        ClusterTrainConfig,
+        save_cluster_npz,
+        train_cluster_model,
+    )
+
+    truth = {}
+    with open(args.truth) as fh:
+        for line in fh:
+            parts = line.split()
+            if len(parts) >= 4:
+                truth[(parts[1], int(parts[2]))] = float(parts[3])
+    feats = []
+    targets = []
+    for chrom in args.chrs:
+        motif_path = os.path.join(args.motif_folder, f"motif_{chrom}_C.bed")
+        pred_path = f"{args.pred_prefix}.{chrom}.C.bed"
+        if not (os.path.isfile(motif_path) and os.path.isfile(pred_path)):
+            continue
+        cg = _read_motif_positions(motif_path)
+        keys, frac, _lines = _read_pred_bed(pred_path, cg)
+        if not keys:
+            continue
+        x = build_cluster_features(keys, frac)
+        for row, key in zip(x, keys):
+            if key in truth:
+                feats.append(row)
+                targets.append(truth[key])
+    if not feats:
+        print("no (site, truth) pairs found", file=sys.stderr)
+        return 1
+    params, history = train_cluster_model(
+        np.asarray(feats, np.float32),
+        np.asarray(targets, np.float32),
+        ClusterTrainConfig(epochs=args.epochs),
+        device=args.device,
+    )
+    save_cluster_npz(args.out, params)
+    print(
+        f"trained on {len(feats)} sites; loss {history[0]:.4f} -> "
+        f"{history[-1]:.4f}; saved {args.out}"
+    )
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    from deepmod_tpu_torch.tools.evaluate import ecoli_performance
+
+    metrics = ecoli_performance(
+        args.mod_bed, args.ctrl_bed, args.ref, args.motif, args.out_prefix
+    )
+    for k, v in metrics.items():
+        print(f"{k}: {v}")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deepmod_tpu_torch",
@@ -335,7 +462,6 @@ def build_parser() -> argparse.ArgumentParser:
     _common_flags(p)
     p.add_argument("--Ref")
     p.add_argument("--predDet", type=int, default=1, choices=[0, 1])
-    # read only by --predDet 0, which is not ported yet
     p.add_argument("--predpath", default=None)
     p.add_argument("--modfile", type=str, default=None)
     p.add_argument("--fnum", type=int, default=7)
@@ -463,6 +589,62 @@ def build_parser() -> argparse.ArgumentParser:
         "(no h5py) instead of fast5",
     )
     p.set_defaults(func=cmd_synth)
+
+    p = sub.add_parser("align", help="Align FASTA reads -> SAM (built-in aligner)")
+    p.add_argument("--Ref", required=True)
+    p.add_argument("--fasta", required=True)
+    p.add_argument("--out", default=None)
+    p.add_argument("--alignStr", type=_align_str, default="builtin")
+    p.set_defaults(func=cmd_align)
+
+    p = sub.add_parser("merge", help="Merge mod_pos BEDs across runs")
+    p.add_argument("pred_folder")
+    p.add_argument("base")
+    p.add_argument("file_id")
+    p.add_argument("chrs", nargs="?", default=None)
+    p.set_defaults(func=cmd_merge)
+
+    p = sub.add_parser("motif", help="Generate genome motif position index")
+    p.add_argument("--ref", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--motif", default="CG")
+    p.add_argument("--base", default="C")
+    p.set_defaults(func=cmd_motif)
+
+    p = sub.add_parser(
+        "clusterpred", help="Cluster-effect second-stage 5mC refinement"
+    )
+    p.add_argument("pred_prefix")
+    p.add_argument("motif_folder")
+    p.add_argument(
+        "--model", default=None,
+        help="an .npz cluster model (the default, the reference's TF1 "
+        "checkpoint, needs the TF-checkpoint import, not ported)",
+    )
+    p.add_argument("--chrs", nargs="*", default=None)
+    _device_flag(p, "the cluster MLP")
+    p.set_defaults(func=cmd_clusterpred)
+
+    p = sub.add_parser(
+        "clustertrain", help="Train the cluster-effect second-stage model"
+    )
+    p.add_argument("pred_prefix")
+    p.add_argument("motif_folder")
+    p.add_argument("--truth", required=True,
+                   help="whitespace file: chr strand pos fraction")
+    p.add_argument("--out", required=True)
+    p.add_argument("--chrs", nargs="+", required=True)
+    p.add_argument("--epochs", type=int, default=10)
+    _device_flag(p, "training")
+    p.set_defaults(func=cmd_clustertrain)
+
+    p = sub.add_parser("evaluate", help="Motif-ground-truth AUC/AP evaluation")
+    p.add_argument("--mod-bed", required=True, nargs="+")
+    p.add_argument("--ctrl-bed", required=True, nargs="+")
+    p.add_argument("--ref", required=True)
+    p.add_argument("--motif", default="CG")
+    p.add_argument("--out-prefix", default="perf")
+    p.set_defaults(func=cmd_evaluate)
     return parser
 
 

@@ -18,9 +18,14 @@ mPredict1 -> sum_handler, myDetect.py:1124-1263, 948-984, 392-465,
   on-disk formats (predetail HDF5 + index files) and accumulated into
   per-(chr, strand) counters for the BEDs.
 
+``--predDet 0`` skips prediction and rebuilds the BEDs from an earlier
+run's predetail HDF5 and index files (``engine.summarize``);
+``--mod_cluster`` applies the inline CpG-cluster rescue before counting
+and names the BEDs ``cluster_mod_pos.*``.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``--predDet 0``, ``--mod_cluster``, device aggregation, the
-fnum-57 histogram pack, and multi-device or multi-process runs.
+item): device aggregation, the fnum-57 histogram pack, and multi-device
+or multi-process runs.
 """
 
 from __future__ import annotations
@@ -97,6 +102,7 @@ class DetectConfig:
     recursive: bool = True
     files_per_batch: int = 1000
     pred_det: bool = True
+    pred_path: Optional[str] = None   # for summarize-only mode
     write_per_read: bool = True       # predetail HDF5 + index files
     mod_cluster: bool = False
     output_layer: str = ""            # '' | 'sigmoid' (myMultiBiRNN.py:50-53)
@@ -522,10 +528,6 @@ def _write_index_files(
 
 
 def _check_ported(config: DetectConfig) -> None:
-    if not config.pred_det:
-        raise _not_ported("--predDet 0 (summarize-only)", "predDet 0")
-    if config.mod_cluster:
-        raise _not_ported("--mod_cluster", "modCluster")
     if config.device_aggregation:
         raise _not_ported("device aggregation", "multi-GPU")
 
@@ -537,6 +539,9 @@ def detect_run(
 ) -> DetectResult:
     """Full detect: per-read prediction + genomic summaries + BED.
 
+    With ``pred_det=False``, skips prediction and rebuilds summaries from
+    an existing run's prediction files (the reference's --predDet 0 path,
+    myDetect.py:1230-1263): no model is loaded and no device is touched.
     ``predictor`` reuses an already-built WindowPredictor (device-resident
     weights) across runs; it must match the configured model.
     ``host_pool`` likewise reuses a warm ``engine.host_pool.HostPool``
@@ -563,6 +568,24 @@ def _detect_run_inner(
     host_pool=None,
 ) -> DetectResult:
     start_time = time.time()
+    if not config.pred_det:
+        from .summarize import summarize_run
+
+        pred_path = config.pred_path or os.path.join(
+            config.out_folder, config.file_id
+        )
+        bed_files = summarize_run(
+            pred_path, config.out_folder, config.base, config.mod_cluster
+        )
+        open(config.out_folder.rstrip("/") + ".done", "w").close()
+        return DetectResult(
+            out_folder=config.out_folder,
+            bed_files=bed_files,
+            num_reads=0,
+            num_windows=0,
+            errors={},
+            elapsed_s=time.time() - start_time,
+        )
     os.makedirs(os.path.join(config.out_folder, config.file_id), exist_ok=True)
 
     if predictor is None:
@@ -767,9 +790,10 @@ def _detect_run_inner(
         _write_index_files(all_index, config)
 
     bed_files: List[str] = []
+    prefix = "cluster_mod_pos" if config.mod_cluster else "mod_pos"
     for (chrom, strand), pc in sorted(counts.items()):
         bed_path = os.path.join(
-            config.out_folder, f"mod_pos.{chrom}{strand}.{config.base}.bed"
+            config.out_folder, f"{prefix}.{chrom}{strand}.{config.base}.bed"
         )
         if write_bed(bed_path, chrom, strand, config.base, pc) > 0:
             bed_files.append(bed_path)

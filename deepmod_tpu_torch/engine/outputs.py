@@ -3,8 +3,8 @@
 A copy of ``deepmod_tpu/engine/outputs.py`` for the PyTorch port. The
 reference writes each batch's predetail HDF5 as one per-batch file
 (myDetect.py:714-760, 968); this module holds that whole output stage as
-device-free functions. The mod-cluster rescue is not ported yet and
-raises.
+device-free functions, the inline CpG-cluster rescue of ``--mod_cluster``
+included (``engine.summarize.apply_mod_cluster_rescue``).
 """
 
 from __future__ import annotations
@@ -209,10 +209,9 @@ def write_batch_outputs(
             item.base_map["mod_pred"][hits] = 1
             pred_mod_num = int(len(hits))
             if opts.mod_cluster:
-                raise NotImplementedError(
-                    "--mod_cluster is not ported to the PyTorch package "
-                    "yet (ROADMAP, port queue: modCluster)"
-                )
+                from .summarize import apply_mod_cluster_rescue
+
+                apply_mod_cluster_rescue(item.base_map)
             # accumulate counts (sum_handler rules)
             key = (item.rname, item.strand)
             if key not in counts:

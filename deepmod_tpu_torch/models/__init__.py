@@ -10,3 +10,4 @@ from .bilstm import (
     count_params,
     CLASS_WEIGHTS,
 )
+from .cluster_mlp import ClusterMLPConfig, init_cluster_params, cluster_forward

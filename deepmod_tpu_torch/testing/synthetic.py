@@ -570,12 +570,14 @@ def convert_move_dataset_to_pod5(
 
 def write_move_dataset_pod5(
     out_dir: str, config: SynthConfig, n_files: int = 1,
+    genome: Optional[Dict[str, str]] = None,
 ) -> Tuple[Dict[str, str], List[SimulatedRead], Dict[str, str]]:
     """Move-style dataset as the modern ONT stack, without h5py.
 
     Simulates the reads exactly as ``generate_dataset`` does for
-    ``fast5_style='move'`` (same RNG stream: genome, then per read the
-    read and its signal) and writes ``ref.fa``, ``pod5/reads.pod5`` (raw
+    ``fast5_style='move'`` (same RNG stream: the genome unless ``genome``
+    is given, then per read the read, its ``mod_site_prob`` mask where the
+    config has a landscape, and its signal) and writes ``ref.fa``, ``pod5/reads.pod5`` (raw
     signal, uncompressed, so no zstandard is needed; with ``n_files`` > 1
     the reads in order over ``pod5/reads_<k>.pod5``, k = 0..n_files-1,
     as even as they divide) and one ``calls.bam`` for all of them
@@ -592,13 +594,14 @@ def write_move_dataset_pod5(
     from deepmod_tpu_torch.io.fasta import write_fasta
     from deepmod_tpu_torch.io.pod5 import write_pod5
 
-    if config.reads_per_file != 1 or config.mod_site_prob is not None:
+    if config.reads_per_file != 1:
         raise ValueError(
-            "write_move_dataset_pod5 simulates single-read, motif-style "
-            "datasets (reads_per_file=1, mod_site_prob=None)"
+            "write_move_dataset_pod5 simulates single-read datasets "
+            "(reads_per_file=1)"
         )
     rng = np.random.RandomState(config.seed)
-    genome = make_genome(rng, config.genome_sizes)
+    if genome is None:
+        genome = make_genome(rng, config.genome_sizes)
     pod_dir = os.path.join(out_dir, "pod5")
     os.makedirs(pod_dir, exist_ok=True)
     write_fasta(os.path.join(out_dir, "ref.fa"), genome)
@@ -613,11 +616,18 @@ def write_move_dataset_pod5(
     id_map: Dict[str, str] = {}
     for i in range(config.num_reads):
         k = i * len(paths) // config.num_reads
-        chrom, strand, start, segment, seq, _ = simulate_read(
+        chrom, strand, start, segment, seq, ref_pos = simulate_read(
             rng, genome, config, return_ref_pos=True
         )
+        mod_mask = None
+        if config.mod_site_prob is not None and config.mod_level_shift:
+            mod_mask = _site_prob_mask(
+                rng, genome[chrom],
+                config.mod_site_prob.get(chrom, np.zeros(0)),
+                strand, ref_pos,
+            )
         read_id = f"synthread_{i:04d}"
-        signal = synth_signal(rng, seq, config)[0]
+        signal = synth_signal(rng, seq, config, mod_mask)[0]
         move, signal, first = _move_layout(seq, signal)
         rid = uuid_mod.uuid5(uuid_mod.NAMESPACE_URL, read_id)
         id_map[read_id] = str(rid)

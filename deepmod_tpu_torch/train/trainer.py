@@ -35,6 +35,7 @@ from deepmod_tpu_torch.models.tf_import import (
     params_from_numpy,
     save_bilstm_npz,
 )
+from deepmod_tpu_torch.tools.evaluate import roc_auc_score as roc_auc
 from deepmod_tpu_torch.utils.device import resolve_device
 from .loader import TestSplit, iterate_training_batches, load_feature_file
 
@@ -104,15 +105,18 @@ def adam_init(params: Dict[str, Any]) -> Dict[str, Any]:
 @torch.no_grad()
 def adam_update(params: Dict[str, Any], grads: Sequence[torch.Tensor],
                 state: Dict[str, Any], learning_rate: float,
-                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                leaves: Callable = param_leaves) -> None:
     """One Adam step in place, in optax.adam's order of operations:
     mu = (1-b1) g + b1 mu; nu = (1-b2) g^2 + b2 nu; the bias corrections
-    1 - b^count in fp32; p += -lr * (mu_hat / (sqrt(nu_hat) + eps))."""
+    1 - b^count in fp32; p += -lr * (mu_hat / (sqrt(nu_hat) + eps)).
+    ``leaves`` lists a params tree's tensors in the order of ``grads``
+    (the cluster MLP passes its own)."""
     count = state["count"] + 1
     bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(count))
     bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(count))
-    for p, g, m, v in zip(param_leaves(params), grads,
-                          param_leaves(state["mu"]), param_leaves(state["nu"])):
+    for p, g, m, v in zip(leaves(params), grads,
+                          leaves(state["mu"]), leaves(state["nu"])):
         m.copy_((1 - b1) * g + b1 * m)
         v.copy_((1 - b2) * (g * g) + b2 * v)
         update = (m / bc1) / (torch.sqrt(v / bc2) + eps)
@@ -152,22 +156,6 @@ def make_train_step(
         return loss.detach()
 
     return step
-
-
-def roc_auc(truth: np.ndarray, scores: np.ndarray) -> float:
-    """Area under the ROC curve by the Mann-Whitney rank formula, tied
-    scores taking their average rank (what sklearn's roc_auc_score
-    computes)."""
-    truth = np.asarray(truth).astype(bool)
-    scores = np.asarray(scores, np.float64)
-    n_pos = int(truth.sum())
-    n_neg = len(truth) - n_pos
-    _, inverse, counts = np.unique(scores, return_inverse=True,
-                                   return_counts=True)
-    ends = np.cumsum(counts)
-    ranks = (ends - (counts - 1) / 2.0)[inverse]
-    return float((ranks[truth].sum() - n_pos * (n_pos + 1) / 2.0)
-                 / (n_pos * n_neg))
 
 
 def batch_metrics(params, model_config, x, y) -> Dict[str, float]:

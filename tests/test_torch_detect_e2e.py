@@ -252,10 +252,10 @@ def test_cli_detect_on_cpu(runs, tmp_path):
 
 
 def test_unported_options_raise(runs, tmp_path):
+    """Device aggregation is the one detect option still unported
+    (--predDet 0 and --mod_cluster: tests/test_torch_summarize.py)."""
     _, common, _ = runs
     base = DetectConfig(**dict(common, out_folder=str(tmp_path / "x")),
                         device="cpu")
-    for change in (dict(pred_det=False), dict(mod_cluster=True),
-                   dict(device_aggregation=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            detect_run(dataclasses.replace(base, **change))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        detect_run(dataclasses.replace(base, device_aggregation=True))

@@ -244,19 +244,22 @@ def test_host_pool_survives_crashed_run(runs):
 
 
 def test_worker_modules_import_no_torch(runs):
-    """What a spawned worker imports (host_pool, host_worker, outputs) and
-    runs (the host stage of a batch) loads no torch."""
+    """What a spawned worker imports (host_pool, host_worker, outputs,
+    summarize) and runs (the host stage of a batch, the --mod_cluster
+    rescue) loads no torch."""
     _, _, cfg, _ = runs
     code = (
         "import glob, sys\n"
         "from deepmod_tpu_torch.engine import host_pool\n"
-        "from deepmod_tpu_torch.engine import host_worker, outputs\n"
+        "from deepmod_tpu_torch.engine import host_worker, outputs, "
+        "summarize\n"
         "from deepmod_tpu_torch.engine.host_worker import HostOptions\n"
         f"host_worker.init_worker({_host_options(cfg)!r})\n"
         f"files = sorted(glob.glob({cfg.wrk_base!r} + '/**/*.fast5',"
         " recursive=True))\n"
         "results, errors = host_worker.host_process_files(files[:2])\n"
         "outputs.build_batch_request(results, None)\n"
+        "summarize.apply_mod_cluster_rescue(results[0].base_map)\n"
         "assert results and not errors, errors\n"
         "print('torch' in sys.modules)\n"
     )

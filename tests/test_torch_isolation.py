@@ -93,6 +93,17 @@ def test_cuda_request_without_gpu_raises(tmp_path):
         train_run([["unused.xy.npz"]], TrainConfig(out_folder=str(tmp_path)))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         predict_feature_files(params, cfg, [], str(tmp_path / "p.txt"))
+    import numpy as np
+
+    from deepmod_tpu_torch.tools.cluster_predict import cluster_predict_run
+    from deepmod_tpu_torch.train.cluster_trainer import train_cluster_model
+
+    golden = os.path.join(REPO, "tests", "golden", "cluster_weights.npz")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        cluster_predict_run(str(tmp_path / "pred"), str(tmp_path), golden)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        train_cluster_model(np.zeros((4, 14), np.float32),
+                            np.zeros(4, np.float32))
 
 
 def test_chip_smoke_refuses_without_gpu(tmp_path):
