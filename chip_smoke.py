@@ -135,7 +135,24 @@ without printing the result line):
 21. clusterpred over a synthesized merged BED of 1,000,000 lines on one
    chromosome: the time split (BED read, features, the MLP on the card by
    CUDA events, write) and sites/s through the CLI, beside the card's name
-   and power limit.
+   and power limit;
+22. (after phase 17) the reference's model format on the card: phase 7's
+   seeded full-width model written as a TF1 checkpoint by
+   ``testing/tf_bundle.py`` (the reference's variable names, Adam slots,
+   beta powers, global_step), read back by ``load_model`` (the reader's
+   seconds; the .npz's bits), a flipped data byte raising the crc32c
+   error, and detect through the CLI with ``--modfile <prefix>`` over
+   phase 7's pod5 set at bf16: its BEDs the .npz run's bytes, K1 counted;
+23. ``serve`` on the card over phase 7's pod5 files from the TF prefix:
+   answers over HTTP (1 file, then 4) equal to the in-process ones, bf16
+   and fp32 services at --threads 1 and 4 (the HostPool route) giving the
+   same answers, 8 concurrent one-file requests giving the serial answers
+   in fewer device calls, the fp32 answers over 2 files equal to a
+   --device cpu service's (or every differing window a near tie, phase
+   7's rule), K1 counted around those requests; then the latency probe
+   (``tools/probe_serve_latency.py``: p50/p95 of 1- and 8-file requests,
+   1, 4 and 8 concurrent clients with the coalescer on and off, device
+   calls a request) beside the card's name and power limit.
 
 Every process the script starts is stopped and reaped before it exits,
 whether it passed or failed: it adopts its descendants' orphans (Linux
@@ -1635,7 +1652,6 @@ def compare_devices(device, ds: str, workdir: str, prefix: str,
         init_worker,
     )
     from deepmod_tpu_torch.engine.outputs import build_batch_request
-    from deepmod_tpu_torch.models.bilstm import bilstm_logits
     from deepmod_tpu_torch.models.tf_import import load_model
 
     beds = {k: read_beds(os.path.join(workdir, prefix + k))
@@ -1661,6 +1677,24 @@ def compare_devices(device, ds: str, workdir: str, prefix: str,
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     cpu = WindowPredictor(params, mcfg, device="cpu", precision="fp32")
+    flips, n_near_tie = near_tie_flips(gpu, cpu, feats, centers, p_gpu)
+    assert beds_equal or len(flips) > 0, "BEDs differ with no window flip"
+    log(f"[detect T={windowsize}] windows={len(centers)} fp32 GPU/CPU window "
+        f"flips={len(flips)} (all near ties: {n_near_tie == len(flips)}), "
+        f"BEDs equal={beds_equal}; GPU classify {gpu_s:.3f} s")
+    return {"windows": int(len(centers)), "flips": int(len(flips)),
+            "beds_equal": beds_equal}
+
+
+def near_tie_flips(gpu, cpu, feats, centers, p_gpu) -> tuple:
+    """The fp32 card predictor's window predictions ``p_gpu`` against the
+    cpu predictor's on the same host features: (indices of the flipped
+    windows, how many are near ties). Every flip must be a near tie:
+    |logit margin| at most twice the two devices' logit difference."""
+    from deepmod_tpu_torch.models.bilstm import bilstm_logits
+
+    mcfg = gpu.config
+    windowsize = mcfg.timesteps
     p_cpu = cpu.predict_from_features(feats, centers, windowsize,
                                       assume_packable=True)
     flips = np.flatnonzero(p_gpu != p_cpu)
@@ -1670,7 +1704,7 @@ def compare_devices(device, ds: str, workdir: str, prefix: str,
         view = np.lib.stride_tricks.sliding_window_view(feats, windowsize, axis=0)
         win = np.ascontiguousarray(
             np.moveaxis(view[centers[flips] - half], 2, 1))
-        lg = bilstm_logits(gpu._model, torch.from_numpy(win).to(device),
+        lg = bilstm_logits(gpu._model, torch.from_numpy(win).to(gpu.device),
                            mcfg, "fp32").cpu()
         lc = bilstm_logits(cpu._model, torch.from_numpy(win), mcfg, "fp32")
         margin = (lc[:, 1] - lc[:, 0]).abs()
@@ -1679,12 +1713,7 @@ def compare_devices(device, ds: str, workdir: str, prefix: str,
         assert n_near_tie == len(flips), (
             f"{len(flips) - n_near_tie} fp32 GPU/CPU prediction flips are "
             "not near ties")
-    assert beds_equal or len(flips) > 0, "BEDs differ with no window flip"
-    log(f"[detect T={windowsize}] windows={len(centers)} fp32 GPU/CPU window "
-        f"flips={len(flips)} (all near ties: {n_near_tie == len(flips)}), "
-        f"BEDs equal={beds_equal}; GPU classify {gpu_s:.3f} s")
-    return {"windows": int(len(centers)), "flips": int(len(flips)),
-            "beds_equal": beds_equal}
+    return flips, n_near_tie
 
 
 def phase_detect_layered(device, workdir: str) -> dict:
@@ -1733,6 +1762,250 @@ def phase_detect_layered(device, workdir: str) -> dict:
                 f"{res['windows'] / wall:.1f} windows/s end to end")
         out[windowsize] = dict(res, launches=launches, walls=walls)
     return out
+
+
+def phase_tf_checkpoint(workdir: str) -> dict:
+    """The reference's model format on the card: phase 7's seeded
+    full-width model written as a TF1 checkpoint (the reference's variable
+    names, Adam slots, beta powers and global_step) by the port's writer,
+    read back by ``load_model`` with the reader's seconds, the same bits
+    as the .npz; a flipped data byte must raise the crc error; detect
+    through the CLI with ``--modfile <prefix>`` over phase 7's pod5 set at
+    bf16 must give the .npz run's BEDs, with K1 counted around it."""
+    from deepmod_tpu_torch.models import tf_bundle
+    from deepmod_tpu_torch.models.tf_import import (
+        RNN_KERNEL,
+        _flatten,
+        load_model,
+    )
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.testing.tf_bundle import write_reference_bilstm
+
+    ds = os.path.join(workdir, "ds")
+    params, cfg = load_model(os.path.join(ds, "model.npz"))
+    prefix = os.path.join(ds, "tf", "mod_train")
+    os.makedirs(os.path.dirname(prefix))
+    write_reference_bilstm(prefix, params)
+    reader = tf_bundle.CheckpointReader(prefix)
+    names = reader.get_variable_to_shape_map()
+    assert "global_step" in names and sum(
+        k.endswith("/Adam") for k in names) == 14, sorted(names)
+    t0 = time.perf_counter()
+    got, got_cfg = load_model(prefix)
+    reader_s = time.perf_counter() - t0
+    want = _flatten(params)
+    flat = _flatten(got)
+    assert sorted(flat) == sorted(want) and got_cfg == cfg, (got_cfg, cfg)
+    assert all(flat[k].tobytes() == want[k].tobytes() for k in want)
+    size = os.path.getsize(prefix + ".data-00000-of-00001")
+    log(f"[tf] {len(names)} variables, .data {size} B, .index "
+        f"{os.path.getsize(prefix + '.index')} B; load_model read the 14 "
+        f"model tensors ({sum(v.nbytes for v in want.values())} B) in "
+        f"{reader_s:.4f} s, the .npz's bits")
+
+    bad = os.path.join(ds, "tf_bad", "mod_train")
+    shutil.copytree(os.path.dirname(prefix), os.path.dirname(bad))
+    kernel = RNN_KERNEL.format(d="bw", l=2)
+    at = reader._entries[kernel].offset + 4321
+    with open(bad + ".data-00000-of-00001", "r+b") as fh:
+        fh.seek(at)
+        b = fh.read(1)
+        fh.seek(at)
+        fh.write(bytes([b[0] ^ 0x01]))
+    try:
+        load_model(bad)
+        raise AssertionError("a flipped data byte loaded")
+    except ValueError as exc:
+        error = str(exc)
+    assert f"'{kernel}': crc32c mismatch" in error, error
+    log(f"[tf] a flipped data byte raises: {error}")
+
+    out = os.path.join(workdir, "tf_gpu_bf16")
+    ops.reset_launch_counts()
+    wall = run_detect(ds, out, "cuda", "bf16", model=prefix)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    assert launches["bf16"] > 0, launches
+    beds = read_beds(out)
+    assert beds and beds == read_beds(os.path.join(workdir, "gpu_bf16"))
+    log(f"[tf] detect --modfile <TF prefix> bf16: wall {wall:.2f} s, K1 "
+        f"launches {launches}, BEDs the .npz run's bytes ({len(beds)} files)")
+    return {"prefix": prefix, "reader_s": reader_s, "launches": launches}
+
+
+def phase_serve(device, workdir: str, prefix: str) -> dict:
+    """``serve`` on the card over phase 7's pod5 files (through
+    --basecalls), the model read from phase 22's TF prefix: services at
+    bf16 and fp32 with --threads 1 and 4; answers over HTTP (1 file, then
+    4) equal the in-process ones; --threads 4 answers equal --threads 1's;
+    8 concurrent one-file requests give the serial answers in fewer device
+    calls; the fp32 answers over 2 files equal a --device cpu service's, or
+    every differing window is a near tie (phase 7's rule). K1 is counted
+    around the services' requests; then the latency probe's table."""
+    import threading
+    import urllib.request
+
+    from deepmod_tpu_torch.engine.host_worker import host_process_files
+    from deepmod_tpu_torch.engine.outputs import build_batch_request
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.serve import DetectService, serve
+    from deepmod_tpu_torch.tools import probe_serve_latency
+
+    ds = os.path.join(workdir, "ds")
+    ref, bam = os.path.join(ds, "ref.fa"), os.path.join(ds, "calls.bam")
+    files = sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5")))
+    requests = [files[:1], files[:4]]
+
+    def service(precision, threads=1, dev="cuda"):
+        return DetectService(ref, prefix, align_str="builtin",
+                             precision=precision, threads=threads,
+                             basecalls=bam, device=dev)
+
+    def post(url, paths):
+        req = urllib.request.Request(
+            url + "/detect", data=json.dumps({"fast5": paths}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            assert resp.status == 200
+            return json.loads(resp.read())
+
+    ops.reset_launch_counts()
+    answers = {}
+    httpd = serve(ref, prefix, port=0, precision="bf16", basecalls=bam)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+        assert health["backend"] == "cuda", health
+        svc = httpd.dmt_service
+        for paths in requests:
+            t0 = time.perf_counter()
+            body = post(url, paths)
+            wall = time.perf_counter() - t0
+            local = json.loads(json.dumps(svc.detect(paths)))
+            assert body == local and body["reads"], body["errors"]
+            answers[("bf16", len(paths))] = body
+            log(f"[serve] HTTP {len(paths)} file(s): {len(body['reads'])} "
+                f"reads, {len(body['positions'])} positions, errors "
+                f"{ {k: len(v) for k, v in body['errors'].items()} }, "
+                f"{wall:.3f} s, the in-process answer")
+        serial = {p: svc.detect([p]) for p in files[:8]}
+        # the host stage is single-flight and K1 is quick, so requests
+        # seldom meet at the dispatcher (the probe below counts how
+        # seldom): hold its first device call until all 8 requests have
+        # reached it, so that those not in that call must go as one
+        coalescer = svc._coalescer
+        predict, put = coalescer._predict, coalescer._q.put
+        arrived = threading.Semaphore(0)
+
+        def counted_put(item):
+            put(item)
+            arrived.release()
+
+        def held_first(results):
+            if coalescer._predict is held_first:
+                coalescer._predict = predict
+                for _ in range(8):
+                    assert arrived.acquire(timeout=120), "a request is lost"
+            return predict(results)
+
+        coalescer._q.put = counted_put
+        coalescer._predict = held_first
+        calls0 = coalescer.device_calls
+        got, errs = {}, []
+
+        def hit(p):
+            try:
+                got[p] = svc.detect([p])
+            except Exception as exc:  # noqa: BLE001
+                errs.append(exc)
+
+        threads = [threading.Thread(target=hit, args=(p,)) for p in files[:8]]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        del coalescer._q.put
+        calls = coalescer.device_calls - calls0
+        assert not errs and got == serial, errs
+        assert 1 <= calls < len(threads), calls
+        log(f"[serve] 8 concurrent one-file requests, the first device call "
+            f"held until all 8 reached the dispatcher: the serial answers in "
+            f"{calls} device calls; health {health}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.dmt_service.close()
+        thread.join(timeout=10)
+    for precision in ("fp32", "bf16"):
+        for threads in (1, 4):
+            if (precision, threads) == ("bf16", 1):
+                continue  # the HTTP service above
+            svc = service(precision, threads)
+            try:
+                for paths in requests:
+                    answers[(precision, len(paths), threads)] = svc.detect(
+                        paths)
+            finally:
+                svc.close()
+    def by_read(answer):
+        # the pool orders reads by file, the in-process stage by read id
+        return dict(answer, reads=sorted(answer["reads"],
+                                         key=lambda r: r["read_id"]))
+
+    for paths in requests:
+        n = len(paths)
+        assert by_read(answers[("bf16", n, 4)]) == by_read(
+            answers[("bf16", n)])
+        assert by_read(answers[("fp32", n, 4)]) == by_read(
+            answers[("fp32", n, 1)])
+    log("[serve] --threads 4 answers equal --threads 1's (reads in read-id "
+        "order), bf16 and fp32")
+
+    two = files[:2]
+    gpu = service("fp32")
+    cpu = service("fp32", dev="cpu")
+    try:
+        a_gpu, a_cpu = gpu.detect(two), cpu.detect(two)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        assert launches["bf16"] > 0 and launches["fp32"] > 0, launches
+        n_flips = 0
+        if a_gpu != a_cpu:
+            results, _ = host_process_files(two)
+            feats, centers, _, _ = build_batch_request(results)
+            p_gpu = gpu.predictor.predict_from_features(
+                feats, centers, 21, assume_packable=True)
+            flips, _ = near_tie_flips(gpu.predictor, cpu.predictor, feats,
+                                      centers, p_gpu)
+            assert len(flips) > 0, "answers differ with no window flip"
+            n_flips = len(flips)
+    finally:
+        gpu.close()
+        cpu.close()
+    log(f"[serve] fp32 card answers over 2 files equal the cpu service's: "
+        f"{a_gpu == a_cpu} ({n_flips} flipped windows, all near ties); K1 "
+        f"launches on serve's path {launches}")
+
+    t0 = time.perf_counter()
+    probe = probe_serve_latency.run(ds, prefix, requests=20,
+                                    precision="bf16", device="cuda")
+    log(f"[serve] latency probe ({time.perf_counter() - t0:.2f} s), "
+        f"{nvidia_smi_line()}:")
+    for row in probe["rows"]:
+        log(f"[serve]   {row['files_per_request']} file(s), "
+            f"{row['reads_per_request']} reads, {row['windows_per_request']} "
+            f"windows a request: p50 {row['p50_ms']:.3f} ms, p95 "
+            f"{row['p95_ms']:.3f} ms, best {row['best_ms']:.3f} ms, "
+            f"{row['device_calls_per_request']:.3f} device calls a request")
+    for row in probe["concurrent"]:
+        log(f"[serve]   {row['concurrent_clients']} concurrent clients, "
+            f"coalescer {'on' if row['coalesce'] else 'off'}: p50 "
+            f"{row['p50_ms']:.3f} ms, p95 {row['p95_ms']:.3f} ms, "
+            f"{row['device_calls_per_request']:.3f} device calls a request")
+    return {"launches": launches, "probe": probe}
 
 
 def phase_native() -> dict:
@@ -2475,6 +2748,10 @@ def smoke() -> str:
         t_pool = time.perf_counter()
         phase_pool(workdir, det["windows"])
         log(f"[pool] phase: {time.perf_counter() - t_pool:.2f} s")
+        t_serve = time.perf_counter()
+        tfk = phase_tf_checkpoint(workdir)
+        srv = phase_serve(device, workdir, tfk["prefix"])
+        log(f"[serve] phases 22-23: {time.perf_counter() - t_serve:.2f} s")
         det_k4 = phase_detect_layered(device, workdir)
         trn = phase_train(device, workdir)
         trn_k4 = phase_train_layered(device, workdir, trn["feats"])
@@ -2502,7 +2779,8 @@ def smoke() -> str:
             "library_ms": None if lib is None else round(lib, 3),
         }
 
-    # K1's main paths: detect (phase 7) and the cluster loop's detect runs;
+    # K1's main paths: detect (phase 7), detect from the TF prefix and
+    # serve (phases 22-23) and the cluster loop's detect runs;
     # K2/K3's: train (phase 8) and the loop's first stage.
     # K4's main path: detect at every LAYERED_T window size
     k4_launches = {p: sum(r["launches"][p] for r in det_k4.values())
@@ -2514,7 +2792,8 @@ def smoke() -> str:
             f"k1_center_{precision}" + ("_tc" if precision == "bf16" else ""),
             "bilstm_fused.cu",
             "deepmod_tpu/ops/bilstm_fused.py:551",
-            det["launches"][precision] + clu["launches"][precision],
+            det["launches"][precision] + clu["launches"][precision]
+            + tfk["launches"][precision] + srv["launches"][precision],
             kern[precision]))
         for kind, line in (("fwd", 101), ("bwd", 222)):
             kernels.append(entry(

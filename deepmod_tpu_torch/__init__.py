@@ -14,12 +14,15 @@ probe), built with nvcc at first use.
 Entry points take an explicit device, ``"cuda"`` by default; the CPU is
 used only when asked for (``device="cpu"``, ``--device cpu``).
 
-    deepmod_tpu_torch.models  - BiLSTM classifier, .npz checkpoints
+    deepmod_tpu_torch.models  - BiLSTM classifier, cluster MLP, .npz and TF1
+                                checkpoints (read without TensorFlow)
     deepmod_tpu_torch.ops     - the CUDA kernel wrappers and their plain versions
     deepmod_tpu_torch.engine  - the detect and getfeatures pipelines
     deepmod_tpu_torch.train   - feature-file loading and the trainer
-    deepmod_tpu_torch.tools   - the transcendental-rate and mono-schedule probes,
-                                the host-stage and detect benchmarks
+    deepmod_tpu_torch.serve   - the long-lived HTTP detection service
+    deepmod_tpu_torch.tools   - the transcendental-rate, mono-schedule and
+                                serving-latency probes, the host-stage and
+                                detect benchmarks, the post-hoc tools
     deepmod_tpu_torch.native  - the native host library (C++, built at first use)
     deepmod_tpu_torch.io, align, features, aggregate, utils, testing
 """

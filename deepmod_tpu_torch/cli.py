@@ -3,8 +3,9 @@
 ``detect``, ``train``, ``getfeatures`` and ``predfeatures`` take the JAX
 package's flags (bin/DeepMod.py:304-383 names and defaults), and the
 post-hoc commands ``merge``, ``motif``, ``clusterpred``, ``clustertrain``,
-``evaluate`` and ``align`` take the JAX CLI's. ``detect``, ``train``,
-``predfeatures``, ``clusterpred`` and ``clustertrain`` add ``--device``
+``evaluate`` and ``align`` take the JAX CLI's, and ``serve`` those of
+the JAX ``serve.main``. ``detect``, ``train``, ``predfeatures``,
+``clusterpred``, ``clustertrain`` and ``serve`` add ``--device``
 (``cuda`` by default; ``cpu`` only when asked for); ``detect`` adds
 ``--perRead 0`` (BEDs only, no per-read HDF5). ``getfeatures`` and the
 other post-hoc commands are host-only. ``synth`` generates a synthetic
@@ -172,9 +173,11 @@ def cmd_train(args) -> int:
     resume_opt_from = None
     if args.modfile:
         init_params, _ = load_model(args.modfile)
-        # native checkpoints carry the Adam slots: --modfile continues the
-        # run (the reference's resume never worked, myMultiBiRNN.py:117)
-        resume_opt_from = args.modfile
+        if args.modfile.endswith(".npz"):
+            # native checkpoints carry the Adam slots: --modfile continues
+            # the run (the reference's resume never worked,
+            # myMultiBiRNN.py:117); a TF checkpoint gives the params only
+            resume_opt_from = args.modfile
     config = TrainConfig(
         out_folder=args.outFolder,
         file_id=args.FileID,
@@ -437,6 +440,24 @@ def cmd_clustertrain(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    from deepmod_tpu_torch.serve import serve
+
+    server = serve(args.Ref, args.modfile, args.port, args.host, args.Base,
+                   args.alignStr, precision=args.precision,
+                   threads=args.threads, basecalls=args.basecalls,
+                   device=args.device)
+    print(f"deepmod_tpu_torch serving on {args.host}:{args.port}", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.server_close()
+        server.dmt_service.close()
+    return 0
+
+
 def cmd_evaluate(args) -> int:
     from deepmod_tpu_torch.tools.evaluate import ecoli_performance
 
@@ -521,7 +542,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden", type=int, default=100)
     p.add_argument(
         "--modfile", type=str, default=None,
-        help="resume from an .npz checkpoint (params and Adam slots)",
+        help="start from a model: an .npz checkpoint (params and Adam "
+        "slots) or a TF1 checkpoint prefix (params)",
     )
     p.add_argument("--test", default=None)
     p.add_argument("--outputlayer", default="", choices=["", "sigmoid"])
@@ -618,8 +640,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("motif_folder")
     p.add_argument(
         "--model", default=None,
-        help="an .npz cluster model (the default, the reference's TF1 "
-        "checkpoint, needs the TF-checkpoint import, not ported)",
+        help="an .npz cluster model or a TF1 checkpoint prefix (default: "
+        "the reference's TF1 checkpoint)",
     )
     p.add_argument("--chrs", nargs="*", default=None)
     _device_flag(p, "the cluster MLP")
@@ -637,6 +659,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=10)
     _device_flag(p, "training")
     p.set_defaults(func=cmd_clustertrain)
+
+    p = sub.add_parser("serve", help="Long-lived detection HTTP service")
+    p.add_argument("--Ref", required=True)
+    p.add_argument(
+        "--modfile", required=True,
+        help="an .npz model or a TF1 checkpoint prefix",
+    )
+    p.add_argument("--port", type=int, default=8765)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--Base", default="C")
+    p.add_argument("--alignStr", type=_align_str, default="builtin")
+    p.add_argument("--precision", default="bf16", choices=["fp32", "bf16"])
+    p.add_argument("--threads", type=int, default=1,
+                   help="host-stage workers (persistent HostPool)")
+    p.add_argument(
+        "--basecalls", default="", metavar="calls.bam",
+        help="dorado-style basecall BAM/SAM (mv/ts tags) enabling .pod5 "
+        "request paths",
+    )
+    _device_flag(p, "the classifier")
+    p.set_defaults(func=cmd_serve)
 
     p = sub.add_parser("evaluate", help="Motif-ground-truth AUC/AP evaluation")
     p.add_argument("--mod-bed", required=True, nargs="+")

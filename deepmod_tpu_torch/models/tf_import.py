@@ -1,4 +1,5 @@
-"""BiLSTM checkpoints for the PyTorch port: the native ``.npz`` format.
+"""BiLSTM checkpoints for the PyTorch port: the native ``.npz`` format and
+the reference's TF1 checkpoints.
 
 The ``.npz`` layout is the JAX package's (``deepmod_tpu/models/
 tf_import.py::save_bilstm_npz``), so a model saved by either package
@@ -10,8 +11,24 @@ the Adam slots in the JAX package's layout (``adam/count`` and
 writes them and ``load_adam_state`` reads them back, so a resume from a
 checkpoint of either package continues the run.
 
-Reading the reference's TF1 checkpoints is not ported yet either (it is a
-ROADMAP item of the port); ``load_model`` raises for them.
+The reference ships its models as TF1 checkpoints (five BiLSTM ones and
+one cluster-model one under train_deepmod/). ``load_model`` reads any path
+that does not end in ``.npz`` as one, through ``models.tf_bundle`` (numpy
+only, no TensorFlow), with the JAX package's variable layout
+(``deepmod_tpu/models/tf_import.py``, verified there against the bundled
+rnn_f7_wd21_chr1to10_4 and Cg.cov5.nb25 checkpoints):
+
+BiLSTM (myMultiBiRNN.py:21-91):
+    bidirectional_rnn/{fw,bw}/multi_rnn_cell/cell_{0,1,2}/basic_lstm_cell/kernel
+        (in+H, 4H) with the TF (i, j, f, o) gate order, used as it is;
+    .../bias  (4H,)
+    Variable   (2H, 2)  output weight
+    Variable_1 (2,)     output bias
+
+Cluster MLP (hm_cluster_predict.py):
+    W_1 (14,100) b_1 (100,) W_2 (100,20) b_2 (20,) W_O (20,1) b_O (1,)
+
+Other variables (Adam slots, ``global_step``) are not read.
 """
 
 from __future__ import annotations
@@ -22,6 +39,11 @@ import numpy as np
 import torch
 
 from .bilstm import BiLSTMConfig
+from .cluster_mlp import PARAM_KEYS, ClusterMLPConfig
+from .tf_bundle import CheckpointReader
+
+RNN_KERNEL = "bidirectional_rnn/{d}/multi_rnn_cell/cell_{l}/basic_lstm_cell/kernel"
+RNN_BIAS = "bidirectional_rnn/{d}/multi_rnn_cell/cell_{l}/basic_lstm_cell/bias"
 
 
 def _map_params(tree: Dict[str, Any], conv) -> Dict[str, Any]:
@@ -143,12 +165,68 @@ def load_bilstm_npz(path: str) -> Tuple[Dict[str, Any], BiLSTMConfig]:
     return _unflatten(data, config.num_layers), config
 
 
+def _bilstm_config(reader: CheckpointReader) -> BiLSTMConfig:
+    shapes = reader.get_variable_to_shape_map()
+    k0 = RNN_KERNEL.format(d="fw", l=0)
+    if k0 not in shapes:
+        raise ValueError(f"{reader.prefix} is not a DeepMod BiLSTM checkpoint")
+    num_hidden = shapes[k0][1] // 4
+    num_layers = 0
+    while RNN_KERNEL.format(d="fw", l=num_layers) in shapes:
+        num_layers += 1
+    return BiLSTMConfig(
+        num_input=shapes[k0][0] - num_hidden,
+        num_hidden=num_hidden,
+        num_layers=num_layers,
+        num_classes=shapes["Variable"][1],
+    )
+
+
+def bilstm_config_from_checkpoint(prefix: str) -> BiLSTMConfig:
+    """(num_input, num_hidden, num_layers, num_classes) from the shapes in
+    a TF checkpoint's ``.index``: its ``.data`` files may be absent (the
+    reference strips them from its BiLSTM checkpoints)."""
+    return _bilstm_config(CheckpointReader(prefix))
+
+
+def load_bilstm_checkpoint(prefix: str) -> Tuple[Dict[str, Any], BiLSTMConfig]:
+    """A reference BiLSTM TF checkpoint -> (params as numpy fp32, config);
+    ``FileNotFoundError`` where its ``.data`` shard is missing."""
+    reader = CheckpointReader(prefix)
+    config = _bilstm_config(reader)
+
+    def get(name: str) -> np.ndarray:
+        return np.asarray(reader.get_tensor(name), dtype=np.float32)
+
+    params: Dict[str, Any] = {
+        d: [{"kernel": get(RNN_KERNEL.format(d=d, l=layer)),
+             "bias": get(RNN_BIAS.format(d=d, l=layer))}
+            for layer in range(config.num_layers)]
+        for d in ("fw", "bw")
+    }
+    params["out_w"] = get("Variable")
+    params["out_b"] = get("Variable_1")
+    return params, config
+
+
+def load_cluster_checkpoint(
+        prefix: str) -> Tuple[Dict[str, np.ndarray], ClusterMLPConfig]:
+    """The reference's cluster-effect MLP TF checkpoint -> (params as numpy
+    fp32, config)."""
+    reader = CheckpointReader(prefix)
+    params = {name: np.asarray(reader.get_tensor(name), dtype=np.float32)
+              for name in PARAM_KEYS}
+    config = ClusterMLPConfig(
+        num_input=params["W_1"].shape[0],
+        hidden1=params["W_1"].shape[1],
+        hidden2=params["W_2"].shape[1],
+    )
+    return params, config
+
+
 def load_model(prefix: str) -> Tuple[Dict[str, Any], BiLSTMConfig]:
-    """Load a BiLSTM model from a native .npz (numpy params)."""
+    """A BiLSTM model (numpy params) from a native .npz or a TF checkpoint
+    prefix."""
     if prefix.endswith(".npz"):
         return load_bilstm_npz(prefix)
-    raise NotImplementedError(
-        f"{prefix}: reading TF1 checkpoints is not ported to the PyTorch "
-        "package yet (ROADMAP: TF-checkpoint import); convert it to .npz "
-        "with deepmod_tpu.models.tf_import.load_model + save_bilstm_npz"
-    )
+    return load_bilstm_checkpoint(prefix)

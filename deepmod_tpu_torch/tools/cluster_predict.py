@@ -14,10 +14,12 @@ histogram differences over the position-sorted site array instead of the
 reference's per-site +-25 Python scan. The MLP (``models.cluster_mlp``)
 runs on the card unless ``device="cpu"`` is given.
 
-The JAX package's default model is the reference's TF1 checkpoint;
-reading TF checkpoints is not ported (ROADMAP: TF-checkpoint import), so
 ``load_cluster_model`` takes an ``.npz`` (the JAX package's
-``save_cluster_npz`` layout) and raises for anything else.
+``save_cluster_npz`` layout) or a TF1 checkpoint prefix, read without
+TensorFlow (``models.tf_import.load_cluster_checkpoint``). The default
+model, as in the JAX package, is the reference's TF1 checkpoint at
+``REFERENCE_CLUSTER_CHECKPOINT``, relative to the working directory
+(``tests/golden/cluster_weights.npz`` holds the same weights, converted).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from deepmod_tpu_torch.models.cluster_mlp import (
     cluster_forward,
     cluster_params_from_numpy,
 )
+from deepmod_tpu_torch.models.tf_import import load_cluster_checkpoint
 
 NB_SIZE = 25          # hm_cluster_predict.py:83
 BATCH_SIZE = 4096     # :16
@@ -45,18 +48,14 @@ REFERENCE_CLUSTER_CHECKPOINT = (
 
 
 def load_cluster_model(path: Optional[str] = None) -> Dict[str, np.ndarray]:
-    """Model params (numpy) from a native .npz."""
+    """Model params (numpy) from a native .npz or a reference TF checkpoint."""
     if path is None:
         path = REFERENCE_CLUSTER_CHECKPOINT
     if path.endswith(".npz"):
         data = np.load(path)
         return {k: data[k] for k in data.files}
-    raise NotImplementedError(
-        f"{path}: reading TF1 checkpoints is not ported to the PyTorch "
-        "package yet (ROADMAP: TF-checkpoint import); pass an .npz model "
-        "(tests/golden/cluster_weights.npz holds the reference's bundled "
-        "cluster model, converted)"
-    )
+    params, _ = load_cluster_checkpoint(path)
+    return params
 
 
 def _read_motif_positions(path: str) -> set:

@@ -78,5 +78,8 @@ def test_params_from_numpy_gives_jax_logits():
 
 
 def test_tf_checkpoint_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A path that is not an .npz is read as a TF checkpoint (the TF
+    import is ported): where there is none, the reader's error names the
+    missing .index."""
+    with pytest.raises(FileNotFoundError, match=r"mod_train\.index"):
         tt.load_model("/nonexistent/rnn_f7_wd21_chr1to10_4/mod_train")

@@ -199,9 +199,12 @@ def test_npz_round_trip_jax_port_jax(tmp_path):
 
 
 def test_non_npz_model_raises():
-    with pytest.raises(NotImplementedError, match="TF-checkpoint import"):
+    """A path that is not an .npz is read as a TF checkpoint: where there
+    is none (the reference's default file is absent here), the reader's
+    FileNotFoundError names it."""
+    with pytest.raises(FileNotFoundError, match=r"Cg\.cov5\.nb25\.index"):
         load_cluster_model("some/checkpoint/Cg.cov5.nb25")
-    with pytest.raises(NotImplementedError, match="TF-checkpoint import"):
+    with pytest.raises(FileNotFoundError, match=r"Cg\.cov5\.nb25\.index"):
         load_cluster_model(None)  # the JAX default: the reference's TF1 file
 
 
