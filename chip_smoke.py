@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (deepmod_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase, one card
+    python3 chip_smoke.py --parallel   # phases 7 and 24 only (several cards)
 
 Run from the root of a checkout on a machine with one NVIDIA GPU and the
-CUDA toolkit. Phases (any failure raises, and the script exits non-zero
+CUDA toolkit (``--parallel``: any number of them; phase 24 then takes
+every card). Phases (any failure raises, and the script exits non-zero
 without printing the result line):
 
 1. the card's name and power limit;
@@ -152,7 +154,28 @@ without printing the result line):
    7's rule), K1 counted around those requests; then the latency probe
    (``tools/probe_serve_latency.py``: p50/p95 of 1- and 8-file requests,
    1, 4 and 8 concurrent clients with the coalescer on and off, device
-   calls a request) beside the card's name and power limit.
+   calls a request) beside the card's name and power limit;
+24. (after phase 13) the data-parallel and multi-process paths on the one
+   card (``phase_parallel``): a mesh naming it twice; the data-parallel
+   WindowPredictor over phase 7's pod5 set at bf16 and fp32 (predictions
+   the bits of one shard's, K1 launched on each shard), detect with
+   device aggregation on that mesh (BEDs the bytes of phase 7's), the
+   data-parallel train step at batch 2,048 against the one-shard step
+   over 5 steps (fp32: losses rtol 1e-4, params within relative L2 1e-4;
+   bf16 storage: 1e-3 and 1e-3; K2/K3 on each shard; a step's time both
+   ways); two
+   ``testing/multihost_worker`` ranks on the card over gloo (the count
+   reduction and a train step: counts equal to numpy's, the same loss
+   and params on both ranks; detect: rank 0's BEDs the bytes of the
+   one-process run's), one rank over nccl with the same checks, an epoch
+   of ``train`` at full width over phase 8's features (the CLI's
+   ``--device cuda`` run against one worker rank over nccl: the same
+   params within relative L2 1e-4, the walls), and two nccl ranks on the
+   one card, which NCCL refuses. With ``--parallel`` on several cards
+   the mesh takes every card, a nccl rank runs a card, the train epoch
+   (over 96 reads a cohort) runs on one rank and on a rank a card, and
+   ``serve``'s service on ``cuda`` (over every card) answers as one on
+   ``cuda:0``.
 
 Every process the script starts is stopped and reaped before it exits,
 whether it passed or failed: it adopts its descendants' orphans (Linux
@@ -164,11 +187,13 @@ line names each one found.
 Prints the ``{"kernels": [...]}`` line (a name ending in ``_tc``: a
 tensor-core kernel), the nvidia-smi line and, last,
 ``{"ok": true, "device": {...}}``. Every entry of the kernels line has
-the same eleven keys: ``name``, ``route``, ``source`` (the CUDA file's
+the same twelve keys: ``name``, ``route``, ``source`` (the CUDA file's
 path in the repo), ``replaces`` (file:line of the TPU kernel),
-``launches`` (on its main path, counted from 0 just before it), and
-``max_abs_err``, ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
-``library_ms`` from this run.
+``launches`` (on its main path, counted from 0 just before it),
+``shard_launches`` (K1, K2 and K3: the launches of each shard of phase
+24's mesh on its main path; null for the others), and ``max_abs_err``,
+``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``, ``library_ms`` from this
+run.
 """
 
 from __future__ import annotations
@@ -214,6 +239,14 @@ CLUSTER_READS = 200         # reads of the clustered cohort
 CLUSTER_SHIFT = 2.5         # CG signal shift of the loop's cohorts
 SCALE_LINES = 1_000_000     # lines of clusterpred's merged BED at scale
 SEED = 2024
+PARALLEL_SHARDS = 2      # shards of the one card in phase 24's mesh
+PARALLEL_STEPS = 5       # train steps compared one shard against the mesh
+PARALLEL_TRAIN_READS = 96  # reads a cohort of --parallel's train epochs
+# (loss rtol, params relative L2) of the mesh's train step against one
+# shard's: fp32 as tests/test_torch_train.py; bf16 storage rounds the
+# sequences, so a weight that moved by a reduction-order ulp can flip a
+# bf16 rounding point in the next step (phase 5's bf16 reasoning)
+PARALLEL_TOL = {"fp32": (1e-4, 1e-4), "bf16": (1e-3, 1e-3)}
 
 
 def log(msg: str) -> None:
@@ -2173,16 +2206,10 @@ def _flat_params(path: str) -> np.ndarray:
         + [np.asarray(tree["out_w"]).ravel(), np.asarray(tree["out_b"]).ravel()])
 
 
-def phase_train(device, workdir: str) -> dict:
-    """getfeatures -> train (card fp32, card bf16, cpu fp32) -> detect."""
-    from deepmod_tpu_torch.models.bilstm import (
-        BiLSTMConfig,
-        bilstm_loss,
-        init_bilstm_params,
-    )
-    from deepmod_tpu_torch.models.tf_import import load_bilstm_npz, params_from_numpy
-    from deepmod_tpu_torch.ops import bilstm_fused as k1
-    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+def train_features(workdir: str, reads: int) -> tuple:
+    """getfeatures over a modified and a control pod5 cohort of ``reads``
+    reads each, into ``<workdir>/feat_mod`` and ``feat_ctl``; the folders,
+    the wall, and an epoch's minibatches of <= TRAIN_B windows."""
     from deepmod_tpu_torch.testing.synthetic import (
         SynthConfig,
         write_move_dataset_pod5,
@@ -2192,7 +2219,7 @@ def phase_train(device, workdir: str) -> dict:
         iterate_training_batches,
     )
 
-    common = dict(genome_sizes={"chrT": 100_000}, num_reads=TRAIN_READS,
+    common = dict(genome_sizes={"chrT": 100_000}, num_reads=reads,
                   read_length=(1500, 3000), seed=SEED + 5, fast5_style="move")
     t0 = time.perf_counter()
     feats = {}
@@ -2212,6 +2239,21 @@ def phase_train(device, workdir: str) -> dict:
     assert groups[0] and groups[1], groups
     minibatches = [mb for step in iterate_training_batches(groups, TRAIN_B)
                    for mb in step if len(mb[1])]
+    return feats, gf_wall, minibatches
+
+
+def phase_train(device, workdir: str) -> dict:
+    """getfeatures -> train (card fp32, card bf16, cpu fp32) -> detect."""
+    from deepmod_tpu_torch.models.bilstm import (
+        BiLSTMConfig,
+        bilstm_loss,
+        init_bilstm_params,
+    )
+    from deepmod_tpu_torch.models.tf_import import load_bilstm_npz, params_from_numpy
+    from deepmod_tpu_torch.ops import bilstm_fused as k1
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    feats, gf_wall, minibatches = train_features(workdir, TRAIN_READS)
     n_steps = len(minibatches)
     samples = sum(len(mb[1]) for mb in minibatches)
     log(f"[train] getfeatures {gf_wall:.2f} s; {samples} windows in "
@@ -2342,6 +2384,327 @@ def phase_train_layered(device, workdir: str, feats: dict) -> dict:
         f"{train_k4} in train, {launches} with predfeatures and detect")
     return {"launches": launches, "train_launches": train_k4, "wall": wall,
             "steps": n_steps}
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def _wall(fn) -> tuple:
+    """(fn's result, seconds on the host clock, every card synchronized)."""
+    _sync_all()
+    t0 = time.perf_counter()
+    out = fn()
+    _sync_all()
+    return out, time.perf_counter() - t0
+
+
+def _rel_l2(a: dict, b: dict) -> float:
+    from deepmod_tpu_torch.train.trainer import param_leaves
+
+    fa = torch.cat([t.reshape(-1) for t in param_leaves(a)])
+    fb = torch.cat([t.reshape(-1) for t in param_leaves(b)])
+    return float((fa - fb).norm() / fb.norm())
+
+
+def phase_parallel(device, workdir: str, shards: list,
+                   train_feats: dict) -> dict:
+    """The data-parallel and multi-process paths: a mesh over ``shards``
+    (on one card: the card named PARALLEL_SHARDS times; with several,
+    every card) and ranks of the multihost worker.
+
+    (a) the data-parallel WindowPredictor over phase 7's pod5 set at bf16
+    and fp32: predictions the bits of the one-shard predictor's, K1
+    launched on each shard; (b) detect with device aggregation on that
+    mesh: BEDs the bytes of phase 7's; (c) the data-parallel train step at
+    batch TRAIN_B on that mesh against the one-shard step, PARALLEL_STEPS
+    steps (``PARALLEL_TOL``: in fp32 losses rtol 1e-4 and params within
+    relative L2 1e-4, as tests/test_torch_train.py holds them; in bf16
+    storage 1e-3 and 1e-3), K2/K3 on each shard, and a
+    step's time both ways; (d) two multihost_worker ranks on the card over
+    gloo: the primitives (counts equal to numpy's, the same loss and
+    params on both ranks) and detect over phase 7's pod5 set (rank 0's
+    BEDs the bytes of the one-process run's); (e) a rank a card over nccl
+    (world size 1 on one card), the same checks; and, on one card, two
+    nccl ranks on it, which NCCL refuses; (f) ``phase_parallel_train``
+    over ``train_feats`` (getfeatures' folders); (g) with several cards,
+    ``phase_parallel_serve``."""
+    from deepmod_tpu_torch.engine.detect import (
+        DetectConfig,
+        WindowPredictor,
+        _host_options,
+        detect_run,
+    )
+    from deepmod_tpu_torch.engine.host_worker import (
+        host_process_files,
+        init_worker,
+    )
+    from deepmod_tpu_torch.engine.outputs import build_batch_request
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
+    from deepmod_tpu_torch.models.tf_import import load_model, params_from_numpy
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+    from deepmod_tpu_torch.parallel.mesh import make_mesh
+    from deepmod_tpu_torch.testing.multihost_worker import (
+        _RulePredictor,
+        run_ranks,
+    )
+    from deepmod_tpu_torch.train.trainer import adam_init, make_train_step
+
+    ds = os.path.join(workdir, "ds")
+    n_shards = len(shards)
+    n_cards = torch.cuda.device_count()
+    mesh = make_mesh(devices=shards)
+    common = dict(
+        wrk_base=os.path.join(ds, "pod5"), ref=os.path.join(ds, "ref.fa"),
+        model_path=os.path.join(ds, "model.npz"), align_str="builtin",
+        base="C", basecalls=os.path.join(ds, "calls.bam"),
+        write_per_read=False, device=str(device),
+    )
+    init_worker(_host_options(DetectConfig(out_folder="", **common)))
+    results, _ = host_process_files(
+        sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5"))))
+    feats, centers, _, _ = build_batch_request(results)
+    params, mcfg = load_model(common["model_path"])
+    out = {"launches": {}, "shard_launches": {}, "train_launches": {},
+           "train_shard_launches": {}}
+
+    for precision in ("bf16", "fp32"):
+        # (a) predictions: one shard against the mesh
+        one = WindowPredictor(params, mcfg, device=device, precision=precision)
+        multi = WindowPredictor(params, mcfg, devices=shards,
+                                precision=precision)
+        assert multi.n_shards == n_shards
+        for pred in (one, multi):  # warm-up
+            pred.predict_from_features(feats, centers, 21, assume_packable=True)
+        walls = {id(one): [], id(multi): []}
+        for _ in range(3):  # in turns
+            for pred in (one, multi):
+                got, sec = _wall(lambda: pred.predict_from_features(
+                    feats, centers, 21, assume_packable=True))
+                walls[id(pred)].append(sec)
+                if pred is one:
+                    p_one = got
+                else:
+                    p_multi = got
+        s_one = statistics.median(walls[id(one)])
+        s_multi = statistics.median(walls[id(multi)])
+        same = bool(np.array_equal(p_one, p_multi))
+        log(f"[parallel {precision}] (a) {len(centers)} windows: "
+            f"{n_shards}-shard predictions equal to one shard's: "
+            f"{same}; one shard {s_one:.4f} s, {n_shards} shards "
+            f"{s_multi:.4f} s (host clock, warm, median of 3 in turns: "
+            f"{[round(t, 4) for t in walls[id(one)]]} / "
+            f"{[round(t, 4) for t in walls[id(multi)]]}); K1 launches a "
+            f"shard so far {multi.shard_launches}")
+        assert same, f"{precision}: sharded predictions differ"
+        assert all(n > 0 for n in multi.shard_launches), multi.shard_launches
+
+        # (b) detect with device aggregation over the shards: the main
+        # path, counts from 0 just before, read just after
+        before = list(multi.shard_launches)
+        ops.reset_launch_counts()
+        res, wall = _wall(lambda: detect_run(DetectConfig(
+            out_folder=os.path.join(workdir, f"dp_{precision}"),
+            precision=precision, device_aggregation=True, **common),
+            predictor=multi))
+        launches = ops.LAUNCHES[precision]
+        per_shard = [a - b for a, b in zip(multi.shard_launches, before)]
+        beds = read_beds(os.path.join(workdir, f"dp_{precision}"))
+        log(f"[parallel {precision}] (b) detect --device_aggregation 1 on "
+            f"{n_shards} shards: wall {wall:.3f} s, {res.num_reads} "
+            f"reads, K1 launches {launches} ({per_shard} a shard), stages "
+            f"{ {k: round(v, 4) for k, v in res.stage_seconds.items()} }")
+        assert launches > 0 and all(n > 0 for n in per_shard), per_shard
+        assert sum(per_shard) == launches, (per_shard, launches)
+        assert res.stage_seconds.get("device_aggregation", 0) > 0
+        assert beds and beds == read_beds(
+            os.path.join(workdir, f"gpu_{precision}")), (
+            f"{precision}: device-aggregation BEDs differ from phase 7's")
+        out["launches"][precision] = launches
+        out["shard_launches"][precision] = per_shard
+        del one, multi
+
+        # (c) the train step at TRAIN_B: one shard against the mesh
+        cfg = BiLSTMConfig()
+        init = _train_params(cfg, SEED + 24, device)
+        gen = torch.Generator().manual_seed(SEED + 24)
+        x = torch.randn(TRAIN_B, 21, 7, generator=gen).to(device)
+        labels = (x[:, 10, 4] > 0).long()
+        y = torch.nn.functional.one_hot(labels, 2).float()
+        mask = torch.ones(TRAIN_B, device=device)
+        p1, p2 = (params_from_numpy(init, device) for _ in range(2))
+        st1, st2 = adam_init(p1), adam_init(p2)
+        step1 = make_train_step(cfg, False, precision)
+        step2 = make_train_step(cfg, False, precision, mesh=mesh)
+        tr.reset_launch_counts()
+        losses = []
+        loss_rtol, params_rel = PARALLEL_TOL[precision]
+        for _ in range(PARALLEL_STEPS):
+            l1 = float(step1(p1, st1, x, y, mask))
+            l2 = float(step2(p2, st2, x, y, mask))
+            losses.append((l1, l2))
+            assert abs(l2 - l1) <= loss_rtol * abs(l1), (precision, losses)
+        rel = _rel_l2(p2, p1)
+        assert rel <= params_rel, (precision, rel)
+        train_launches = dict(tr.LAUNCHES)
+        shard_train = [dict(d) for d in step2.shard_launches]
+        for d in shard_train:
+            assert d[f"fwd_{precision}"] == PARALLEL_STEPS, shard_train
+            assert d[f"bwd_{precision}"] == 3 * PARALLEL_STEPS, shard_train
+        ms1 = time_ms(lambda: step1(p1, st1, x, y, mask))
+        ms2 = time_ms(lambda: step2(p2, st2, x, y, mask))
+        log(f"[parallel {precision}] (c) train step B={TRAIN_B}: losses "
+            f"(one shard, {n_shards} shards) "
+            f"{[(round(a, 6), round(b, 6)) for a, b in losses]}; params "
+            f"relative L2 {rel:.3e} after {PARALLEL_STEPS} steps; step "
+            f"{ms1:.4f} ms on one shard, {ms2:.4f} ms on {n_shards} "
+            f"(CUDA events, median of 5); K2/K3 launches {train_launches} "
+            f"({shard_train} a shard); {nvidia_smi_line()}")
+        out["train_launches"][precision] = train_launches
+        out["train_shard_launches"][precision] = shard_train
+        out[f"step_ms_{precision}"] = (ms1, ms2)
+        del p1, p2, st1, st2, x, y, mask
+        torch.cuda.empty_cache()
+
+    # (d) and (e): ranks of testing/multihost_worker sharing the card; the
+    # one-process reference run with the same rule predictor and shards
+    solo = os.path.join(workdir, "rule_solo")
+    solo_res = detect_run(DetectConfig(out_folder=solo,
+                                       device_aggregation=True, **common),
+                          predictor=_RulePredictor(mesh))
+    solo_beds = read_beds(solo)
+    assert solo_beds, "the rule predictor's one-process run wrote no BEDs"
+    bam = ("--basecalls", common["basecalls"])
+    for backend, nproc in (("gloo", 2), ("nccl", n_cards)):
+        tag = f"{backend} x{nproc}"
+        args = ("--device", device.type, "--backend", backend)
+        prim, wall = _wall(lambda: run_ranks(
+            nproc, os.path.join(workdir, f"ranks_{backend}"), args,
+            timeout=300))
+        for r in prim:
+            assert f"backend {backend}" in r["log"], r["log"]
+            assert r["counts_ok"], f"{tag}: counts differ from numpy's"
+            assert np.isfinite(r["loss"]), r
+        assert len({r["loss"] for r in prim}) == 1, prim
+        assert len({r["checksum"] for r in prim}) == 1, prim
+        log(f"[parallel] ({'d' if backend == 'gloo' else 'e'}) primitives "
+            f"over {tag}: counts_ok, loss {prim[0]['loss']:.6f} and "
+            f"checksum {prim[0]['checksum']:.6f} on every rank; wall "
+            f"{wall:.2f} s (each rank a fresh interpreter)")
+        det_out = os.path.join(workdir, f"rule_{backend}")
+        ranks, wall = _wall(lambda: run_ranks(
+            nproc, os.path.join(workdir, f"ranks_det_{backend}"),
+            ("detect", ds, det_out, *args, *bam), timeout=300))
+        beds = read_beds(det_out)
+        assert ranks[0]["beds"] and all(not r["beds"] for r in ranks[1:])
+        assert sum(r["num_reads"] for r in ranks) == solo_res.num_reads, (
+            ranks, solo_res.num_reads)
+        assert beds == solo_beds, f"{tag}: rank 0's BEDs differ"
+        log(f"[parallel] ({'d' if backend == 'gloo' else 'e'}) detect over "
+            f"{tag}: "
+            f"rank 0's {len(beds)} BEDs equal to the one-process run's; "
+            f"wall {wall:.2f} s; reads a rank "
+            f"{[r['num_reads'] for r in ranks]}; stages a rank "
+            f"{[r['stage_seconds'] for r in ranks]}")
+    phase_parallel_train(workdir, train_feats, n_cards, out)
+    if n_cards > 1:
+        phase_parallel_serve(common, n_cards)
+        return out
+    # NCCL takes one rank a card: two ranks on this one are refused
+    try:
+        run_ranks(2, os.path.join(workdir, "ranks_nccl2"),
+                  ("--device", device.type, "--backend", "nccl"), timeout=120)
+        log("[parallel] two nccl ranks on one card: accepted")
+    except (RuntimeError, subprocess.TimeoutExpired) as exc:
+        lines = [line for line in str(exc).splitlines()
+                 if "Duplicate" in line or "Error" in line]
+        log(f"[parallel] two nccl ranks on one card: refused "
+            f"({type(exc).__name__}): {lines[:2]}")
+    return out
+
+
+def phase_parallel_train(workdir: str, feats: dict, n_cards: int,
+                         out: dict) -> None:
+    """(f) an epoch of ``train`` at full width over ``feats``: the CLI's
+    ``--device cuda`` run (one card, also on a machine with several: K2
+    once a minibatch) against ranks of the multihost worker, a card a
+    rank over nccl (one rank, then every card): every rank the same
+    params, rank 0's checkpoint within PARALLEL_TOL's fp32 params bound of
+    the CLI's; the walls (the ranks': ``train_run`` after a barrier)."""
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+    from deepmod_tpu_torch.testing.multihost_worker import run_ranks
+    from deepmod_tpu_torch.train.loader import (
+        find_feature_files,
+        iterate_training_batches,
+    )
+
+    groups = [find_feature_files(feats["mod"]), find_feature_files(feats["ctl"])]
+    n_steps = sum(1 for step in iterate_training_batches(groups, TRAIN_B)
+                  for mb in step if len(mb[1]))
+    cli_out = os.path.join(workdir, "par_train_cli")
+    tr.reset_launch_counts()
+    cli_wall = run_cli("train", "--wrkBase", feats["mod"], "--wrkBase2",
+                       feats["ctl"], "--outFolder", cli_out, "--epochs", "1",
+                       "--batchsize", str(TRAIN_B), "--device", "cuda")
+    torch.cuda.synchronize()
+    launches = dict(tr.LAUNCHES)
+    assert launches["fwd_fp32"] == n_steps, (launches, n_steps)
+    want = _flat_params(os.path.join(cli_out, "1", "mod.npz"))
+    log(f"[parallel] (f) train --device cuda, one epoch of {n_steps} "
+        f"minibatches: wall {cli_wall:.3f} s (in this process), K2 "
+        f"launches {launches['fwd_fp32']} (one card of {n_cards})")
+    out["train_walls"] = {"cli": cli_wall}
+    for nproc in sorted({1, n_cards}):
+        rk_out = os.path.join(workdir, f"par_train_{nproc}")
+        ranks, wall = _wall(lambda: run_ranks(
+            nproc, os.path.join(workdir, f"ranks_train_{nproc}"),
+            ("train", feats["mod"], feats["ctl"], rk_out, "--device", "cuda",
+             "--backend", "nccl", "--full_width"), timeout=300))
+        assert len({r["checksum"] for r in ranks}) == 1, ranks
+        got = _flat_params(os.path.join(rk_out, "1", "mod.npz"))
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        assert np.isfinite(got).all() and rel <= PARALLEL_TOL["fp32"][1], rel
+        train_s = [round(r["train_s"], 4) for r in ranks]
+        log(f"[parallel] (f) train over nccl x{nproc} (a card a rank): "
+            f"every rank the same params, rank 0's vs the CLI run's relative "
+            f"L2 {rel:.3e}; train_run {max(train_s):.3f} s (ranks "
+            f"{train_s}); launcher wall {wall:.2f} s; {nvidia_smi_line()}")
+        out["train_walls"][f"ranks_{nproc}"] = max(train_s)
+
+
+def phase_parallel_serve(common: dict, n_cards: int) -> None:
+    """(g) with several cards: ``serve``'s DetectService on ``cuda`` (its
+    predictor over every card) gives the answers of one on ``cuda:0``
+    over four of phase 7's files, bf16 and fp32, K1 launched on each
+    card; the first request's wall and the median of 3 after it."""
+    from deepmod_tpu_torch.serve import DetectService
+
+    files = sorted(glob.glob(os.path.join(common["wrk_base"], "*.pod5")))[:4]
+    for precision in ("bf16", "fp32"):
+        got = {}
+        for dev in ("cuda", "cuda:0"):
+            svc = DetectService(common["ref"], common["model_path"],
+                                align_str="builtin", precision=precision,
+                                basecalls=common["basecalls"], device=dev)
+            try:
+                answer, first = _wall(lambda: svc.detect(files))
+                warm = [_wall(lambda: svc.detect(files))[1] for _ in range(3)]
+                got[dev] = (answer, svc.predictor.n_shards,
+                            list(svc.predictor.shard_launches), first,
+                            statistics.median(warm))
+            finally:
+                svc.close()
+        assert got["cuda"][1] == n_cards and got["cuda:0"][1] == 1, got
+        assert all(n > 0 for n in got["cuda"][2]), got["cuda"][2]
+        assert got["cuda"][0] == got["cuda:0"][0] and got["cuda"][0]["reads"]
+        log(f"[parallel {precision}] (g) serve over {len(files)} files: the "
+            f"{n_cards}-card service's answer equals cuda:0's; K1 launches a "
+            f"card {got['cuda'][2]}; first request {got['cuda'][3]:.4f} / "
+            f"{got['cuda:0'][3]:.4f} s, then the median of 3 "
+            f"{got['cuda'][4]:.4f} / {got['cuda:0'][4]:.4f} s ({n_cards} "
+            f"cards / one)")
 
 
 def phase_cluster_golden(device) -> dict:
@@ -2678,8 +3041,43 @@ def phase_cluster_scale(device, workdir: str) -> dict:
     return dict(split, sites=len(keys), cli_wall=cli_wall, err=err)
 
 
-def main() -> int:
+def parallel_shards() -> list:
+    """Phase 24's mesh: the one card PARALLEL_SHARDS times, or every card."""
+    n = torch.cuda.device_count()
+    if n == 1:
+        return [torch.device("cuda", 0)] * PARALLEL_SHARDS
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def parallel_only() -> str:
+    """``--parallel``: phase 7's detect runs (the one-card reference) and
+    phase 24 alone, for a machine with several cards."""
+    device = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] {name} x {torch.cuda.device_count()} | nvidia-smi: "
+        f"{nvidia_smi_line()} | torch {torch.__version__}")
+    with tempfile.TemporaryDirectory(prefix="dmt_smoke_") as workdir:
+        phase_detect(device, workdir)
+        t_par = time.perf_counter()
+        feats, gf_wall, minibatches = train_features(workdir,
+                                                     PARALLEL_TRAIN_READS)
+        log(f"[parallel] getfeatures {gf_wall:.2f} s: "
+            f"{sum(len(mb[1]) for mb in minibatches)} windows in "
+            f"{len(minibatches)} minibatches of <= {TRAIN_B}")
+        par = phase_parallel(device, workdir, parallel_shards(), feats)
+        log(f"[parallel] phase 24: {time.perf_counter() - t_par:.2f} s")
+    log(json.dumps({"parallel": par}))
+    return name
+
+
+def main(argv=None) -> int:
     global torch
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parallel", action="store_true",
+                    help="phases 7 and 24 only (for several cards)")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -2690,7 +3088,7 @@ def main() -> int:
 
     adopt_orphans()
     try:
-        kind = smoke()
+        kind = parallel_only() if args.parallel else smoke()
     finally:
         stop_children()
     print(json.dumps({"ok": True, "device": {
@@ -2755,6 +3153,9 @@ def smoke() -> str:
         det_k4 = phase_detect_layered(device, workdir)
         trn = phase_train(device, workdir)
         trn_k4 = phase_train_layered(device, workdir, trn["feats"])
+        t_par = time.perf_counter()
+        par = phase_parallel(device, workdir, parallel_shards(), trn["feats"])
+        log(f"[parallel] phase 24: {time.perf_counter() - t_par:.2f} s")
         t_cluster = time.perf_counter()
         phase_cluster_golden(device)
         clu = phase_cluster(device, workdir)
@@ -2767,12 +3168,13 @@ def smoke() -> str:
         log(f"[detect] {key}: wall {wall:.2f} s, "
             f"{det['windows'] / wall:.1f} windows/s end to end")
 
-    def entry(name, source, replaces, launches, k):
+    def entry(name, source, replaces, launches, k, shard_launches=None):
         lib = k["library_ms"]
         return {
             "name": name, "route": "cuda",
             "source": "deepmod_tpu_torch/csrc/" + source,
             "replaces": replaces, "launches": launches,
+            "shard_launches": shard_launches,
             "max_abs_err": float(f"{k['max_abs_err']:.2e}"),
             "ms": round(k["ms"], 3), "plain_ms": round(k["plain_ms"], 3),
             "bound_ms": round(k["bound_ms"], 3), "bound_by": k["bound_by"],
@@ -2793,15 +3195,18 @@ def smoke() -> str:
             "bilstm_fused.cu",
             "deepmod_tpu/ops/bilstm_fused.py:551",
             det["launches"][precision] + clu["launches"][precision]
-            + tfk["launches"][precision] + srv["launches"][precision],
-            kern[precision]))
+            + tfk["launches"][precision] + srv["launches"][precision]
+            + par["launches"][precision],
+            kern[precision], par["shard_launches"][precision]))
         for kind, line in (("fwd", 101), ("bwd", 222)):
+            key = f"{kind}_{precision}"
+            shards = [d[key] for d in par["train_shard_launches"][precision]]
             kernels.append(entry(
                 f"k{2 if kind == 'fwd' else 3}_train_{kind}_{precision}",
                 "bilstm_train.cu", f"deepmod_tpu/ops/bilstm_fused_train.py:{line}",
-                trn["launches"][f"{kind}_{precision}"]
-                + clu["train_launches"][f"{kind}_{precision}"],
-                tkern[precision][kind]))
+                trn["launches"][key] + clu["train_launches"][key]
+                + sum(shards),
+                tkern[precision][kind], shards))
         kernels.append(entry(
             f"k4_layer_{precision}" + ("_tc" if precision == "bf16" else ""),
             "bilstm_layer.cu",
@@ -2830,9 +3235,9 @@ def smoke() -> str:
                 f"deepmod_tpu/ops/bilstm_fused.py:{src_line}", k["launches"],
                 k))
     line = json.dumps({"kernels": kernels}, separators=(",", ":"))
-    # seventeen entries with all eleven keys: about 4,700 characters on an
+    # seventeen entries with all twelve keys: about 5,100 characters on an
     # H100
-    assert len(kernels) == 17 and len(line) < 5500, (len(kernels), len(line))
+    assert len(kernels) == 17 and len(line) < 6000, (len(kernels), len(line))
     log(line)
     log(smi)
     return name

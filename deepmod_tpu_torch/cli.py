@@ -503,7 +503,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--device_aggregation", type=int, default=0, choices=[0, 1],
-        help="aggregate position counts on the device (not ported yet)",
+        help="aggregate position counts on the device (index_add_ over "
+        "the predictor's shards; with one device the host path runs)",
     )
     p.add_argument(
         "--targetOnly", type=int, default=0, choices=[0, 1],
@@ -524,8 +525,11 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--hostShard", default=None, metavar="I:N",
-        help="process stripe i:n of the input file list (manual multi-run "
-        "workflow; combine with disjoint --FileIDs)",
+        help="process stripe i:n of the input file list for the MANUAL "
+        "multi-run workflow (independent hosts, no torch.distributed; "
+        "combine with disjoint --FileIDs and 'merge'). Under an "
+        "initialized torch.distributed runtime sharding + the collective "
+        "BED merge are automatic and this flag is unnecessary",
     )
     p.add_argument(
         "--perRead", type=int, default=1, choices=[0, 1],

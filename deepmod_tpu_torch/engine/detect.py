@@ -10,22 +10,30 @@ mPredict1 -> sum_handler, myDetect.py:1124-1263, 948-984, 392-465,
   batches, in N spawn workers of ``engine.host_pool``, which also write
   their batches' per-read outputs);
 - ALL windows of a file batch are classified in large bucketed chunks by
-  ``WindowPredictor`` on one device: the BiLSTM center features come from
-  the CUDA kernels (``ops.bilstm_fused``: K1 for odd windows up to 25, K4
-  for every other size) on the card, or from their plain versions on the
+  ``WindowPredictor``, on one device or split over several (every card of
+  the machine by default): the BiLSTM center features come from the CUDA
+  kernels (``ops.bilstm_fused``: K1 for odd windows up to 25, K4 for
+  every other size) on the card, or from their plain versions on the
   CPU;
 - predictions are scattered back to base maps, written in the reference's
   on-disk formats (predetail HDF5 + index files) and accumulated into
-  per-(chr, strand) counters for the BEDs.
+  per-(chr, strand) counters for the BEDs (``--device_aggregation 1``
+  with more than one shard: one ``index_add_`` reduction a key and batch
+  over the shards, ``parallel.aggregation``).
+
+Under an initialized ``torch.distributed`` group (the caller starts it,
+as ``testing.multihost_worker`` does), files are striped by rank, each
+process writes its per-read outputs under ``p<rank>/``, the counts and
+index parts are merged at the end of the run (``parallel.cross_process``)
+and process 0 alone writes the BEDs.
 
 ``--predDet 0`` skips prediction and rebuilds the BEDs from an earlier
 run's predetail HDF5 and index files (``engine.summarize``);
 ``--mod_cluster`` applies the inline CpG-cluster rescue before counting
 and names the BEDs ``cluster_mod_pos.*``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): device aggregation, the fnum-57 histogram pack, and multi-device
-or multi-process runs.
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+the fnum-57 histogram pack.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import contextlib
 import dataclasses
+import functools
 import glob
 import os
 import time
@@ -60,6 +69,13 @@ from deepmod_tpu_torch.models.tf_import import (
     params_to_numpy,
 )
 from deepmod_tpu_torch.ops.bilstm_fused import pack_bilstm_params, seq_dtype
+from deepmod_tpu_torch.parallel.aggregation import sharded_position_counts
+from deepmod_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_mesh,
+    process_count,
+    process_index,
+)
 from deepmod_tpu_torch.utils import ErrorCensus
 from deepmod_tpu_torch.utils.device import resolve_device
 from deepmod_tpu_torch.utils.profiling import StageTimer
@@ -136,7 +152,8 @@ class DetectResult:
 
 
 class WindowPredictor:
-    """Bucketed window classification on one device.
+    """Bucketed window classification on one device or over a mesh's
+    shards.
 
     Chunks are cut to a small set of bucket sizes (the last partial chunk
     pads up to the smallest covering bucket; padding rows are zeros and
@@ -144,6 +161,18 @@ class WindowPredictor:
     memory with ``non_blocking=True`` and results come back through an
     async copy and an event, so the host prepares chunk i+1 while the
     device computes chunk i.
+
+    Data parallel (more than one shard): ``devices`` lists this process's
+    shards, one entry a shard, repeats allowed (by default every visible
+    CUDA device when ``device`` is ``"cuda"`` and the machine has more
+    than one; an explicit ``"cuda:N"`` keeps one card). The weights are packed once a
+    device; each chunk's windows are split contiguously over the shards,
+    each shard copies its rows (with the T-1 rows of halo its last
+    windows read) to its device and runs the kernel there on its own
+    stream, and the predictions come back in order: the same bits as one
+    shard, since every window is computed alone. The JAX predictor
+    shards over ``jax.devices()``, the global devices; this one over the
+    process's local devices.
     """
 
     def __init__(
@@ -154,9 +183,21 @@ class WindowPredictor:
         device: Union[str, torch.device] = "cuda",
         precision: str = "fp32",
         compact_transfer: Optional[bool] = None,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
     ):
         self.config = config
-        self.device = resolve_device(device)
+        if devices is None:
+            if (torch.device(device) == torch.device("cuda")
+                    and torch.cuda.is_available()
+                    and torch.cuda.device_count() > 1):
+                devices = make_mesh().devices
+            else:
+                devices = [device]
+        self.mesh = make_mesh(devices=devices)
+        self.devices = self.mesh.devices
+        self.device = self.devices[0]
+        if any(d.type != self.device.type for d in self.devices):
+            raise ValueError(f"mixed device types in {self.devices}")
         self._cuda = self.device.type == "cuda"
         if buckets is None:
             buckets = (
@@ -184,6 +225,22 @@ class WindowPredictor:
         lut = torch.zeros(5, 4, dtype=self._dtype)
         lut[:4] = torch.eye(4, dtype=self._dtype)
         self._lut = lut.to(self.device)
+        # one replica of the packed weights and the LUT a device
+        self._replicas = {self.device: (self._model, self._lut)}
+        for dev in self.devices:
+            if dev not in self._replicas:
+                params_d = params_from_numpy(self.params, dev)
+                self._replicas[dev] = (
+                    pack_bilstm_params(params_d, config, precision),
+                    lut.to(dev))
+        self._streams = None
+        if self._cuda and len(self.devices) > 1:
+            self._streams = [torch.cuda.Stream(device=d) for d in self.devices]
+            for dev in self._replicas:
+                torch.cuda.synchronize(dev)  # replicas built before use
+        # kernel launches of each shard (K1 or K4, from the wrappers'
+        # counts around the shard's classification)
+        self.shard_launches = [0] * len(self.devices)
         self._fn = self._classify
         # which compact variants ran ('onehot' packed, False unpacked)
         self.compact_modes: set = set()
@@ -191,33 +248,71 @@ class WindowPredictor:
         # Monotonic across calls — callers snapshot before/after.
         self.transfer_bytes = 0
 
+    @property
+    def n_shards(self) -> int:
+        return len(self.devices)
+
     # -- device plumbing -------------------------------------------------
 
     def _classify(self, x: torch.Tensor) -> torch.Tensor:
         """(N, T, F) device tensor (any strides) -> (N,) int8 predictions."""
-        logits = bilstm_logits(self._model, x, self.config, self.precision)
+        model = self._replicas[x.device][0]
+        logits = bilstm_logits(model, x, self.config, self.precision)
         return torch.argmax(logits, dim=-1).to(torch.int8)
 
-    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+    def _to_device(self, host: torch.Tensor,
+                   device: Optional[torch.device] = None) -> torch.Tensor:
         self.transfer_bytes += host.numel() * host.element_size()
         if not self._cuda:
             return host
-        return host.pin_memory().to(self.device, non_blocking=True)
+        return host.pin_memory().to(device or self.device, non_blocking=True)
 
     def _launch(self, preds: torch.Tensor):
         """Start the result fetch; returns a handle for ``_fetch``."""
         if not self._cuda:
-            return preds, None
+            return preds, []
         host = torch.empty(preds.shape, dtype=preds.dtype, pin_memory=True)
         host.copy_(preds, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return host, [done]
+
+    def _dispatch(self, n: int, windows_on):
+        """Classify ``n`` windows; ``windows_on(lo, hi, device)`` gives
+        windows lo..hi-1 as an (hi-lo, T, F) tensor on ``device``. One
+        shard: the current stream. Several: contiguous slices of the
+        windows, each on its shard's device and stream, written into one
+        host buffer in order. Returns a handle for ``_fetch``."""
+        if len(self.devices) == 1:
+            return self._launch(self._fn(windows_on(0, n, self.device)))
+        from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+        host = torch.empty(n, dtype=torch.int8, pin_memory=self._cuda)
+        events = []
+        bounds = np.linspace(0, n, len(self.devices) + 1).round().astype(int)
+        for s, dev in enumerate(self.devices):
+            lo, hi = int(bounds[s]), int(bounds[s + 1])
+            if hi == lo:
+                continue
+            before = _kernel_launches(ops)
+            if self._streams is None:
+                host[lo:hi] = self._fn(windows_on(lo, hi, dev))
+            else:
+                stream = self._streams[s]
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(stream):
+                    host[lo:hi].copy_(self._fn(windows_on(lo, hi, dev)),
+                                      non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+                    events.append(done)
+            self.shard_launches[s] += _kernel_launches(ops) - before
+        return host, events
 
     @staticmethod
     def _fetch(handle) -> np.ndarray:
-        host, done = handle
-        if done is not None:
+        host, events = handle
+        for done in events:
             done.synchronize()
         return host.numpy()
 
@@ -234,6 +329,10 @@ class WindowPredictor:
         return self.buckets[-1]
 
     # -- window transfer -------------------------------------------------
+
+    def _host_windows(self, windows: torch.Tensor, lo: int, hi: int,
+                      device: torch.device) -> torch.Tensor:
+        return self._to_device(windows[lo:hi], device)
 
     def predict(self, windows: np.ndarray) -> np.ndarray:
         """(N, T, F) -> (N,) int8 predictions."""
@@ -257,8 +356,8 @@ class WindowPredictor:
         max_waste = max(self.buckets[0], n >> 6)
         for b in reversed(self.buckets):
             while n - done >= b:
-                x = self._to_device(windows[done : done + b])
-                inflight.append((done, b, self._launch(self._fn(x))))
+                inflight.append((done, b, self._dispatch(b, functools.partial(
+                    self._host_windows, windows[done : done + b]))))
                 done += b
                 drain(_LOOKAHEAD)
             rem = n - done
@@ -273,12 +372,29 @@ class WindowPredictor:
                 tail = torch.zeros((bucket,) + tuple(windows.shape[1:]),
                                    dtype=windows.dtype)
                 tail[:rem] = windows[done:]
-            x = self._to_device(tail)
-            inflight.append((done, rem, self._launch(self._fn(x))))
+            inflight.append((done, rem, self._dispatch(
+                bucket, functools.partial(self._host_windows, tail))))
         drain(0)
         return out
 
     # -- compact transfer ------------------------------------------------
+
+    def _window_view(self, chunks, window: int, lo: int, hi: int,
+                     device: torch.device) -> torch.Tensor:
+        """Windows lo..hi-1 of a compact row chunk on ``device``: rows
+        lo..hi+T-2 (the T-1 rows of halo) copied over, the one-hot columns
+        rebuilt from the codes through the LUT when ``chunks`` is (codes,
+        rest), and the overlapping window view the kernel reads in place."""
+        rows = slice(lo, hi + window - 1)
+        if len(chunks) == 2:
+            codes = self._to_device(chunks[0][rows], device)
+            rest = self._to_device(chunks[1][rows], device)
+            lut = self._replicas[device][1]
+            feats = torch.cat([lut[codes.long()], rest], dim=1)
+        else:
+            feats = self._to_device(chunks[0][rows], device)
+        fnum = feats.shape[1]
+        return feats.as_strided((hi - lo, window, fnum), (fnum, fnum, 1))
 
     def predict_from_features(
         self, features: np.ndarray, centers: np.ndarray, window: int = 21,
@@ -328,7 +444,6 @@ class WindowPredictor:
                 f"last={int(centers[-1])}, rows={len(features)}, "
                 f"window={window})"
             )
-        fnum = features.shape[1]
         pack: Any = False
         if self._pack_onehot:
             check_ok = True
@@ -358,8 +473,10 @@ class WindowPredictor:
                 out[i:j] = self._fetch(handle)[idx]
 
         # a row chunk must cover at least one full window or the loop
-        # below cannot advance
+        # below cannot advance; round the floor up to a multiple of the
+        # shard count so sharded chunks stay even
         min_rows = 1 << int(window).bit_length()
+        min_rows = -(-min_rows // self.n_shards) * self.n_shards
         i = 0
         while i < n:
             row0 = int(centers[i]) - half
@@ -375,24 +492,22 @@ class WindowPredictor:
             j = int(np.searchsorted(centers, row0 + bucket - half, "left"))
             idx = np.asarray(centers[i:j]) - row0 - half
             if pack:
-                c_chunk = _pad_rows(codes_t[row0 : row0 + bucket], bucket, 4)
-                r_chunk = _pad_rows(rest_t[row0 : row0 + bucket], bucket, 0)
-                c_dev = self._to_device(c_chunk)
-                r_dev = self._to_device(r_chunk)
-                feats = torch.cat([self._lut[c_dev.long()], r_dev], dim=1)
+                chunks = (_pad_rows(codes_t[row0 : row0 + bucket], bucket, 4),
+                          _pad_rows(rest_t[row0 : row0 + bucket], bucket, 0))
             else:
-                feats = self._to_device(
-                    _pad_rows(feats_t[row0 : row0 + bucket], bucket, 0)
-                )
-            # window i = rows i..i+T-1, read in place by the kernel
-            win = feats.as_strided(
-                (bucket - window + 1, window, fnum), (fnum, fnum, 1)
-            )
-            inflight.append((i, j, idx, self._launch(self._fn(win))))
+                chunks = (_pad_rows(feats_t[row0 : row0 + bucket], bucket, 0),)
+            inflight.append((i, j, idx, self._dispatch(
+                bucket - window + 1,
+                functools.partial(self._window_view, chunks, window))))
             i = j
             drain(_LOOKAHEAD)
         drain(0)
         return out
+
+
+def _kernel_launches(ops) -> int:
+    """K1 and K4 launches so far (the wrappers' counts)."""
+    return sum(ops.LAUNCHES.values()) + sum(ops.LAYERED_LAUNCHES.values())
 
 
 def _pad_rows(chunk: torch.Tensor, rows: int, fill) -> torch.Tensor:
@@ -471,17 +586,46 @@ def apply_batch_outputs(
     batch_id: int,
     ct_folder: str,
     timer=None,
+    agg_mesh: Optional[Mesh] = None,
 ) -> Tuple[int, int, List[List[str]]]:
     """The OUTPUT part of one batch: prediction scatter, per-read HDF5,
-    count accumulation. Mutates ``counts``: one thread at a time."""
+    count accumulation. Mutates ``counts``: one thread at a time. With
+    ``agg_mesh`` (device aggregation), each key's coverage and mod counts
+    of the batch go through ONE reduction over the mesh's shards."""
     stage = _nullstage(timer)
     if not results:
         return 0, 0, []
+    batch_obs: Dict[Tuple[str, str], list] = {}
+
+    def collect_for_device(key, item) -> bool:
+        # defer cov/mod to ONE device reduction per key per batch; `seen`
+        # (a boolean, no addition) is set host-side immediately
+        if not counts[key].dense:
+            return False
+        bm = item.base_map
+        is_target = bm["refbase"] == config.base
+        counts[key].seen[bm["refbasei"][is_target].astype(np.int64)] = True
+        sel = is_target & (bm["readbase"] != "-")
+        pos = bm["refbasei"][sel].astype(np.int64)
+        batch_obs.setdefault(key, []).append(
+            (pos, (bm["mod_pred"][sel] == 1).astype(np.int64))
+        )
+        return True
+
     with stage("outputs_and_aggregation"):
-        return write_batch_outputs(
+        n_reads, n_windows, index_entries = write_batch_outputs(
             results, preds, _output_options(config), counts, batch_id,
             ct_folder,
+            collect=collect_for_device if agg_mesh is not None else None,
         )
+    if batch_obs:
+        with stage("device_aggregation"):
+            for key, obs in batch_obs.items():
+                pos = np.concatenate([o[0] for o in obs])
+                mod = np.concatenate([o[1] for o in obs])
+                _device_accumulate(agg_mesh, counts[key], pos,
+                                   np.ones(len(pos), np.int64), mod)
+    return n_reads, n_windows, index_entries
 
 
 def _output_options(config: DetectConfig) -> OutputOptions:
@@ -495,21 +639,58 @@ def _output_options(config: DetectConfig) -> OutputOptions:
     )
 
 
-def _merge_counts_coo(counts: CountsMap, coo) -> None:
+def _device_accumulate(mesh: Mesh, pc, pos: np.ndarray, cov: np.ndarray,
+                       mod: np.ndarray) -> None:
+    """One reduction of a batch's (positions, coverage, mod) observations:
+    an ``index_add_`` a shard and the sum over the mesh's LOCAL shards
+    (``parallel.aggregation``). Under a multi-process group each process
+    reduces its own batches (batch counts differ by process, so a
+    collective here would deadlock); the end-of-run merge
+    (``parallel.cross_process``) combines the processes' counts."""
+    pad = (-len(pos)) % mesh.local_size
+    if pad:
+        pos = np.concatenate([pos, np.zeros(pad, np.int64)])
+        mod = np.concatenate([mod, np.zeros(pad, np.int64)])
+        cov = np.concatenate([cov, np.zeros(pad, np.int64)])
+    cov_vec, mod_vec = sharded_position_counts(mesh, pos, cov, mod, pc.length)
+    pc.coverage += cov_vec.cpu().numpy()
+    pc.mod_count += mod_vec.cpu().numpy()
+
+
+def _merge_counts_coo(
+    counts: CountsMap, coo, agg_mesh: Optional[Mesh] = None, timer=None
+) -> None:
     """Fold a worker batch's COO count summary into the engine's counters
-    — the only serialized piece of the output stage under HostPool."""
+    — the only serialized piece of the output stage under HostPool; with
+    ``agg_mesh``, through the device reduction."""
+    stage = _nullstage(timer)
     for chrom, strand, length, pos, cov, mod in coo:
         key = (chrom, strand)
         if key not in counts:
             counts[key] = PositionCounts.zeros(length)
-        counts[key].add_coo(pos, cov, mod)
+        pc = counts[key]
+        if agg_mesh is not None and pc.dense and len(pos):
+            pc.seen[pos] = True
+            with stage("device_aggregation"):
+                _device_accumulate(agg_mesh, pc, pos, cov.astype(np.int64),
+                                   mod.astype(np.int64))
+        else:
+            pc.add_coo(pos, cov, mod)
 
 
 def _write_index_files(
-    index_entries: List[List[str]], config: DetectConfig
+    index_entries: List[List[str]], config: DetectConfig, part_dir: str = ""
 ) -> None:
-    """Merged per-chromosome index files (myDetect.py:1195-1221)."""
+    """Merged per-chromosome index files (myDetect.py:1195-1221).
+
+    ``part_dir`` ('p<pid>' under a multi-process group) writes each
+    process's part INSIDE its private output tree, so processes on a
+    shared filesystem never clobber each other and part names can never
+    collide with merged outputs; process 0 then combines the parts
+    (``parallel.cross_process.merge_index_parts``)."""
     out_base = os.path.join(config.out_folder, config.file_id)
+    if part_dir:
+        os.makedirs(os.path.join(out_base, part_dir), exist_ok=True)
     by_chr: Dict[str, List[List[str]]] = defaultdict(list)
     for entry in index_entries:
         by_chr[entry[0]].append(entry)
@@ -517,7 +698,7 @@ def _write_index_files(
         entries = sorted(
             entries, key=lambda e: (e[0], e[1], int(e[2]), e[3], e[4], e[5])
         )
-        path = os.path.join(out_base, f"{PRE_BASE_STR}.{chrom}")
+        path = os.path.join(out_base, part_dir, f"{PRE_BASE_STR}.{chrom}")
         with open(path, "w") as fh:
             fh.write(f"#base_folder_fast5 {config.wrk_base} \n")
             fh.write(
@@ -525,11 +706,6 @@ def _write_index_files(
             )
             for entry in entries:
                 fh.write(" ".join(entry + ["\n"]))
-
-
-def _check_ported(config: DetectConfig) -> None:
-    if config.device_aggregation:
-        raise _not_ported("device aggregation", "multi-GPU")
 
 
 def detect_run(
@@ -547,7 +723,6 @@ def detect_run(
     ``host_pool`` likewise reuses a warm ``engine.host_pool.HostPool``
     (spawned workers with their aligner index loaded); its HostOptions
     must match the config's."""
-    _check_ported(config)
     if not config.trace_dir:
         return _detect_run_inner(config, predictor, host_pool)
     from torch.profiler import ProfilerActivity, profile
@@ -610,9 +785,26 @@ def _detect_run_inner(
 
     timer = StageTimer()
     files = sorted(discover_fast5(config.wrk_base, config.recursive))
+    nproc, pid = process_count(), process_index()
+    if config.host_shard is not None and nproc > 1:
+        # every process would parse the SAME stripe and write colliding
+        # outputs (multi_proc turns off below) — reject loudly
+        raise ValueError(
+            "host_shard is for the manual multi-run workflow (independent "
+            "hosts); under a torch.distributed runtime file sharding and "
+            "the collective BED merge are automatic — drop --hostShard"
+        )
     if config.host_shard is not None:
         host_id, num_hosts = config.host_shard
         files = files[host_id::num_hosts]
+    elif nproc > 1:
+        files = files[pid::nproc]
+    # device aggregation reduces over the predictor's local shards; with
+    # one shard it stays on the host, as JAX's does on one device
+    agg_mesh = getattr(predictor, "mesh", None)
+    if not (config.device_aggregation and agg_mesh is not None
+            and agg_mesh.local_size > 1):
+        agg_mesh = None
     errors = ErrorCensus()
     counts: CountsMap = {}
     all_index: List[List[str]] = []
@@ -637,9 +829,16 @@ def _detect_run_inner(
         files[i * config.files_per_batch : (i + 1) * config.files_per_batch]
         for i in range(n_batches)
     ]
+    # under a multi-process group every process writes its per-read
+    # outputs into a private p<pid>/ tree (batch ids restart at 0 in each
+    # process, so shared paths would collide)
+    multi_proc = nproc > 1 and config.host_shard is None
+    proc_dir = f"p{pid}" if multi_proc else ""
+
     def ct_folder_for(batch_id: int) -> str:
         folder = os.path.join(
-            config.out_folder, config.file_id, str(batch_id // sub_folder_size)
+            config.out_folder, config.file_id, proc_dir,
+            str(batch_id // sub_folder_size),
         )
         os.makedirs(folder, exist_ok=True)
         return folder
@@ -723,7 +922,7 @@ def _detect_run_inner(
                     if secs:
                         timer.add("outputs_in_workers", secs)
                     with timer.stage("counts_merge"):
-                        _merge_counts_coo(counts, coo)
+                        _merge_counts_coo(counts, coo, agg_mesh, timer)
                     bid_to_batch.pop(bid, None)
                     outstanding -= 1
                 elif kind == "error":
@@ -780,26 +979,55 @@ def _detect_run_inner(
                 out_futs.append(
                     writer.submit(
                         apply_batch_outputs, results, preds, config, counts,
-                        batch_id, ct_folder_for(batch_id), timer,
+                        batch_id, ct_folder_for(batch_id), timer, agg_mesh,
                     )
                 )
                 drain_outputs(2)  # bound the writer backlog
             drain_outputs(0)
 
     if config.write_per_read:
-        _write_index_files(all_index, config)
+        _write_index_files(all_index, config, part_dir=proc_dir)
+
+    if multi_proc:
+        # the collective merge replacing the reference's filesystem
+        # barrier (myDetect.py:1196-1221): per-(chr, strand) COO counts
+        # are all-gathered across processes (deterministic key grid from
+        # the replicated FASTA), then process 0 alone writes the BEDs
+        from deepmod_tpu_torch.io.fasta import FastaReference
+        from deepmod_tpu_torch.parallel.cross_process import (
+            merge_counts_across_processes,
+            merge_index_parts,
+        )
+
+        with timer.stage("cross_process_merge"):
+            ref_fa = FastaReference(config.ref)
+            chrom_lengths = {n: ref_fa.length(n) for n in ref_fa.names()}
+            counts = merge_counts_across_processes(counts, chrom_lengths)
+        if config.write_per_read and pid == 0:
+            # every process has written its index parts once it reaches
+            # the collective above; merge on the lead process (no-op for
+            # parts on another host's private disk)
+            merge_index_parts(
+                os.path.join(config.out_folder, config.file_id),
+                PRE_BASE_STR, nproc,
+            )
 
     bed_files: List[str] = []
-    prefix = "cluster_mod_pos" if config.mod_cluster else "mod_pos"
-    for (chrom, strand), pc in sorted(counts.items()):
-        bed_path = os.path.join(
-            config.out_folder, f"{prefix}.{chrom}{strand}.{config.base}.bed"
-        )
-        if write_bed(bed_path, chrom, strand, config.base, pc) > 0:
-            bed_files.append(bed_path)
+    if pid == 0 or not multi_proc:
+        prefix = "cluster_mod_pos" if config.mod_cluster else "mod_pos"
+        for (chrom, strand), pc in sorted(counts.items()):
+            bed_path = os.path.join(
+                config.out_folder,
+                f"{prefix}.{chrom}{strand}.{config.base}.bed",
+            )
+            if write_bed(bed_path, chrom, strand, config.base, pc) > 0:
+                bed_files.append(bed_path)
 
-    # completion sentinel (myDetect.py:1263)
-    open(config.out_folder.rstrip("/") + ".done", "w").close()
+        # completion sentinel (myDetect.py:1263)
+        open(config.out_folder.rstrip("/") + ".done", "w").close()
+    if multi_proc:
+        # the other processes return only after the lead wrote the outputs
+        torch.distributed.barrier()
     return DetectResult(
         out_folder=config.out_folder,
         bed_files=bed_files,

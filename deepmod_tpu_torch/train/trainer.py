@@ -1,4 +1,5 @@
-"""BiLSTM training on one device (the card, or the CPU when asked for).
+"""BiLSTM training on one card, or on the CPU when asked for; data
+parallel over a mesh or over ``torch.distributed`` ranks.
 
 The reference trains single-process single-device with a Python feed loop
 (train_save_model, myMultiBiRNN.py:96-228); ``deepmod_tpu/train/
@@ -9,8 +10,14 @@ checkpoints that carry the Adam slots. Forward and backward run through
 the training kernels (K2/K3 on the card, their plain versions on the
 CPU).
 
-The data-parallel step over a device mesh is not ported (ROADMAP port
-queue item 10, multi-GPU): ``make_train_step(mesh=...)`` raises.
+Under an initialized ``torch.distributed`` group (a rank a card, as
+torchrun starts them), or over a ``parallel.mesh.Mesh`` the caller
+passes, the step is data parallel (``parallel.shardings``): the padded
+batch splits over every shard of every process, each shard runs K2/K3 on
+its rows, and the loss and gradient sums are reduced before the masked
+mean, so every process applies the same Adam update. A process alone
+trains on its one card, also on a machine with several: a mesh of
+several cards in one process steps slower than one card (PERF.md).
 """
 
 from __future__ import annotations
@@ -133,11 +140,21 @@ def make_train_step(
 ) -> Callable:
     """(params, opt_state, x, y, mask) -> loss; updates params and the
     Adam state in place. The loss is the masked mean of
-    ``bilstm_example_losses`` (class-weighted logits with ``unbalanced``)."""
+    ``bilstm_example_losses`` (class-weighted logits with ``unbalanced``).
+    With a ``parallel.mesh.Mesh``, the data-parallel step over its shards
+    and processes (``parallel.shardings.make_sharded_train_step``; x, y
+    and mask are then this process's rows)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel train step over a device mesh is not ported "
-            "(ROADMAP port queue item 10, multi-GPU)")
+        from deepmod_tpu_torch.parallel.mesh import Mesh
+        from deepmod_tpu_torch.parallel.shardings import (
+            make_sharded_train_step,
+        )
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got "
+                            f"{type(mesh).__name__}")
+        return make_sharded_train_step(model_config, learning_rate, mesh,
+                                       unbalanced, precision)
 
     def step(params, opt_state, x, y, mask):
         leaves = param_leaves(params)
@@ -190,6 +207,7 @@ def train_run(
     config: TrainConfig,
     init_params=None,
     resume_opt_from: Optional[str] = None,
+    mesh=None,
 ) -> Tuple[Any, BiLSTMConfig, List[Dict[str, float]]]:
     """Full training loop; returns (params, model_config, metric history).
 
@@ -198,7 +216,15 @@ def train_run(
     (numpy or torch tree) resumes from existing weights;
     ``resume_opt_from`` (an .npz written by either package's trainer)
     also restores the Adam slots and step count, so a resume continues
-    the interrupted run exactly."""
+    the interrupted run exactly. ``mesh`` (a ``parallel.mesh.Mesh``)
+    trains data parallel over its shards; under an initialized
+    ``torch.distributed`` group the default is this process's device, one
+    shard a rank. Otherwise the run takes ``config.device`` alone (the
+    JAX trainer builds a mesh over every device; here one card a process
+    is the faster step). Under a group, process 0 alone writes the
+    checkpoints."""
+    from deepmod_tpu_torch.parallel.mesh import default_group, make_mesh
+
     device = resolve_device(config.device)
     model_config = BiLSTMConfig(
         num_input=config.fnum,
@@ -215,8 +241,13 @@ def train_run(
         opt_state = load_adam_state(resume_opt_from, params)
     if opt_state is None:
         opt_state = adam_init(params)
+    if mesh is None and default_group() is not None:
+        mesh = make_mesh(devices=[device])  # this process's own device
+    n_shards = mesh.size if mesh is not None else 1
+    # one writer of the checkpoints: every process holds the same params
+    lead = mesh is None or mesh.process_index() == 0
     step_fn = make_train_step(model_config, config.unbalanced,
-                              config.precision, config.learning_rate)
+                              config.precision, config.learning_rate, mesh)
 
     split = TestSplit.parse(config.test)
     history: List[Dict[str, float]] = []
@@ -244,7 +275,14 @@ def train_run(
             for bx, by in group_batches:
                 if len(by) == 0:
                     continue
-                x, y, mask = _pad_to(bx, by, 1)
+                x, y, mask = _pad_to(bx, by, n_shards)
+                if mesh is not None:
+                    # every process loads the same batch and trains on its
+                    # contiguous share (the JAX global batch's P('data'))
+                    rows = len(mask) // mesh.process_count()
+                    mine = slice(mesh.process_index() * rows,
+                                 (mesh.process_index() + 1) * rows)
+                    x, y, mask = x[mine], y[mine], mask[mine]
                 step_fn(params, opt_state, to_dev(x), to_dev(y), to_dev(mask))
             step_count += 1
             if step_count % config.log_every == 0:
@@ -266,7 +304,7 @@ def train_run(
                 )
             # mid-epoch checkpoint at ~50% of group-0 FILES consumed —
             # the reference's unit (myMultiBiRNN.py:210-214)
-            if (not saved_half and epoch_files
+            if (lead and not saved_half and epoch_files
                     and progress["files_consumed"] >= epoch_files // 2 > 0):
                 half_dir = os.path.join(config.out_folder, f"{epoch - 1}.50")
                 os.makedirs(half_dir, exist_ok=True)
@@ -276,12 +314,13 @@ def train_run(
                 )
                 saved_half = True
             io_mark = time.time()
-        epoch_dir = os.path.join(config.out_folder, str(epoch))
-        os.makedirs(epoch_dir, exist_ok=True)
-        save_bilstm_npz(
-            os.path.join(epoch_dir, config.file_id + ".npz"),
-            params, model_config, opt_state=opt_state,
-        )
+        if lead:
+            epoch_dir = os.path.join(config.out_folder, str(epoch))
+            os.makedirs(epoch_dir, exist_ok=True)
+            save_bilstm_npz(
+                os.path.join(epoch_dir, config.file_id + ".npz"),
+                params, model_config, opt_state=opt_state,
+            )
     return params, model_config, history
 
 

@@ -251,11 +251,21 @@ def test_cli_detect_on_cpu(runs, tmp_path):
             assert a.read() == b.read(), rel
 
 
-def test_unported_options_raise(runs, tmp_path):
-    """Device aggregation is the one detect option still unported
-    (--predDet 0 and --mod_cluster: tests/test_torch_summarize.py)."""
+def test_unported_options_raise(runs, tmp_path, monkeypatch):
+    """The fnum-57 histogram pack is the one detect option still unported
+    (device aggregation: tests/test_torch_parallel.py; --predDet 0 and
+    --mod_cluster: tests/test_torch_summarize.py)."""
     _, common, _ = runs
-    base = DetectConfig(**dict(common, out_folder=str(tmp_path / "x")),
-                        device="cpu")
+    from deepmod_tpu_torch.engine.detect import WindowPredictor
+    from deepmod_tpu_torch.models import bilstm as tb
+
+    cfg = tb.BiLSTMConfig(num_input=57, num_hidden=8, num_layers=1)
+    params = tb.init_bilstm_params(0, cfg, device="cpu")
+    monkeypatch.setenv("DMT_COMPACT_PACK57", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        detect_run(dataclasses.replace(base, device_aggregation=True))
+        WindowPredictor(params, cfg, device="cpu")
+    # device aggregation runs: with one device it stays on the host path
+    base = DetectConfig(**dict(common, out_folder=str(tmp_path / "x")),
+                        device="cpu", precision="fp32")
+    res = detect_run(dataclasses.replace(base, device_aggregation=True))
+    assert res.num_reads == 6 and "device_aggregation" not in res.stage_seconds

@@ -34,7 +34,9 @@ def test_no_jax_or_reference_package_imports():
     assert len(files) > 25
     rel = {os.path.relpath(p, REPO) for p in files}
     for module in ("serve.py", "models/tf_bundle.py", "testing/tf_bundle.py",
-                   "tools/probe_serve_latency.py"):
+                   "tools/probe_serve_latency.py", "parallel/mesh.py",
+                   "parallel/aggregation.py", "parallel/cross_process.py",
+                   "parallel/shardings.py", "testing/multihost_worker.py"):
         assert os.path.join("deepmod_tpu_torch", module) in rel, module
     bad = []
     for path in files:
@@ -55,6 +57,29 @@ def test_no_jax_or_reference_package_imports():
             bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
                     for n in names if _forbidden(n)]
     assert not bad, bad
+
+
+def test_host_worker_closure_imports_no_torch_distributed():
+    """What a HostPool worker imports (``engine.host_worker`` and its
+    closure) pulls in neither ``torch`` nor ``torch.distributed``: the
+    engine process alone imports ``parallel/``."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys\n"
+        "import deepmod_tpu_torch.engine.host_worker\n"
+        "import deepmod_tpu_torch.engine.host_pool\n"
+        "print(sorted(m for m in sys.modules if m == 'torch' or "
+        "m.startswith(('torch.', 'deepmod_tpu_torch.parallel'))))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def _no_gpu():

@@ -124,8 +124,19 @@ def test_loss_and_param_count_match_jax(jax_params, unbalanced):
 
 
 def test_train_step_mesh_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh takes the data-parallel step (tests/test_torch_parallel.py);
+    what is not a ``parallel.mesh.Mesh`` is refused, and a model axis
+    (tensor parallelism, ROADMAP item 6b) raises naming it."""
+    from deepmod_tpu_torch.parallel.mesh import make_2d_mesh
+    from deepmod_tpu_torch.parallel.shardings import make_sharded_train_step
+
+    with pytest.raises(TypeError, match="Mesh"):
         ttrain.make_train_step(tb.BiLSTMConfig(), False, mesh=object())
+    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+        make_2d_mesh(2, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_sharded_train_step(tb.BiLSTMConfig(), 1e-3, mesh=None,
+                                model_axis="model")
 
 
 def test_adam_slots_interchange_with_jax(jax_params, tmp_path):
