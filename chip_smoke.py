@@ -2,7 +2,8 @@
 """Chip smoke test of the PyTorch/CUDA port (deepmod_tpu_torch) on one GPU.
 
     python3 chip_smoke.py              # every phase, one card
-    python3 chip_smoke.py --parallel   # phases 7 and 24 only (several cards)
+    python3 chip_smoke.py --parallel   # phases 7, 24 and 25 (A) only
+                                       # (several cards)
 
 Run from the root of a checkout on a machine with one NVIDIA GPU and the
 CUDA toolkit (``--parallel``: any number of them; phase 24 then takes
@@ -117,8 +118,8 @@ without printing the result line):
 18. (last) the host tools, each once in its own process: bench_host (the
    host stage's one-thread rate on the numpy twins and on the native
    library, which must give the same feature rows) and bench_e2e (warm
-   detect at --threads 1 and 4 with a shared predictor and pool, and
-   the card's idle share in a traced warm pass);
+   detect over 400 reads at --threads 1 and 4 with a shared predictor and
+   pool, and the card's idle share in a traced warm pass);
 19. (after phase 13) the second stage on the card: the bundled cluster
    model (``tests/golden/cluster_weights.npz``) on the golden input with
    TF32 off, within 1e-6 of the TF1 session's output and of the cpu run;
@@ -175,7 +176,23 @@ without printing the result line):
    the mesh takes every card, a nccl rank runs a card, the train epoch
    (over 96 reads a cohort) runs on one rank and on a rank a card, and
    ``serve``'s service on ``cuda`` (over every card) answers as one on
-   ``cuda:0``.
+   ``cuda:0``;
+25. (after phase 24) the rest of the port queue: (A) tensor parallelism
+   on a (2, 2) mesh naming the card four times: ``make_sharded_predict(
+   model_axis="model")`` (plain torch fp32, as JAX's scan) on phase 7's
+   windows against K1 fp32 (every argmax disagreement a near tie; the
+   logits' max |difference|), one ``make_sharded_train_step(model_axis=
+   "model")`` step against the 1-D step (loss rel 1e-5, params within
+   2e-6 where |g| >= 1e-7, the CPU test's bound), both steps' times
+   (with ``--parallel`` on several cards: a (1, n) mesh, a card a model
+   shard); (B) detect --fnum 57 over phase 7's pod5 set (a batch a file)
+   with a seeded fnum-57 model at T=21 (K1) and T=20 (K4), fp32 and bf16,
+   with and without DMT_COMPACT_PACK57=1 (BEDs byte-equal, K1 / K4
+   counted; a file at a time through the predictor: predictions equal,
+   "hist" in ``compact_modes`` where every histogram count is below 256,
+   the host->device bytes); (C) each of the JAX package's remaining scripts as a port tool
+   (``deepmod_tpu_torch/tools``) once at its smallest size in this
+   process, each tool's own checks holding.
 
 Every process the script starts is stopped and reaped before it exits,
 whether it passed or failed: it adopts its descendants' orphans (Linux
@@ -231,6 +248,7 @@ DETECT_T_READS = 20    # reads of the K4 detect dataset
 DETECT_FILES = 16      # pod5 files the detect dataset's reads are spread over
 POOL_FILES_PER_BATCH = 2   # --files_per_thread of the HostPool runs: 8 batches
 POOL_THREADS = 4
+E2E_READS = 400        # bench_e2e's reads in phase 18 (its default: 800)
 TRAIN_B = 2048
 TRAIN_READS = 12
 CLUSTER_CHROM = 12_000      # bases of chrT and of chrE in the cluster loop
@@ -2158,13 +2176,14 @@ def phase_pool(workdir: str, windows: int) -> dict:
 
 def phase_host_tools() -> dict:
     """bench_host (the host stage's one-thread rate, numpy twins against
-    the native library) and bench_e2e (warm detect wall at 1 and
-    POOL_THREADS threads, and the card's idle share in a traced warm
-    pass), each once in its own process."""
+    the native library) and bench_e2e (warm detect wall over E2E_READS
+    reads at 1 and POOL_THREADS threads, and the card's idle share in a
+    traced warm pass), each once in its own process."""
     out = {}
     for tool, args, limit in (
             ("bench_host", ("--repeats", "1"), 300),
-            ("bench_e2e", ("--threads", f"1,{POOL_THREADS}"), 300)):
+            ("bench_e2e", ("--threads", f"1,{POOL_THREADS}", "--reads",
+                           str(E2E_READS)), 300)):
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", f"deepmod_tpu_torch.tools.{tool}", *args],
@@ -2707,6 +2726,280 @@ def phase_parallel_serve(common: dict, n_cards: int) -> None:
             f"cards / one)")
 
 
+TP_SHARDS = 4          # the one card named this often in phase 25's mesh
+TP_ATOL = 2e-6         # params: the TP step against the 1-D step
+PACK57_T = (21, 20)    # phase 25's fnum-57 window sizes: K1, then K4
+
+
+def _features_of(ds: str, files: list, windowsize: int = 21,
+                 fnum: int = 7) -> tuple:
+    """The host features and window centers of a pod5 dataset's ``files``
+    (detect's host stage, one batch)."""
+    from deepmod_tpu_torch.engine.detect import DetectConfig, _host_options
+    from deepmod_tpu_torch.engine.host_worker import (
+        host_process_files,
+        init_worker,
+    )
+    from deepmod_tpu_torch.engine.outputs import build_batch_request
+
+    init_worker(_host_options(DetectConfig(
+        wrk_base=os.path.join(ds, "pod5"), ref=os.path.join(ds, "ref.fa"),
+        model_path="", out_folder="", align_str="builtin", fnum=fnum,
+        basecalls=os.path.join(ds, "calls.bam"), window_size=windowsize)))
+    results, _ = host_process_files(files)
+    feats, centers, _, _ = build_batch_request(results)
+    return feats, centers
+
+
+def _windows_of(ds: str, windowsize: int = 21, fnum: int = 7) -> tuple:
+    """The host features and centers of a pod5 dataset's reads, and their
+    materialized (n, T, F) windows."""
+    feats, centers = _features_of(
+        ds, sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5"))),
+        windowsize, fnum)
+    half = windowsize // 2
+    view = np.lib.stride_tricks.sliding_window_view(feats, windowsize, axis=0)
+    return feats, centers, np.ascontiguousarray(
+        np.moveaxis(view[centers - half], 2, 1), np.float32)
+
+
+def phase_tensor_parallel(device, workdir: str, devices: list) -> dict:
+    """(25 A) tensor parallelism on a (data, model) mesh over ``devices``
+    (one card: the card named TP_SHARDS times as (2, 2); several: a (1, n)
+    mesh, a card a model shard): ``make_sharded_predict(model_axis=
+    "model")`` on phase 7's windows against K1 fp32 (every disagreement a
+    near tie: |logit margin| at most twice the two logits' difference),
+    and one ``make_sharded_train_step(model_axis="model")`` step at batch
+    TRAIN_B against the 1-D step (K2/K3): loss within rel 1e-5, params
+    within TP_ATOL where |g| >= 1e-7 and within the learning rate
+    everywhere (the CPU test's bound); both steps' times."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, bilstm_logits
+    from deepmod_tpu_torch.models.tf_import import load_model, params_from_numpy
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+    from deepmod_tpu_torch.parallel import (
+        make_2d_mesh,
+        make_sharded_predict,
+        make_sharded_train_step,
+    )
+    from deepmod_tpu_torch.train.trainer import (
+        adam_init,
+        make_train_step,
+        param_leaves,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shape = (2, len(devices) // 2) if len(set(devices)) == 1 else (
+        1, len(devices))
+    mesh = make_2d_mesh(*shape, devices=devices)
+    tag = f"[tp {shape[0]}x{shape[1]}]"
+    ds = os.path.join(workdir, "ds")
+    _, _, windows = _windows_of(ds)
+    windows = windows[: len(windows) // shape[0] * shape[0]]
+    params, mcfg = load_model(os.path.join(ds, "model.npz"))
+    tparams = params_from_numpy(params, device)
+    x = torch.from_numpy(windows).to(device)
+    fn = make_sharded_predict(mcfg, mesh, model_axis="model")
+    tp_logits, tp_s = _wall(lambda: fn.logits(tparams, x))
+    ops.reset_launch_counts()
+    k1_logits, k1_s = _wall(lambda: bilstm_logits(tparams, x, mcfg, "fp32"))
+    assert ops.LAUNCHES["fp32"] > 0, ops.LAUNCHES
+    diff = (tp_logits - k1_logits).abs()
+    flips = torch.nonzero(tp_logits.argmax(1) != k1_logits.argmax(1))[:, 0]
+    margin = (k1_logits[:, 1] - k1_logits[:, 0]).abs()
+    near = int((margin[flips] <= 2 * diff[flips].max(dim=1).values).sum())
+    log(f"{tag} predict over {len(windows)} windows of phase 7's set: "
+        f"{len(flips)} argmax flips against K1 fp32 (near ties: {near}); "
+        f"logits max |d| {float(diff.max()):.3e}; TP (plain torch fp32, "
+        f"{len(devices)} shards) {tp_s:.3f} s, K1 fp32 {k1_s:.3f} s (host "
+        f"clock, first call)")
+    assert near == len(flips), f"{len(flips) - near} flips are not near ties"
+
+    cfg = BiLSTMConfig()
+    init = _train_params(cfg, SEED + 25, device)
+    gen = torch.Generator().manual_seed(SEED + 25)
+    xt = torch.randn(TRAIN_B, 21, 7, generator=gen).to(device)
+    y = torch.nn.functional.one_hot((xt[:, 10, 4] > 0).long(), 2).float()
+    mask = torch.ones(TRAIN_B, device=device)
+    p1, p2 = (params_from_numpy(init, device) for _ in range(2))
+    st1, st2 = adam_init(p1), adam_init(p2)
+    step1 = make_train_step(cfg, False, "fp32")
+    step2 = make_sharded_train_step(cfg, 1e-3, mesh, model_axis="model")
+    l1 = float(step1(p1, st1, xt, y, mask))
+    l2 = float(step2(p2, st2, xt, y, mask))
+    assert abs(l2 - l1) <= 1e-5 * abs(l1), (l1, l2)
+    # the CPU test's bound (tests/test_torch_tensor_parallel.py): where
+    # |g| >= 1e-7 (Adam's first moment 0.1 g), within TP_ATOL; everywhere
+    # within the learning rate (Adam's first step turns float noise of a
+    # gradient near its 1e-8 epsilon into up to ~1e-5 of the parameter)
+    d = 0.0
+    for a, b, mu in zip(param_leaves(p2), param_leaves(p1),
+                        param_leaves(st1["mu"])):
+        gap = (a - b).abs()
+        assert float(gap.max()) <= 1e-3, float(gap.max())
+        steady = mu.abs() >= 1e-8
+        assert float(steady.float().mean()) > 0.9
+        d = max(d, float(gap[steady].max()))
+    assert d <= TP_ATOL, d
+    ms1 = time_ms(lambda: step1(p1, st1, xt, y, mask))
+    ms2 = time_ms(lambda: step2(p2, st2, xt, y, mask))
+    log(f"{tag} train step B={TRAIN_B}: loss {l1:.7f} (1-D) / {l2:.7f} "
+        f"(TP); params max |d| after one step (|g| >= 1e-7) {d:.3e}; step "
+        f"{ms1:.4f} ms "
+        f"1-D (K2/K3), {ms2:.4f} ms TP (CUDA events, median of 5); "
+        f"{nvidia_smi_line()}")
+    return {"predict_s": (tp_s, k1_s), "step_ms": (ms1, ms2),
+            "max_dlogit": float(diff.max()), "flips": int(len(flips))}
+
+
+def phase_pack57(device, workdir: str) -> dict:
+    """(25 B) detect --fnum 57 over phase 7's pod5 set, a batch a file
+    (16), with a seeded fnum-57 model, at T=21 (K1) and T=20 (K4), fp32
+    and bf16, with and without DMT_COMPACT_PACK57=1: the BEDs byte-equal,
+    K1 / K4 counted around the runs. Then each file's host features
+    through WindowPredictor packed and unpacked: predictions equal; the
+    pack engages ("hist" in ``compact_modes``) on every file whose
+    histogram counts all fall below 256 and falls back on the others (the
+    move table's last base takes the read's trailing samples,
+    MoveTable.py:44-49, so a read whose alignment reaches its end carries
+    a count in the thousands); the host->device bytes a shipped row."""
+    from deepmod_tpu_torch.engine.detect import WindowPredictor
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.models.tf_import import save_bilstm_npz
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    ds = os.path.join(workdir, "ds")
+    files = sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5")))
+    cfg = BiLSTMConfig(num_input=57)
+    params = init_bilstm_params(SEED + 57, cfg, device="cpu")
+    model = os.path.join(workdir, "model57.npz")
+    save_bilstm_npz(model, params, cfg)
+    out = {"launches": {}}
+    saved = os.environ.get("DMT_COMPACT_PACK57")
+    runs = [(precision, pack) for precision in ("fp32", "bf16")
+            for pack in ("0", "1")]
+    extra = ("--fnum", "57", "--threads", "1", "--files_per_thread", "1")
+    try:
+        for windowsize in PACK57_T:
+            # the main path: counts from 0 just before, read just after
+            ops.reset_launch_counts()
+            for precision, pack in runs:
+                os.environ["DMT_COMPACT_PACK57"] = pack
+                run_detect(ds, os.path.join(
+                    workdir, f"p57_w{windowsize}_{precision}_{pack}"),
+                    "cuda", precision, model, windowsize, extra)
+            torch.cuda.synchronize()
+            k1 = windowsize % 2 == 1
+            counts = dict(ops.LAUNCHES if k1 else ops.LAYERED_LAUNCHES)
+            log(f"[pack57 T={windowsize}] {'K1' if k1 else 'K4'} launches "
+                f"{counts} over {len(runs)} runs of {len(files)} batches")
+            assert counts["fp32"] > 0 and counts["bf16"] > 0, counts
+            out["launches"][windowsize] = counts
+            wcfg = dataclasses.replace(cfg, timesteps=windowsize)
+            for precision in ("fp32", "bf16"):
+                beds = [read_beds(os.path.join(
+                    workdir, f"p57_w{windowsize}_{precision}_{pack}"))
+                    for pack in ("0", "1")]
+                assert beds[0] and beds[0] == beds[1], (
+                    f"T={windowsize} {precision}: packed BEDs differ")
+                preds = {}
+                for pack in ("0", "1"):
+                    os.environ["DMT_COMPACT_PACK57"] = pack
+                    preds[pack] = WindowPredictor(
+                        params, wcfg, device=device, precision=precision,
+                        compact_transfer=True)
+                packed, fellback, moved = 0, 0, {"0": 0, "1": 0}
+                for path in files:
+                    feats, centers = _features_of(ds, [path], windowsize, 57)
+                    got = {}
+                    for pack, pred in preds.items():
+                        before = pred.transfer_bytes
+                        got[pack] = pred.predict_from_features(
+                            feats, centers, windowsize, assume_packable=True)
+                        moved[pack] += pred.transfer_bytes - before
+                    assert np.array_equal(got["0"], got["1"]), path
+                    # the gate: every histogram count of the call below 256
+                    if (feats[:, :50] < 256).all():
+                        packed += 1
+                    else:
+                        fellback += 1
+                assert preds["0"].compact_modes == {False}
+                assert preds["1"].compact_modes == (
+                    {"hist"} | ({False} if fellback else set())), (
+                    preds["1"].compact_modes, packed, fellback)
+                assert packed > 0, "no file of the set is packable"
+                log(f"[pack57 T={windowsize} {precision}] "
+                    f"{len(beds[1])} BEDs byte-equal packed and unpacked; "
+                    f"predictions equal on every file; the pack engaged on "
+                    f"{packed} files and fell back on {fellback} (a count "
+                    f">= 256); host->device bytes {moved['1']} packed "
+                    f"against {moved['0']} unpacked "
+                    f"({moved['1'] / moved['0']:.4f}x)")
+    finally:
+        if saved is None:
+            os.environ.pop("DMT_COMPACT_PACK57", None)
+        else:
+            os.environ["DMT_COMPACT_PACK57"] = saved
+    return out
+
+
+def run_tool(name: str, *args: str) -> list:
+    """A port tool's ``main`` in this process; its JSON lines. A tool's own
+    check that fails (SystemExit) fails the phase."""
+    import contextlib
+    import importlib
+    import io
+
+    module = importlib.import_module(f"deepmod_tpu_torch.tools.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = module.main(list(args))
+    except SystemExit as exc:
+        raise AssertionError(f"{name}: {exc}\n{buf.getvalue()[-3000:]}")
+    for line in buf.getvalue().splitlines():
+        log(f"[{name}] {line}")
+    assert rc == 0, f"{name} returned {rc}"
+    log(f"[{name}] {time.perf_counter() - t0:.1f} s")
+    return [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def phase_tools(workdir: str) -> None:
+    """(25 C) the JAX package's remaining scripts, each port tool once at
+    its smallest size on the card, in this process; each tool's own
+    checks (it exits non-zero when one fails) and its result lines."""
+    scale = os.path.join(workdir, "scale")
+    for fnum in ("7", "57"):
+        last = run_tool("probe_compact_pack", "--rows", "262144", "--passes",
+                        "1", "--fnum", fnum)[-1]
+        assert last["identical"], last
+    rows = run_tool("probe_device_agg", "--reps", "1", "--cases",
+                    "1000000:4600000")[-1]["rows"]
+    assert all(r["counts_equal"] for r in rows), rows
+    last = run_tool("bench_scale_multiproc", "--reads", "12", "--genome-bp",
+                    "50000", "--nprocs", "1,2", "--workdir",
+                    os.path.join(workdir, "scale_mp"))[-1]
+    assert last["beds_identical"], last
+    for tool, extra in (("validate_full_loop", ()),
+                        ("coverage_scaling", ())):
+        last = run_tool(tool, "--small", "--epochs", "1", "--threads", "1",
+                        "--out", os.path.join(workdir, tool), *extra)[-1]
+        log(f"[{tool}] {last}")
+    last = run_tool("bench_scale", "--dataset", scale, "--reads", "50",
+                    "--genome-mbp", "0.2", "--threads", "2", "--runs", "2")
+    assert all(r["windows"] > 0 for r in last), last
+    run_tool("probe_bf16_flips", "--windows", "65536", "--reads", "20")
+    run_tool("probe_train_bf16", "--batches", "2048", "--iters", "5")
+    run_tool("probe_tile", "--batch", "32768")
+    run_tool("probe_lookahead", "--rows", "1048576", "--passes", "1")
+    last = run_tool("probe_target_only", "--dataset", scale, "--reads", "50",
+                    "--genome-mbp", "0.2", "--threads", "2")[-1]
+    assert last["beds_identical"], last
+    run_tool("probe_sigmoid", "--batches", "65536", "--iters", "4")
+
+
 def phase_cluster_golden(device) -> dict:
     """The bundled cluster model (the reference's TF1 checkpoint, converted)
     on the golden input, TF32 off: within 1e-6 of the TF1 session's output
@@ -3066,6 +3359,10 @@ def parallel_only() -> str:
             f"{len(minibatches)} minibatches of <= {TRAIN_B}")
         par = phase_parallel(device, workdir, parallel_shards(), feats)
         log(f"[parallel] phase 24: {time.perf_counter() - t_par:.2f} s")
+        n = torch.cuda.device_count()
+        if n > 1:
+            par["tp"] = phase_tensor_parallel(
+                device, workdir, [torch.device("cuda", i) for i in range(n)])
     log(json.dumps({"parallel": par}))
     return name
 
@@ -3076,7 +3373,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parallel", action="store_true",
-                    help="phases 7 and 24 only (for several cards)")
+                    help="phases 7, 24 and 25 (A) only (for several cards)")
     args = ap.parse_args(argv)
     import torch
 
@@ -3156,6 +3453,11 @@ def smoke() -> str:
         t_par = time.perf_counter()
         par = phase_parallel(device, workdir, parallel_shards(), trn["feats"])
         log(f"[parallel] phase 24: {time.perf_counter() - t_par:.2f} s")
+        t_slice = time.perf_counter()
+        phase_tensor_parallel(device, workdir, [device] * TP_SHARDS)
+        p57 = phase_pack57(device, workdir)
+        phase_tools(workdir)
+        log(f"[phase 25] {time.perf_counter() - t_slice:.2f} s")
         t_cluster = time.perf_counter()
         phase_cluster_golden(device)
         clu = phase_cluster(device, workdir)
@@ -3182,11 +3484,12 @@ def smoke() -> str:
         }
 
     # K1's main paths: detect (phase 7), detect from the TF prefix and
-    # serve (phases 22-23) and the cluster loop's detect runs;
-    # K2/K3's: train (phase 8) and the loop's first stage.
-    # K4's main path: detect at every LAYERED_T window size
+    # serve (phases 22-23), the cluster loop's detect runs and detect
+    # --fnum 57 at T=21 (phase 25); K2/K3's: train (phase 8) and the
+    # loop's first stage. K4's main path: detect at every LAYERED_T
+    # window size and --fnum 57 at T=20
     k4_launches = {p: sum(r["launches"][p] for r in det_k4.values())
-                   for p in ("fp32", "bf16")}
+                   + p57["launches"][20][p] for p in ("fp32", "bf16")}
     kernels = []
     for precision in ("fp32", "bf16"):
         # a name ending in "_tc": a tensor-core (wgmma) kernel
@@ -3196,7 +3499,7 @@ def smoke() -> str:
             "deepmod_tpu/ops/bilstm_fused.py:551",
             det["launches"][precision] + clu["launches"][precision]
             + tfk["launches"][precision] + srv["launches"][precision]
-            + par["launches"][precision],
+            + par["launches"][precision] + p57["launches"][21][precision],
             kern[precision], par["shard_launches"][precision]))
         for kind, line in (("fwd", 101), ("bwd", 222)):
             key = f"{kind}_{precision}"

@@ -152,7 +152,9 @@ __device__ __forceinline__ void store_center(float* __restrict__ out,
 // updates c, returns h. kPrescaled is the bf16 contract (i/f/o arrive
 // pre-halved, sigmoid as 0.5*tanh+0.5, fb_term = 0.5*forget_bias added in
 // the original association); otherwise exp-based sigmoids, fb_term =
-// forget_bias
+// forget_bias. DMT_TANH_SIGMOID (never set by the default build; the
+// variant that tools/probe_sigmoid.py times) computes those as
+// 0.5*tanh(0.5*x)+0.5 instead
 template <bool kPrescaled>
 __device__ __forceinline__ float cell(float gi, float gj, float gf, float go,
                                       float fb_term, float& c) {
@@ -162,9 +164,15 @@ __device__ __forceinline__ float cell(float gi, float gj, float gf, float go,
     sf = 0.5f * tanhf(gf + fb_term) + 0.5f;
     so = 0.5f * tanhf(go) + 0.5f;
   } else {
+#ifdef DMT_TANH_SIGMOID
+    si = 0.5f * tanhf(0.5f * gi) + 0.5f;
+    sf = 0.5f * tanhf(0.5f * (gf + fb_term)) + 0.5f;
+    so = 0.5f * tanhf(0.5f * go) + 0.5f;
+#else
     si = 1.0f / (1.0f + expf(-gi));
     sf = 1.0f / (1.0f + expf(-(gf + fb_term)));
     so = 1.0f / (1.0f + expf(-go));
+#endif
   }
   c = c * sf + si * tanhf(gj);
   return tanhf(c) * so;

@@ -31,9 +31,6 @@ and process 0 alone writes the BEDs.
 run's predetail HDF5 and index files (``engine.summarize``);
 ``--mod_cluster`` applies the inline CpG-cluster rescue before counting
 and names the BEDs ``cluster_mod_pos.*``.
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the fnum-57 histogram pack.
 """
 
 from __future__ import annotations
@@ -86,13 +83,6 @@ PRE_BASE_STR = "rnn.pred.ind"  # index-file infix (myDetect.py:39)
 # the host and enqueued while chunk i computes; its result is fetched
 # only when the queue is full
 _LOOKAHEAD = 2
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP, port queue: {item})"
-    )
 
 
 @dataclasses.dataclass
@@ -216,12 +206,17 @@ class WindowPredictor:
         self.compact_transfer = bool(compact_transfer)
         # packed compact transfer: the 4 one-hot refbase columns ride as
         # ONE uint8 code (0..3 = ACGT, 4 = no base) and are rebuilt on the
-        # device from a 5x4 LUT — bit-identical (LUT rows are exact 0/1)
-        self._pack_onehot = config.num_input == 7
-        if (config.num_input == 57
-                and os.environ.get("DMT_COMPACT_PACK57", "0") == "1"):
-            raise _not_ported("the fnum-57 histogram pack",
-                              "fnum-57 hist pack")
+        # device from a 5x4 LUT — bit-identical (LUT rows are exact 0/1);
+        # DMT_COMPACT_PACK=0 turns it off (A/B, as in the JAX package)
+        self._pack_onehot = (config.num_input == 7
+                             and os.environ.get("DMT_COMPACT_PACK", "1") != "0")
+        # fnum 57, opt-in (DMT_COMPACT_PACK57=1, as in the JAX package):
+        # when every histogram value of a call is an integer in [0, 256)
+        # the 50 histogram columns ride as uint8 beside the one-hot code
+        # (57 B a row in bf16 against 114); uint8 -> bf16 is exact below
+        # 256, so predictions keep their bits
+        self._pack_hist = (config.num_input == 57
+                           and os.environ.get("DMT_COMPACT_PACK57", "0") == "1")
         lut = torch.zeros(5, 4, dtype=self._dtype)
         lut[:4] = torch.eye(4, dtype=self._dtype)
         self._lut = lut.to(self.device)
@@ -242,7 +237,8 @@ class WindowPredictor:
         # counts around the shard's classification)
         self.shard_launches = [0] * len(self.devices)
         self._fn = self._classify
-        # which compact variants ran ('onehot' packed, False unpacked)
+        # which compact variants ran ('onehot' / 'hist' packed, False
+        # unpacked)
         self.compact_modes: set = set()
         # host->device payload bytes dispatched (features/windows only).
         # Monotonic across calls — callers snapshot before/after.
@@ -384,15 +380,18 @@ class WindowPredictor:
         """Windows lo..hi-1 of a compact row chunk on ``device``: rows
         lo..hi+T-2 (the T-1 rows of halo) copied over, the one-hot columns
         rebuilt from the codes through the LUT when ``chunks`` is (codes,
-        rest), and the overlapping window view the kernel reads in place."""
+        rest) or (hist, codes, rest) (the uint8 histogram columns cast to
+        the feature dtype in front), and the overlapping window view the
+        kernel reads in place."""
         rows = slice(lo, hi + window - 1)
-        if len(chunks) == 2:
-            codes = self._to_device(chunks[0][rows], device)
-            rest = self._to_device(chunks[1][rows], device)
-            lut = self._replicas[device][1]
-            feats = torch.cat([lut[codes.long()], rest], dim=1)
-        else:
+        if len(chunks) == 1:
             feats = self._to_device(chunks[0][rows], device)
+        else:
+            *hist, codes, rest = (self._to_device(c[rows], device)
+                                  for c in chunks)
+            lut = self._replicas[device][1]
+            feats = torch.cat([h.to(self._dtype) for h in hist]
+                              + [lut[codes.long()], rest], dim=1)
         fnum = feats.shape[1]
         return feats.as_strided((hi - lo, window, fnum), (fnum, fnum, 1))
 
@@ -445,7 +444,31 @@ class WindowPredictor:
                 f"window={window})"
             )
         pack: Any = False
-        if self._pack_onehot:
+        feats_t = None
+        if self._pack_hist:
+            # fnum-57 columns: [hist 0..49 | onehot 50..53 | mean stdv
+            # length 54..56] (features/builder.py layout). The < 256 gate
+            # always holds the transfer-dtype values; ``assume_packable``
+            # skips the integrality and one-hot scan only
+            cast = self._host_cast(features)
+            hist = cast[:, :50]
+            check_ok = bool((hist < 256).all())
+            if check_ok and not assume_packable:
+                onehot = cast[:, 50:54].float()
+                check_ok = bool(
+                    (hist >= 0).all() and (hist == torch.floor(hist)).all()
+                    and ((onehot == 0.0) | (onehot == 1.0)).all()
+                    and (onehot.sum(dim=1) <= 1.0).all())
+            if check_ok:
+                pack = "hist"
+                codes_t = torch.full((len(features),), 4, dtype=torch.uint8)
+                for k in range(3, -1, -1):
+                    codes_t[cast[:, 50 + k] != 0] = k
+                hist_t = hist.to(torch.uint8)
+                rest_t = cast[:, 54:]
+            else:
+                feats_t = cast
+        elif self._pack_onehot:
             check_ok = True
             if not assume_packable:
                 onehot = np.asarray(features[:, :4], np.float32)
@@ -461,7 +484,7 @@ class WindowPredictor:
                     codes[features[:, k] != 0] = k
                 codes_t = torch.from_numpy(codes)
                 rest_t = self._host_cast(features[:, 4:])
-        if not pack:
+        if not pack and feats_t is None:
             feats_t = self._host_cast(features)
         self.compact_modes.add(pack)
         out = np.empty(n, np.int8)
@@ -494,6 +517,9 @@ class WindowPredictor:
             if pack:
                 chunks = (_pad_rows(codes_t[row0 : row0 + bucket], bucket, 4),
                           _pad_rows(rest_t[row0 : row0 + bucket], bucket, 0))
+                if pack == "hist":
+                    chunks = (_pad_rows(hist_t[row0 : row0 + bucket],
+                                        bucket, 0),) + chunks
             else:
                 chunks = (_pad_rows(feats_t[row0 : row0 + bucket], bucket, 0),)
             inflight.append((i, j, idx, self._dispatch(

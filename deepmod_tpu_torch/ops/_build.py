@@ -16,6 +16,7 @@ unchanged. Nothing here runs when the module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -66,23 +67,29 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def _digest(sources) -> str:
+def _digest(sources, flags) -> str:
     h = hashlib.sha256()
     for path in sources + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         with open(path, "rb") as fh:
             h.update(os.path.basename(path).encode() + b"\0" + fh.read())
-    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + flags).encode())
     return h.hexdigest()[:16]
 
 
-def build() -> str:
-    """Compile the kernels if their sources changed; return the .so path."""
-    sources = _sources()
-    digest = _digest(sources)
-    out_dir = os.path.join(BUILD_DIR, digest)
+def build(sources=None, defines=(), build_dir: Optional[str] = None) -> str:
+    """Compile the kernels if their sources changed; return the .so path.
+    By default every source with the default flags into ``BUILD_DIR``;
+    ``variant_library`` passes a subset, ``-D`` defines and its own
+    directory."""
+    sources = _sources() if sources is None else sources
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    digest = _digest(sources, flags)
+    out_dir = os.path.join(build_dir or BUILD_DIR, digest)
     lib_path = os.path.join(out_dir, LIB_NAME)
+    default = build_dir is None  # build_info describes the default build
     if os.path.exists(lib_path):
-        build_info.update(seconds=0.0, log="", cached=True)
+        if default:
+            build_info.update(seconds=0.0, log="", cached=True)
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
@@ -92,7 +99,7 @@ def build() -> str:
     for src in sources:
         obj = os.path.join(out_dir, os.path.basename(src) + ".o")
         objs.append(obj)
-        cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", src, "-o", obj]
+        cmd = [nvcc, *ARCH_FLAGS, *flags, "-c", src, "-o", obj]
         procs.append((cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
@@ -113,22 +120,39 @@ def build() -> str:
     if link.returncode != 0:
         raise RuntimeError("nvcc link failed:\n" + link.stdout)
     os.replace(tmp, lib_path)
-    build_info.update(
-        seconds=time.perf_counter() - t0, log="".join(log), cached=False
-    )
+    if default:
+        build_info.update(
+            seconds=time.perf_counter() - t0, log="".join(log), cached=False
+        )
     return lib_path
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _bind_k1(lib: ctypes.CDLL) -> None:
+    """What ``bilstm_fused.cu`` exports: K1 in both precisions and the
+    error string."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = ctypes.c_longlong
-    n = ctypes.POINTER(ctypes.c_int)
     # K1 fp32 (the fp32 core): x, stride_b, stride_t, stride_f, batch,
     # timesteps, in_dim, hidden, num_layers, w, bias, forget_bias, the
     # workspace, out, tile, split, stream
     lib.dmt_bilstm_center_f32.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f,
                                           p, p, i, i, p]
     lib.dmt_bilstm_center_f32.restype = ctypes.c_int
+    # K1 bf16 (tensor cores, 64 windows a block): the fp32 arguments with
+    # the tensor-core packing as w and bias, then the workspace, out,
+    # stream
+    lib.dmt_bilstm_center_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
+                                           f, p, p, p]
+    lib.dmt_bilstm_center_bf16.restype = ctypes.c_int
+    lib.dmt_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.dmt_cuda_error_string.restype = ctypes.c_char_p
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    q = ctypes.c_longlong
+    n = ctypes.POINTER(ctypes.c_int)
+    _bind_k1(lib)
     for name in ("dmt_bilstm_merged_f32", "dmt_bilstm_wavefront_f32"):
         # K5a, K5c fp32
         fn = getattr(lib, name)
@@ -137,13 +161,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         # stream
         fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p]
         fn.restype = ctypes.c_int
-    # K1 and K5a bf16 (tensor cores, 64 windows a block): the fp32
-    # arguments with the tensor-core packing as w and bias, then the
-    # workspace, out, stream
-    for name in ("dmt_bilstm_center_bf16", "dmt_bilstm_merged_bf16"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, p, p]
-        fn.restype = ctypes.c_int
+    # K5a bf16 (tensor cores, 64 windows a block): K1 bf16's arguments
+    lib.dmt_bilstm_merged_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
+                                           f, p, p, p]
+    lib.dmt_bilstm_merged_bf16.restype = ctypes.c_int
     # K5b fp32: K1's arguments, then the gate workspace and gate_bf16
     # before out
     lib.dmt_bilstm_pregemm_f32.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
@@ -211,19 +232,60 @@ def _bind(lib: ctypes.CDLL) -> None:
         # op, x, out, n, iters, stream
         fn.argtypes = [i, p, p, i, i, p]
         fn.restype = ctypes.c_int
-    lib.dmt_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.dmt_cuda_error_string.restype = ctypes.c_char_p
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (inside ``variant``:
+    that build instead)."""
     global _lib
+    if _variant is not None:
+        return _variant
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
             _bind(lib)
             _lib = lib
     return _lib
+
+
+# the library ``variant`` routes the wrappers' launches to, while it runs
+_variant: Optional[ctypes.CDLL] = None
+_variants = {}
+# K1 with its fp32 sigmoids in the tanh form (lstm_common.cuh::cell<false>
+# under this define); only tools/probe_sigmoid.py and chip_smoke.py use it
+TANH_SIGMOID = "DMT_TANH_SIGMOID"
+
+
+def variant_library(define: str) -> ctypes.CDLL:
+    """K1's source (``bilstm_fused.cu``) built with ``-D<define>`` into its
+    own directory, ``build/kernels_<define>/<hash>/``, and bound: K1 in
+    both precisions. The default build never sets the define."""
+    with _lock:
+        if define not in _variants:
+            lib = ctypes.CDLL(build(
+                [os.path.join(CSRC_DIR, "bilstm_fused.cu")], (define,),
+                os.path.join(os.path.dirname(BUILD_DIR),
+                             f"kernels_{define.lower()}")))
+            _bind_k1(lib)
+            _variants[define] = lib
+    return _variants[define]
+
+
+@contextlib.contextmanager
+def variant(define: str):
+    """Launch K1 from ``variant_library(define)`` inside the block (one
+    thread at a time: the route is this module's)."""
+    global _variant
+    lib = variant_library(define)
+    with _variant_lock:
+        _variant = lib
+        try:
+            yield lib
+        finally:
+            _variant = None
+
+
+_variant_lock = threading.Lock()
 
 
 def check(status: int, what: str) -> None:

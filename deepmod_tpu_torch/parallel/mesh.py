@@ -8,27 +8,21 @@ how one card or the CPU carries several shards) and the
 group is initialized. ``process_index()`` and ``process_count()`` stand
 for ``jax.process_index()`` and ``jax.process_count()``.
 
-Tensor parallelism (a second, 'model' axis: ``make_2d_mesh``) is not
-ported (ROADMAP port queue item 6b).
+``make_2d_mesh`` adds a second, 'model' axis for tensor parallelism
+(``parallel.tensor_parallel``): the local devices in row-major (data
+groups, model) order. The model axis stays inside a process; the data
+axis spans the processes.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from deepmod_tpu_torch.utils.device import resolve_device
-
-
-def tensor_parallel_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "tensor parallelism (a 'model' mesh axis) is not ported to the "
-        "PyTorch package yet (ROADMAP port queue: item 6b, tensor "
-        "parallelism); use a 1-D data-parallel mesh"
-    )
 
 
 def default_group() -> Optional[Any]:
@@ -62,14 +56,32 @@ def comm_device(group) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D data-parallel mesh: this process's shards and the group."""
+    """This process's shards and the group. ``model`` > 1: ``devices`` in
+    row-major (local data groups, model) order, ``axis_names`` the two
+    axes' names; a 1-D mesh has ``model`` 1 and one device a data
+    shard."""
 
     devices: Tuple[torch.device, ...]
     group: Optional[Any] = None
+    model: int = 1
+    axis_names: Tuple[str, ...] = ("data",)
 
     @property
     def local_size(self) -> int:
         return len(self.devices)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """Local (data groups, model), or (shards,) for a 1-D mesh."""
+        if len(self.axis_names) == 1:
+            return (self.local_size,)
+        return (self.local_size // self.model, self.model)
+
+    def data_groups(self) -> List[Tuple[torch.device, ...]]:
+        """The local data groups, each its ``model`` devices in order."""
+        m = self.model
+        return [self.devices[i : i + m]
+                for i in range(0, self.local_size, m)]
 
     @property
     def size(self) -> int:
@@ -109,6 +121,33 @@ def make_mesh(
     return Mesh(tuple(devices), default_group())
 
 
-def make_2d_mesh(data: int, model: int,
-                 axis_names: Sequence[str] = ("data", "model")) -> Mesh:
-    raise tensor_parallel_not_ported()
+def make_2d_mesh(
+    data: int,
+    model: int,
+    axis_names: Sequence[str] = ("data", "model"),
+    devices: Optional[Sequence[Union[str, torch.device]]] = None,
+) -> Mesh:
+    """A (``data``, ``model``) mesh, as JAX's ``make_2d_mesh``: ``data``
+    counts the data groups of every process, each group ``model``
+    devices. This process holds ``data / processes`` groups of its local
+    ``devices`` (default: every visible CUDA device; CPU shards only where
+    named, e.g. ``devices=["cpu"] * 8``), laid out row-major, so a model
+    group never spans processes."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be positive, got ({data}, {model})")
+    group = default_group()
+    nproc = dist.get_world_size(group) if group is not None else 1
+    if data % nproc:
+        raise ValueError(
+            f"the model axis stays inside a process: {data} data groups "
+            f"do not split over {nproc} processes, so a group of {model} "
+            "model shards would span processes")
+    need = data // nproc * model
+    if need > len(devices):
+        raise ValueError(f"need {need} devices, have {len(devices)}")
+    return Mesh(tuple(devices[:need]), group, model, tuple(axis_names))

@@ -14,7 +14,7 @@ start every rank with the same <nproc> and <port>):
     python -m deepmod_tpu_torch.testing.multihost_worker \\
         <process_id> <num_processes> <port> <out_json> \\
         [detect <dataset_dir> <out_folder> |
-         train <mod_features> <ctl_features> <out_folder>] \\
+         train <mod_features> <ctl_features> <out_folder> | tp] \\
         [--device cpu|cuda] [--backend gloo|nccl] [--basecalls calls.bam]
         [--host_shard I:N] [--full_width]
 
@@ -27,8 +27,11 @@ sharing a card run over gloo. ``detect`` reads
 its counts over its local shards (device aggregation), the end-of-run
 merge (``parallel.cross_process``) gives ONE BED set from rank 0.
 ``train`` runs one epoch of ``train_run`` under the group (the
-data-parallel step over every rank, checkpoints from rank 0). A rank
-that fails exits non-zero.
+data-parallel step over every rank, checkpoints from rank 0). ``tp``
+runs one tensor-parallel train step on a (ranks, 2) mesh, a data group a
+rank and its two model shards on the rank's device
+(``tp_step_inputs`` gives every rank's rows), and checks that a model
+axis across the ranks is refused. A rank that fails exits non-zero.
 """
 
 from __future__ import annotations
@@ -222,6 +225,61 @@ def run_primitives(mesh, out_path: str) -> None:
         )
 
 
+TP_ROWS = 8  # rows a rank of the ``tp`` mode's step
+
+
+def tp_step_inputs(nproc: int):
+    """The ``tp`` mode's model config, params (numpy), and every rank's
+    rows in rank order: x, y, mask for ``nproc * TP_ROWS`` windows."""
+    import numpy as np
+
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.models.tf_import import params_to_numpy
+
+    config = BiLSTMConfig(num_input=7, num_hidden=16, timesteps=5,
+                          num_layers=2)
+    params = params_to_numpy(init_bilstm_params(5, config, device="cpu"))
+    rng = np.random.default_rng(17)
+    n = nproc * TP_ROWS
+    x = rng.standard_normal((n, 5, 7)).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[(x[:, 2, 4] > 0).astype(np.int64)]
+    mask = np.ones(n, np.float32)
+    mask[-3:] = 0.0
+    return config, params, x, y, mask
+
+
+def run_tp(device, out_path: str) -> None:
+    """One tensor-parallel train step, data over the ranks, model 2 inside
+    each; the loss and the flat params after it."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from deepmod_tpu_torch.models.tf_import import params_from_numpy
+    from deepmod_tpu_torch.parallel.mesh import make_2d_mesh
+    from deepmod_tpu_torch.parallel.shardings import make_sharded_train_step
+    from deepmod_tpu_torch.train.trainer import adam_init, param_leaves
+
+    pid, nproc = dist.get_rank(), dist.get_world_size()
+    try:
+        make_2d_mesh(1, 2, devices=[device] * 2)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    mesh = make_2d_mesh(nproc, 2, devices=[device] * 2)
+    config, tree, x, y, mask = tp_step_inputs(nproc)
+    params = params_from_numpy(tree, device)
+    opt_state = adam_init(params)
+    step = make_sharded_train_step(config, 1e-3, mesh, model_axis="model")
+    rows = slice(pid * TP_ROWS, (pid + 1) * TP_ROWS)
+    loss = step(params, opt_state, x[rows], y[rows], mask[rows])
+    flat = np.concatenate([t.detach().cpu().numpy().ravel()
+                           for t in param_leaves(params)])
+    with open(out_path, "w") as fh:
+        json.dump({"pid": pid, "mesh_shape": list(mesh.shape),
+                   "refused": refused, "loss": float(loss.item()),
+                   "params": flat.tolist()}, fh)
+
+
 def free_port() -> int:
     """A TCP port on 127.0.0.1 that is free now."""
     with socket.socket() as s:
@@ -289,7 +347,8 @@ def main(argv=None) -> None:
     ap.add_argument("port", type=int)
     ap.add_argument("out_json")
     ap.add_argument("mode", nargs="*",
-                    metavar="detect DATASET OUT_FOLDER | train MOD CTL OUT")
+                    metavar="detect DATASET OUT_FOLDER | train MOD CTL OUT "
+                    "| tp")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--backend", choices=("gloo", "nccl"), default=None)
     ap.add_argument("--basecalls", default="")
@@ -299,10 +358,10 @@ def main(argv=None) -> None:
                     help="train at TrainConfig's defaults (hidden 100, "
                          "batch 2048), not the small test model")
     args = ap.parse_args(argv)
-    if args.mode and (args.mode[0], len(args.mode)) not in (("detect", 3),
-                                                              ("train", 4)):
-        ap.error("the optional mode is: detect <dataset_dir> <out_folder> "
-                 "or train <mod_features> <ctl_features> <out_folder>")
+    if args.mode and (args.mode[0], len(args.mode)) not in (
+            ("detect", 3), ("train", 4), ("tp", 1)):
+        ap.error("the optional mode is: detect <dataset_dir> <out_folder>, "
+                 "train <mod_features> <ctl_features> <out_folder> or tp")
 
     import torch
     import torch.distributed as dist
@@ -328,7 +387,9 @@ def main(argv=None) -> None:
         if mesh.process_count() != args.nproc:
             raise RuntimeError(f"group of {mesh.process_count()} ranks, "
                                f"expected {args.nproc}")
-        if args.mode and args.mode[0] == "train":
+        if args.mode and args.mode[0] == "tp":
+            run_tp(device, args.out_json)
+        elif args.mode and args.mode[0] == "train":
             run_train(args.mode[1], args.mode[2], args.mode[3],
                       args.out_json, device, args.full_width)
         elif args.mode:

@@ -252,9 +252,10 @@ def test_cli_detect_on_cpu(runs, tmp_path):
 
 
 def test_unported_options_raise(runs, tmp_path, monkeypatch):
-    """The fnum-57 histogram pack is the one detect option still unported
-    (device aggregation: tests/test_torch_parallel.py; --predDet 0 and
-    --mod_cluster: tests/test_torch_summarize.py)."""
+    """No detect option is left unported: the fnum-57 histogram pack
+    builds (tests below), and device aggregation runs, staying on the
+    host path with one device (several: tests/test_torch_parallel.py;
+    --predDet 0 and --mod_cluster: tests/test_torch_summarize.py)."""
     _, common, _ = runs
     from deepmod_tpu_torch.engine.detect import WindowPredictor
     from deepmod_tpu_torch.models import bilstm as tb
@@ -262,10 +263,109 @@ def test_unported_options_raise(runs, tmp_path, monkeypatch):
     cfg = tb.BiLSTMConfig(num_input=57, num_hidden=8, num_layers=1)
     params = tb.init_bilstm_params(0, cfg, device="cpu")
     monkeypatch.setenv("DMT_COMPACT_PACK57", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        WindowPredictor(params, cfg, device="cpu")
-    # device aggregation runs: with one device it stays on the host path
+    assert WindowPredictor(params, cfg, device="cpu")._pack_hist
     base = DetectConfig(**dict(common, out_folder=str(tmp_path / "x")),
                         device="cpu", precision="fp32")
     res = detect_run(dataclasses.replace(base, device_aggregation=True))
     assert res.num_reads == 6 and "device_aggregation" not in res.stage_seconds
+
+
+def _hist_features(rows: int = 700):
+    """fnum-57 engine-shaped rows (tests/test_detect_e2e.py's): 50 integer
+    histogram counts < 40, a 0/1 one-hot (or none), 3 numbers."""
+    rng = np.random.default_rng(13)
+    feats = np.zeros((rows, 57), np.float32)
+    feats[:, :50] = rng.integers(0, 40, (rows, 50))
+    hot = rng.integers(0, 5, rows)
+    for b in range(4):
+        feats[hot == b, 50 + b] = 1.0
+    feats[:, 54] = (rng.standard_normal(rows) * 2).round(3)
+    feats[:, 55] = np.abs(rng.standard_normal(rows) * 2).round(3)
+    feats[:, 56] = rng.integers(1, 40, rows)
+    return feats, np.arange(12, rows - 12, dtype=np.int64)
+
+
+@pytest.fixture(scope="module")
+def hist_model():
+    from deepmod_tpu_torch.models import bilstm as tb
+    from deepmod_tpu_torch.models.tf_import import params_to_numpy
+
+    cfg = tb.BiLSTMConfig(num_input=57, num_hidden=32)
+    return cfg, params_to_numpy(tb.init_bilstm_params(9, cfg, device="cpu"))
+
+
+def _predictor(hist_model, monkeypatch, pack: bool, **kw):
+    from deepmod_tpu_torch.engine.detect import WindowPredictor
+
+    monkeypatch.setenv("DMT_COMPACT_PACK57", "1" if pack else "0")
+    cfg, params = hist_model
+    return WindowPredictor(params, cfg, buckets=(64, 256), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_predictor_packed_hist_equality(hist_model, monkeypatch, precision):
+    """fnum-57 packed compact transfer (tests/test_detect_e2e.py's
+    ``test_predictor_packed_hist_equality``): the 50 histogram columns
+    ride as uint8 beside the one-hot code (57 B a row in bf16, 63 in
+    fp32). Predictions are the bits of the unpacked compact path and of
+    window transfer; a count >= 256 falls back to the unpacked transfer
+    also under ``assume_packable``, a fractional count when the scan
+    runs."""
+    feats, centers = _hist_features()
+    packed = _predictor(hist_model, monkeypatch, True, precision=precision,
+                        compact_transfer=True)
+    unpacked = _predictor(hist_model, monkeypatch, False, precision=precision,
+                          compact_transfer=True)
+    win = _predictor(hist_model, monkeypatch, True, precision=precision,
+                     compact_transfer=False)
+    assert packed._pack_hist and not unpacked._pack_hist
+    got = packed.predict_from_features(feats, centers)
+    assert packed.compact_modes == {"hist"}
+    rows = 3 * 256  # the 676 centers' chunks
+    row_bytes = 50 + 1 + 3 * (2 if precision == "bf16" else 4)
+    assert packed.transfer_bytes == rows * row_bytes
+    want = win.predict_from_features(feats, centers)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        unpacked.predict_from_features(feats, centers), want)
+    assert unpacked.compact_modes == {False}
+    np.testing.assert_array_equal(
+        packed.predict_from_features(feats, centers, assume_packable=True),
+        want)
+    big = feats.copy()
+    big[5, 3] = 300.0
+    got_b = packed.predict_from_features(big, centers, assume_packable=True)
+    assert False in packed.compact_modes
+    np.testing.assert_array_equal(got_b,
+                                  win.predict_from_features(big, centers))
+    for bad, value in (((7, 2), 1.5), ((9, 4), -1.0)):
+        frac = feats.copy()
+        frac[bad] = value
+        before = packed.transfer_bytes
+        np.testing.assert_array_equal(
+            packed.predict_from_features(frac, centers),
+            win.predict_from_features(frac, centers))
+        # unpacked: 57 feature columns a row in the transfer dtype
+        assert packed.transfer_bytes - before == rows * 57 * (
+            2 if precision == "bf16" else 4)
+
+
+def test_predictor_packed_hist_matches_jax(hist_model, monkeypatch):
+    """The port's packed fnum-57 predictions equal the JAX package's packed
+    predictor's (fp32, scan path)."""
+    from deepmod_tpu.engine.detect import WindowPredictor as JaxPredictor
+    from deepmod_tpu.models.bilstm import BiLSTMConfig as JaxConfig
+
+    feats, centers = _hist_features()
+    cfg, params = hist_model
+    monkeypatch.setenv("DMT_COMPACT_PACK57", "1")
+    jpred = JaxPredictor(params, JaxConfig(num_input=57, num_hidden=32),
+                         buckets=(64, 256), use_pallas=False,
+                         data_parallel=False, compact_transfer=True)
+    want = jpred.predict_from_features(feats, centers)
+    assert "hist" in jpred._compact_fns
+    packed = _predictor(hist_model, monkeypatch, True, precision="fp32",
+                        compact_transfer=True)
+    np.testing.assert_array_equal(
+        packed.predict_from_features(feats, centers), want)
+    assert packed.compact_modes == {"hist"}

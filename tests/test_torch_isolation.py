@@ -23,6 +23,19 @@ def _sources():
     return files
 
 
+# the JAX package's scripts/*.py, each with a port tool of its name
+SCRIPT_TOOLS = (
+    "bench_e2e", "bench_host", "bench_scale", "bench_scale_multiproc",
+    "coverage_scaling", "probe_bf16_flips", "probe_compact_pack",
+    "probe_device_agg", "probe_lookahead", "probe_merged_gemm", "probe_mono",
+    "probe_pregemm", "probe_serve_latency", "probe_sigmoid",
+    "probe_target_only", "probe_tile", "probe_train_bf16",
+    "probe_transcendental", "validate_cluster_loop", "validate_full_loop",
+)
+# scripts left to the ROADMAP's port queue, by name (none)
+SCRIPTS_NOT_PORTED = ()
+
+
 def _forbidden(name: str) -> bool:
     return any(name == top or name.startswith(top + ".")
                for top in ("jax", "optax", "sklearn", "tensorflow",
@@ -36,7 +49,9 @@ def test_no_jax_or_reference_package_imports():
     for module in ("serve.py", "models/tf_bundle.py", "testing/tf_bundle.py",
                    "tools/probe_serve_latency.py", "parallel/mesh.py",
                    "parallel/aggregation.py", "parallel/cross_process.py",
-                   "parallel/shardings.py", "testing/multihost_worker.py"):
+                   "parallel/shardings.py", "parallel/tensor_parallel.py",
+                   "testing/multihost_worker.py", "tools/_probe.py",
+                   *(f"tools/{name}.py" for name in SCRIPT_TOOLS)):
         assert os.path.join("deepmod_tpu_torch", module) in rel, module
     bad = []
     for path in files:
@@ -180,4 +195,35 @@ def test_port_cpu_tests_pin_torch_to_one_thread():
                 "-m\", \"deepmod_tpu_torch" in src and \
                 "OMP_NUM_THREADS" not in src:
             bad.append(name + " (CLI subprocess)")
+    assert not bad, bad
+
+
+def test_every_script_has_a_port_tool():
+    """Each ``scripts/*.py`` of the JAX package has a
+    ``deepmod_tpu_torch/tools/`` counterpart of its name (but the ones
+    ``SCRIPTS_NOT_PORTED`` names, which stand in the ROADMAP's queue)."""
+    scripts = sorted(os.path.basename(p)[:-3] for p in glob.glob(
+        os.path.join(REPO, "scripts", "*.py")))
+    assert scripts == sorted(SCRIPT_TOOLS + SCRIPTS_NOT_PORTED)
+    missing = [name for name in SCRIPT_TOOLS if not os.path.isfile(
+        os.path.join(REPO, "deepmod_tpu_torch", "tools", f"{name}.py"))]
+    assert not missing, missing
+
+
+def test_no_port_queue_item_raises():
+    """No ``NotImplementedError`` naming a ROADMAP port-queue item (or
+    tensor parallelism, or the fnum-57 pack) is left in the port."""
+    bad = []
+    for path in _sources():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if not isinstance(node, (ast.Raise, ast.Call)):
+                continue
+            text = ast.unparse(node)
+            if "NotImplementedError" in text and any(
+                    word in text for word in ("ROADMAP", "port queue",
+                                              "tensor parallel", "fnum-57",
+                                              "not ported")):
+                bad.append(f"{os.path.relpath(path, REPO)}:{node.lineno}")
     assert not bad, bad

@@ -756,3 +756,23 @@ def test_train_bwd_wide_matches_plain(cuda, precision, fnum, hidden):
     b = torch.cat([t.float().ravel() for t in want])
     assert float((a - b).norm() / b.norm()) <= 1e-2
     assert float(a @ b / (a.norm() * b.norm())) >= 0.9999
+
+
+def test_k1_tanh_sigmoid_variant(cuda):
+    """K1 fp32 built with -DDMT_TANH_SIGMOID (tools/probe_sigmoid.py's
+    variant) launches from its own build inside ``_build.variant`` and
+    stays within the fp32 tolerance of the default build; outside the
+    block the default build runs again, with the same bits as before."""
+    from deepmod_tpu_torch.ops import _build
+
+    cfg = BiLSTMConfig(num_input=7, num_hidden=100, timesteps=21)
+    params = init_bilstm_params(3, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1000, 21, 7), dtype=np.float32)).to(cuda)
+    want = ops.bilstm_center_mono(params, x, cfg, "fp32")
+    with _build.variant(_build.TANH_SIGMOID) as lib:
+        assert _build.library() is lib
+        got = ops.bilstm_center_mono(params, x, cfg, "fp32")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL["fp32"])
+    assert torch.equal(ops.bilstm_center_mono(params, x, cfg, "fp32"), want)

@@ -3,8 +3,9 @@ CPU against the JAX package's, whose side runs the real 8-way mesh of
 tests/conftest.py's 8 virtual CPU devices; the port's side runs 8 CPU
 shards (``devices=["cpu"] * 8``).
 
-- meshes: sizes, the error text for too many devices, tensor parallelism
-  refused, no GPU -> the default mesh raises;
+- meshes: sizes, the error text for too many devices, a 2-D mesh's
+  shape (tensor parallelism: tests/test_torch_tensor_parallel.py), no
+  GPU -> the default mesh raises;
 - ``sharded_position_counts``: exact against JAX's;
 - the cross-process helpers ``_split_i64`` / ``_join_i64`` /
   ``_chunk_shape`` (as tests/test_parallel.py holds JAX's);
@@ -87,8 +88,8 @@ def test_mesh_sizes_and_errors():
     with pytest.raises(ValueError) as got:
         make_mesh(9, devices=CPU8)
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_2d_mesh(4, 2)
+    two_d = make_2d_mesh(4, 2, devices=CPU8)
+    assert two_d.shape == jmesh.make_2d_mesh(4, 2).devices.shape
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             make_mesh()
@@ -257,8 +258,10 @@ def test_data_parallel_train_step_matches_jax_mesh(train_params, unbalanced):
     jflat = _flat(jax.tree_util.tree_map(np.asarray, jp))
     assert _rel_l2(_flat(tparams), jflat) <= 1e-4
     assert _rel_l2(_flat(tparams), _flat(solo)) <= 1e-4
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_sharded_train_step(CFG, 1e-3, mesh, model_axis="model")
+    # a model axis the 1-D mesh does not name is no model axis (JAX)
+    assert isinstance(make_sharded_train_step(CFG, 1e-3, mesh,
+                                              model_axis="model"),
+                      type(tstep))
     with pytest.raises(ValueError, match="shard"):
         tstep(tparams, tstate, *(a[:250] for a in args))
 

@@ -208,3 +208,299 @@ def test_align_sam_matches_jax(tmp_path):
     text = open(str(tmp_path / "jax.sam")).read()
     assert text.count("\n") >= 14 and "\tchrA\t" in text
     assert open(str(tmp_path / "torch.sam")).read() == text
+
+
+# -- the JAX package's remaining scripts as port tools ---------------------
+# each tool at a tiny size on the CPU (the kernels' plain versions), its
+# JSON lines and its own checks; where the JAX script's deterministic part
+# runs here, held against the JAX package
+
+
+def _json_lines(text):
+    import json
+
+    return [json.loads(line) for line in text.splitlines()
+            if line.startswith("{")]
+
+
+@pytest.mark.parametrize("fnum", [7, 57])
+def test_probe_compact_pack_tool(fnum):
+    from deepmod_tpu_torch.tools import probe_compact_pack
+
+    lines = _json_lines(_run(probe_compact_pack.main, "--rows", "400",
+                             "--passes", "1", "--fnum", str(fnum),
+                             "--device", "cpu"))
+    assert [r["mode"] for r in lines[:-1]] == ["plain", "packed"]
+    summary = lines[-1]
+    assert summary["metric"] == "compact_pack_speedup"
+    assert summary["identical"] is True and summary["fnum"] == fnum
+    for key in ("value", "unit", "best_plain_s", "best_packed_s", "rows"):
+        assert key in summary
+    assert summary["modes"] == {
+        "packed": ["hist" if fnum == 57 else "onehot"], "plain": ["False"]}
+    per_row = summary["transfer_bytes_per_row"]
+    assert per_row["packed"] < per_row["plain"]
+    assert "DMT_COMPACT_PACK57" not in os.environ
+
+
+def test_probe_device_agg_tool_matches_jax():
+    from deepmod_tpu.parallel import mesh as jmesh
+    from deepmod_tpu.parallel.aggregation import (
+        sharded_position_counts as jax_counts,
+    )
+    from deepmod_tpu_torch.parallel.aggregation import sharded_position_counts
+    from deepmod_tpu_torch.parallel.mesh import make_mesh
+    from deepmod_tpu_torch.tools import probe_device_agg
+
+    lines = _json_lines(_run(probe_device_agg.main, "--cpu-mesh", "4",
+                             "--reps", "1", "--cases", "1000:5000,4000:3000"))
+    summary = lines[-1]
+    assert summary["metric"] == "device_aggregation_ab"
+    assert summary["devices"] == 4 and len(summary["rows"]) == 2
+    for row in summary["rows"]:
+        assert row["counts_equal"] is True
+        for key in ("n_obs", "chrom_len", "host_ms", "device_ms",
+                    "device_over_host"):
+            assert key in row
+    # the tool's observations through both packages' reductions
+    pos, cov, mod = probe_device_agg.observations(
+        np.random.default_rng(0), 1001, 5000, 4)
+    want = jax_counts(jmesh.make_mesh(4), pos, cov, mod, 5000)
+    got = sharded_position_counts(make_mesh(devices=["cpu"] * 4), pos, cov,
+                                  mod, 5000)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_bench_scale_multiproc_tool():
+    from deepmod_tpu_torch.tools import bench_scale_multiproc
+
+    lines = _json_lines(_run(bench_scale_multiproc.main, "--reads", "6",
+                             "--genome-bp", "20000", "--nprocs", "1,2",
+                             "--device", "cpu"))
+    summary = lines[-1]
+    assert summary["metric"] == "detect_multiproc_merge_overhead"
+    assert summary["beds_identical"] is True
+    rows = summary["rows"]
+    assert [r["nproc"] for r in rows] == [1, 2]
+    assert len({r["reads_total"] for r in rows}) == 1
+    assert rows[0]["merge_s_max"] == 0.0 and rows[1]["merge_s_max"] > 0.0
+    for key in ("cluster_wall_s", "engine_wall_s_max", "windows_total",
+                "reads_per_s", "windows_per_s", "merge_s_min",
+                "merge_frac_of_wall"):
+        assert key in rows[1]
+    assert len(summary["throughput_vs_1proc"]) == 2
+
+
+def test_validate_full_loop_tool(tmp_path):
+    """The loop through the CLI; its metrics are what the JAX package's
+    evaluator computes on the loop's BEDs (within 1e-12)."""
+    from deepmod_tpu_torch.tools import validate_full_loop
+
+    out = str(tmp_path / "loop")
+    lines = _json_lines(_run(
+        validate_full_loop.main, "--out", out, "--small", "--device", "cpu",
+        "--epochs", "1", "--hidden", "8", "--threads", "1",
+        "--train-reads", "12", "--test-reads", "16"))
+    report = lines[-1]
+    for key in ("fnum", "labels", "train_precision", "total_s"):
+        assert key in report
+    got = report["full_loop_metrics"]
+    beds = {name: [os.path.join(out, f"det_{name}", f"mod_pos.chrV{s}.C.bed")
+                   for s in "+-"] for name in ("test_mod", "test_ctl")}
+    want = jax_ecoli(beds["test_mod"], beds["test_ctl"],
+                     os.path.join(out, "train_mod", "ref.fa"), "CG",
+                     str(tmp_path / "jax_perf"), make_plots=False)
+    assert got["num_sites"] > 0 and set(got) == set(want)
+    for key, value in want.items():
+        if np.isnan(value):
+            assert np.isnan(got[key]), key
+        else:
+            assert abs(got[key] - value) <= 1e-12, key
+
+
+def test_coverage_scaling_tool(tmp_path):
+    """The study's full-coverage BEDs (every read of the held-out cohorts
+    re-aggregated) are the bytes detect writes for them."""
+    from deepmod_tpu_torch.engine.detect import DetectConfig, detect_run
+    from deepmod_tpu_torch.tools import coverage_scaling
+
+    out = str(tmp_path / "cov")
+    lines = _json_lines(_run(
+        coverage_scaling.main, "--out", out, "--small", "--device", "cpu",
+        "--epochs", "1", "--hidden", "8", "--threads", "1",
+        "--train-reads", "12", "--test-reads", "16"))
+    result = lines[-1]["coverage_scaling"]
+    assert sorted(result) == ["2x", "4x"]
+    for metrics in result.values():
+        for key in ("auc_cov1", "ap_cov1", "num_sites", "read_tp"):
+            assert key in metrics
+    assert result["2x"]["num_sites"] <= result["4x"]["num_sites"]
+    cohort = os.path.join(out, "test_mod")
+    detect_run(DetectConfig(
+        wrk_base=os.path.join(cohort, "pod5"),
+        ref=os.path.join(cohort, "ref.fa"),
+        model_path=os.path.join(out, "train2", "1", "mod.npz"),
+        out_folder=str(tmp_path / "det"), align_str="builtin", hidden=8,
+        basecalls=os.path.join(cohort, "calls.bam"), write_per_read=False,
+        device="cpu"))
+    sub = os.path.join(out, "sub_test_mod_4x")
+    names = sorted(n for n in os.listdir(sub) if n.endswith(".bed"))
+    assert names
+    for name in names:
+        with open(os.path.join(sub, name)) as a, \
+                open(str(tmp_path / "det" / name)) as b:
+            assert a.read() == b.read(), name
+
+
+def test_bench_scale_tool(tmp_path):
+    from deepmod_tpu_torch.tools import bench_scale
+
+    lines = _json_lines(_run(
+        bench_scale.main, "--dataset", str(tmp_path / "ds"), "--reads", "2",
+        "--genome-mbp", "0.02", "--threads", "1", "--hidden", "8",
+        "--device", "cpu"))
+    (row,) = lines
+    assert row["metric"] == "detect_scale_windows_per_s"
+    assert row["reads"] == 2 and row["windows"] > 0 and row["beds"] > 0
+    for key in ("value", "unit", "run", "wall_s", "threads", "target_only",
+                "stages", "errors"):
+        assert key in row
+    assert os.path.isdir(str(tmp_path / "ds" / "out_0"))
+
+
+def test_probe_bf16_flips_tool_matches_jax():
+    """The tool's flip count of the seeded windows, and its largest logit
+    difference, against the JAX package's fp32 scan and bf16 mono kernel
+    (interpret mode) on the same windows and numpy-seeded params."""
+    import jax.numpy as jnp
+
+    from deepmod_tpu.models import bilstm as jb
+    from deepmod_tpu_torch.tools import _probe, probe_bf16_flips
+
+    lines = _json_lines(_run(probe_bf16_flips.main, "--windows", "512",
+                             "--reads", "2", "--device", "cpu"))
+    assert [r["set"] for r in lines] == ["real", "random"]
+    for row in lines:
+        assert row["windows"] == 512
+        for key in ("flips", "max_abs_dlogit", "min_margin", "p1_margin"):
+            assert key in row
+    params, config = _probe.seeded_model(7, hidden=16)
+    x = np.random.default_rng(5).standard_normal((512, 21, 7)).astype(
+        np.float32)
+    got = probe_bf16_flips.flip_stats(params, config, x, "cpu")
+    jcfg = jb.BiLSTMConfig(num_input=7, num_hidden=16)
+    jp = {k: v for k, v in params.items()}
+    lf = np.asarray(jb.bilstm_logits(jp, jnp.asarray(x), jcfg))
+    lb = np.asarray(jb.bilstm_logits(jp, jnp.asarray(x), jcfg,
+                                     use_pallas=True, precision="bf16"))
+    assert got["flips"] == int((lf.argmax(1) != lb.argmax(1)).sum())
+    np.testing.assert_allclose(got["max_abs_dlogit"],
+                               float(np.abs(lf - lb).max()), atol=2e-3)
+    margin = np.abs(lf[:, 1] - lf[:, 0])
+    np.testing.assert_allclose(got["min_margin"], margin.min(), atol=2e-5)
+
+
+def test_probe_train_bf16_tool():
+    from deepmod_tpu_torch.tools import probe_train_bf16
+
+    lines = _json_lines(_run(probe_train_bf16.main, "--iters", "1",
+                             "--batches", "256", "--device", "cpu"))
+    assert [r.get("precision") for r in lines[:2]] == ["fp32", "bf16"]
+    for row in lines[:2]:
+        assert np.isfinite(row["loss_after"]) and row["steps_per_s"] > 0
+    summary = lines[-1]
+    assert summary["metric"] == "train_bf16_speedup"
+    # bf16 storage at one bf16 rounding a step: the same loss to 1e-2
+    assert summary["loss_delta"] < 1e-2
+
+
+def test_probe_tile_tool():
+    from deepmod_tpu_torch.tools import probe_tile
+
+    lines = _json_lines(_run(probe_tile.main, "--batch", "64", "--tiles",
+                             "8,40,44", "--train-batch", "32", "--device",
+                             "cpu"))
+    rows = {(r["precision"], r["tile_b"]): r for r in lines[:-1]}
+    assert sorted(rows) == [("bf16", 64), ("fp32", 8), ("fp32", 40),
+                            ("fp32", 44)]
+    assert "multiple of 8" in rows[("fp32", 44)]["error"]
+    for key in (("fp32", 8), ("fp32", 40), ("bf16", 64)):
+        assert rows[key]["ms"] > 0
+    assert rows[("fp32", 40)]["split"] == 2
+    assert lines[-1]["train_steps_per_s"] > 0
+
+
+def test_probe_lookahead_tool():
+    import deepmod_tpu_torch.engine.detect as D
+    from deepmod_tpu_torch.tools import probe_lookahead
+
+    lines = _json_lines(_run(probe_lookahead.main, "--rows", "400",
+                             "--passes", "1", "--depths", "1,3",
+                             "--device", "cpu"))
+    assert [r["depth"] for r in lines[:-1]] == [1, 3]
+    assert sorted(lines[-1]["value"]) == ["1", "3"]
+    assert D._LOOKAHEAD == lines[-1]["default_depth"] == 2
+
+
+def test_probe_target_only_tool(tmp_path):
+    from deepmod_tpu_torch.tools import probe_target_only
+
+    lines = _json_lines(_run(
+        probe_target_only.main, "--dataset", str(tmp_path / "ds"),
+        "--reads", "2", "--genome-mbp", "0.02", "--threads", "1",
+        "--hidden", "8", "--device", "cpu"))
+    modes = [next(iter(r)) for r in lines[:-1]]
+    assert modes == ["A_standard_compact", "B_targetonly_compact",
+                     "C_targetonly_window"]
+    # targetOnly classifies fewer windows in the window mode only
+    windows = [r[m]["windows"] for r, m in zip(lines, modes)]
+    assert windows[0] == windows[1] >= windows[2] > 0
+    assert lines[-1]["beds_identical"] is True
+    assert len(set(map(str, lines[-1]["md5"].values()))) == 1
+
+
+def test_probe_sigmoid_tool_needs_a_card_and_builds_a_variant(monkeypatch,
+                                                              tmp_path):
+    """The tanh-sigmoid K1 is a CUDA build: the tool refuses the CPU. Its
+    build is K1's source alone with -DDMT_TANH_SIGMOID in its own
+    directory, the default build never sets the define, and ``variant``
+    routes the wrappers' launches to it only inside its block."""
+    import torch
+
+    from deepmod_tpu_torch.ops import _build
+    from deepmod_tpu_torch.tools import probe_sigmoid
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            probe_sigmoid.main(["--batches", "64"])
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = type("Fn", (), {})()
+            setattr(self, name, fn)
+            return fn
+
+    def fake_build(sources=None, defines=(), build_dir=None):
+        calls.append((sources, defines, build_dir))
+        return str(tmp_path / "lib.so")
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    monkeypatch.setattr(_build, "_variants", {})
+    monkeypatch.setattr(_build, "_lib", "default")
+    with _build.variant(_build.TANH_SIGMOID) as lib:
+        assert _build.library() is lib
+    assert _build.library() == "default"
+    ((sources, defines, build_dir),) = calls
+    assert [os.path.basename(s) for s in sources] == ["bilstm_fused.cu"]
+    assert defines == ("DMT_TANH_SIGMOID",)
+    assert os.path.basename(build_dir) == "kernels_dmt_tanh_sigmoid"
+    assert not any("TANH" in f for f in _build.NVCC_FLAGS)
+    with open(os.path.join(_build.CSRC_DIR, "lstm_common.cuh")) as fh:
+        src = fh.read()
+    assert src.count("#ifdef DMT_TANH_SIGMOID") == 1
+    # the default branch keeps the exp sigmoids
+    default = src.split("#else", 1)[1].split("#endif", 1)[0]
+    assert "expf(-gi)" in default and "tanhf" not in default

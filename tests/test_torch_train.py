@@ -124,17 +124,23 @@ def test_loss_and_param_count_match_jax(jax_params, unbalanced):
 
 
 def test_train_step_mesh_raises():
-    """A mesh takes the data-parallel step (tests/test_torch_parallel.py);
-    what is not a ``parallel.mesh.Mesh`` is refused, and a model axis
-    (tensor parallelism, ROADMAP item 6b) raises naming it."""
+    """A mesh takes the data-parallel step (tests/test_torch_parallel.py)
+    or, with a model axis, the tensor-parallel one
+    (tests/test_torch_tensor_parallel.py); what is not a
+    ``parallel.mesh.Mesh`` is refused."""
     from deepmod_tpu_torch.parallel.mesh import make_2d_mesh
-    from deepmod_tpu_torch.parallel.shardings import make_sharded_train_step
+    from deepmod_tpu_torch.parallel.shardings import (
+        TensorParallelTrainStep,
+        make_sharded_train_step,
+    )
 
     with pytest.raises(TypeError, match="Mesh"):
         ttrain.make_train_step(tb.BiLSTMConfig(), False, mesh=object())
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        make_2d_mesh(2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    step = make_sharded_train_step(
+        tb.BiLSTMConfig(), 1e-3, make_2d_mesh(2, 4, devices=["cpu"] * 8),
+        model_axis="model")
+    assert isinstance(step, TensorParallelTrainStep)
+    with pytest.raises(TypeError, match="Mesh"):
         make_sharded_train_step(tb.BiLSTMConfig(), 1e-3, mesh=None,
                                 model_axis="model")
 
