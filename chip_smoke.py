@@ -16,15 +16,15 @@ without printing the result line):
    tensor-core kernels and for K3's); the SASS of every bf16 template of
    K1, K4 and K5a-c (the tensor-core kernels, Hp 8-128) must hold HGMMA
    (wgmma), and no bf16 CUDA-core body of any of them may be left; their
-   dynamic shared memory; the fp32 core's templates (K1's and K4's fp32
-   bodies, csrc/lstm_f32.cuh) must all be there and the old fp32 bodies
-   gone, with their registers and spills;
+   dynamic shared memory; the fp32 core's templates (K1's, K4's, K5a's
+   and K5b's fp32 bodies, csrc/lstm_f32.cuh) must all be there and the old
+   fp32 bodies gone, with their registers and spills;
 3. the BiLSTM center kernel (K1) against its plain PyTorch version at
    full width (H=100, 3 layers, T=21, F=7) on 65,536 random windows and
    on the overlapping window view of a 262,144-row feature chunk (the
    shape detect gives it), in fp32 (max abs 2e-5) and bf16 (atol 2e-3 +
    rtol 2e-2, the tolerance of two bf16 schedules of the same contract);
-   K1 also against K5a on the same inputs (fp32: the same bits expected);
+   K1 also against K5a on the same inputs (fp32: the same bits, asserted);
 4. kernel, plain and library (cuDNN nn.LSTM over the readout cone) times
    at 262,144 windows, beside the bound the card's peak rates set; K1,
    K5a and cuDNN in turns, the median of 3 rounds; the fp32 core's tile
@@ -88,20 +88,27 @@ without printing the result line):
    inputs (65,536 random windows and the window view of a 262,144-row
    chunk) in fp32 and bf16 (fp32 max abs 2e-5, bf16 atol 2e-3 + rtol
    2e-2; a bf16 gate store at the bf16 tolerance in both precisions), and
-   against K1 on the same input at the same tolerances; kernel and plain
-   times at 262,144 windows with a tile sweep (not for the 64-window
-   tensor-core kernels: K5a-c in bf16), beside K1's bound and cuDNN time;
-   bf16 K5b's persistent grid and workspace bytes, and the clusters of
-   K5a and K5c the card holds at once (cudaOccupancyMaxActiveClusters);
+   against K1 on the same input at the same tolerances (fp32 K5a and K5b
+   with fp32 gates, on the fp32 core: K1's bits, asserted); kernel and
+   plain times at 262,144 windows with a tile sweep (the fp32 core's
+   tiles for K5a and K5b fp32; none for the 64-window tensor-core
+   kernels: K5a-c in bf16), beside K1's bound and cuDNN time; fp32 K5b
+   once over the window view of a 4,194,304-row block (its persistent
+   grid's slots and workspace bytes, the same at 262,144 windows; the
+   first and last 65,536 windows K1's bits); bf16 K5b's persistent grid
+   and workspace bytes, and the clusters of K5a and K5c the card holds at
+   once (cudaOccupancyMaxActiveClusters);
    K5c's main path on the window view, and the probe tools (probe_mono,
    probe_merged_gemm: K5a's main path, probe_pregemm: K5b's) at 32,768
    windows with the launch counts read around each;
 15. hidden 128, 3 layers, 32,768 windows: bf16 (Hp 128: K1, K4, K5a and
    K5c split each layer over a 2-CTA cluster) K4 at T=20 and forced at
    T=21, K1, K5a, K5b (both gate stores) and K5c at T=21; fp32 (the fp32
-   core's 4-CTA clusters) K4 at T=20 and forced at T=21 and K1 at T=21;
-   each against its plain version (fp32 2e-5, bf16 atol 2e-3 + rtol
-   2e-2), with kernel, plain and cuDNN times at that width and the
+   core's 4-CTA clusters) K4 at T=20 and forced at T=21, K1, K5a and K5b
+   (both gate stores) at T=21; each against its plain version (fp32 2e-5,
+   bf16 atol 2e-3 + rtol 2e-2; bf16 gates at the bf16 tolerance), fp32
+   K5a and K5b (fp32 gates) also K1's bits on the random windows and a
+   window view, with kernel, plain and cuDNN times at that width and the
    clusters resident.
 16. (after the build) the native host library (``deepmod_tpu_torch/native``,
    g++ from the checkout's sources): its build seconds and the functions
@@ -535,7 +542,8 @@ def phase_kernel(device) -> dict:
             f"max_abs_err={err_v:.3e}")
         max_err = max(max_err, err_v)
         # K1 against K5a (the same function, one merged product a step) on
-        # the same inputs: in fp32 the same fmaf chains, so the same bits
+        # the same inputs: in fp32 the same fmaf chains on the fp32 core,
+        # so the same bits
         vs_k5a, same = 0.0, True
         for inp, mine in ((x, got), (view, got_v)):
             k5a = ops.bilstm_center_mono(packed, inp, cfg, precision,
@@ -545,6 +553,8 @@ def phase_kernel(device) -> dict:
             same = same and torch.equal(mine, k5a)
             assert _close(mine, k5a, precision), (
                 f"{precision} K1 vs K5a: max abs {vs_k5a}")
+            assert same or precision == "bf16", (
+                f"fp32 K1 vs K5a: not the same bits (max abs {vs_k5a})")
             del k5a
         log(f"[K1 {precision}] vs K5a {precision} on the same inputs (random "
             f"and window view): max abs {vs_k5a:.3e}, same bits {same}")
@@ -610,9 +620,10 @@ def f32_sweep_line(cfg, launch, device) -> str:
 
 def f32_build_line() -> str:
     """ptxas's registers and spills of the fp32 core's kernels (K1's
-    ``bilstm_center_f32_kernel``, K4's ``bilstm_layer_f32_kernel``, one
-    template a split; K2's ``train_fwd_kernel``, one a split and storage
-    type)."""
+    ``bilstm_center_f32_kernel``, K4's ``bilstm_layer_f32_kernel``, K5a's
+    ``bilstm_merged_f32_kernel``, one template a split; K5b's
+    ``bilstm_pregemm_f32_kernel``, one a split and gate dtype; K2's
+    ``train_fwd_kernel``, one a split and storage type)."""
     import re
 
     from deepmod_tpu_torch.ops import _build
@@ -620,14 +631,17 @@ def f32_build_line() -> str:
     lines = _build.build_info["log"].splitlines()
     found = []
     for i, line in enumerate(lines):
-        m = re.search(r"bilstm_(center|layer)_f32_kernelILi(\d+)E", line)
+        m = re.search(r"bilstm_(center|layer|merged|pregemm)_f32_kernelILi"
+                      r"(\d+)E(f|13__nv_bfloat16)?", line)
         m2 = re.search(r"train_fwd_kernelILi(\d+)E(f|13__nv_bfloat16)E",
                        line)
         if (m or m2) and "Compiling entry" in line:
             props = [t.split("ptxas info    :")[-1].strip()
                      for t in lines[i + 1:i + 4]
                      if "spill" in t or "registers" in t]
-            what = (f"{m.group(1)}<split {m.group(2)}>" if m else
+            gates = ("" if m is None or m.group(3) is None else
+                     ", fp32 gates" if m.group(3) == "f" else ", bf16 gates")
+            what = (f"{m.group(1)}<split {m.group(2)}{gates}>" if m else
                     f"k2 {'fp32' if m2.group(2) == 'f' else 'bf16'}"
                     f"<split {m2.group(1)}>")
             found.append(f"{what}: " + "; ".join(props))
@@ -936,9 +950,10 @@ def tensor_core_sass(lib_path: str) -> dict:
     """HGMMA (wgmma) instructions in the SASS of each bf16 kernel of K1, K4
     and K5a-c (``cuobjdump -sass`` of the built library), by mangled name;
     every template (Hp 8-128) of the tensor-core kernels must issue them
-    and no bf16 CUDA-core body of any of them may be left. K1's and K4's
-    fp32 bodies are the fp32 core's three templates each (split 1, 2, 4),
-    and their old CUDA-core bodies are gone."""
+    and no bf16 CUDA-core body of any of them may be left. K1's, K4's and
+    K5a's fp32 bodies are the fp32 core's three templates each (split 1,
+    2, 4), K5b's six (a split and gate dtype), and their old CUDA-core
+    bodies are gone."""
     import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -954,11 +969,16 @@ def tensor_core_sass(lib_path: str) -> dict:
             counts[m.group(1) + "_" + m.group(2)] = block.count("HGMMA")
     old = [k for k in counts if "kernelI13__nv" in k]
     assert not old, f"bf16 CUDA-core bodies left: {old}"
-    for kind in ("center", "layer"):
+    for kind in ("center", "layer", "merged"):
         for split in (1, 2, 4):
             name = f"bilstm_{kind}_f32_kernelILi{split}E"
             assert name in sass, f"the fp32 core's {name} is missing"
-    for old_body in ("bilstm_center_mono_kernel", "bilstm_layer_kernelI"):
+    for split in (1, 2, 4):
+        for gates in ("f", "13__nv_bfloat16"):
+            name = f"bilstm_pregemm_f32_kernelILi{split}E{gates}E"
+            assert name in sass, f"the fp32 core's {name} is missing"
+    for old_body in ("bilstm_center_mono_kernel", "bilstm_layer_kernelI",
+                     "bilstm_merged_kernelI", "bilstm_pregemm_kernelI"):
         assert old_body not in sass, f"the old fp32 body {old_body} is left"
     for kind in TC_KINDS:
         tc = {k: v for k, v in counts.items() if k.startswith(kind + "_tc")}
@@ -1054,8 +1074,45 @@ SCHEDULE_CASES = (
     ("pregemm bf16 gates", dict(pregemm=True, gate_store="bf16")),
     ("wavefront", dict(wavefront=True)),
 )
-SCHEDULE_TILES = (8, 16, 24)
+SCHEDULE_TILES = (8, 16, 24)  # K5c fp32's sweep
 PROBE_B = 32768  # --batch of the probe tools' runs
+BIG_ROWS = 4194304  # rows of the feature block fp32 K5b runs over once
+
+
+def same_bits_as_k1(label: str, precision: str) -> bool:
+    """fp32 K5a and K5b with fp32 gates: K1 fp32's chains on the fp32
+    core, so K1's bits."""
+    return precision == "fp32" and label in ("merged", "pregemm")
+
+
+def sweep_tiles(schedule: str, precision: str) -> tuple:
+    """The tiles phase 14 times a schedule at: none for a tensor-core
+    kernel (64 only), the fp32 core's F32_SWEEP for K5a and K5b in fp32,
+    SCHEDULE_TILES for K5c fp32."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    if ops.tensor_core(schedule, precision):
+        return ()
+    return F32_SWEEP if schedule in ops.F32_CORE_SCHEDULES else SCHEDULE_TILES
+
+
+def pregemm_f32_line(cfg, batch: int, device) -> str:
+    """fp32 K5b's persistent grid at ``batch`` windows: its shape, the
+    clusters the card holds at once, the slots and the workspace bytes
+    (both gate stores)."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    shape = ops.f32_schedule_shape(cfg.num_input, cfg.num_hidden, "pregemm",
+                                   ops.SCHEDULE_TILE_B["pregemm"]["fp32"])
+    got = []
+    for gates in ("fp32", "bf16"):
+        resident = ops.pregemm_f32_clusters(cfg, shape, gates, device)
+        slots = ops.pregemm_f32_slots(batch, shape.tile, resident)
+        got.append(f"{gates} gates: {resident} clusters resident, {slots} "
+                   f"slots, workspace "
+                   f"{ops.pregemm_f32_bytes(cfg, shape, slots, gates)} B")
+    return (f"fp32 K5b at H={cfg.num_hidden} B={batch}, {shape}: "
+            + "; ".join(got))
 
 
 def phase_schedules(device, k1: dict) -> dict:
@@ -1109,11 +1166,19 @@ def phase_schedules(device, k1: dict) -> dict:
                 vs_k1 = max(vs_k1, float((got - k1_out[which]).abs().max()))
                 assert _close(got, k1_out[which], tol), (
                     f"{label} {precision} {which} vs K1: max abs {vs_k1}")
+                # fp32 K5a and K5b with fp32 gates run K1's fmaf chains on
+                # the fp32 core: K1's bits
+                if same_bits_as_k1(label, precision):
+                    assert torch.equal(got, k1_out[which]), (
+                        f"{label} fp32 {which}: not K1 fp32's bits "
+                        f"(max abs {vs_k1})")
                 del got
             res[label] = dict(max_abs_err=err, vs_k1=vs_k1)
             log(f"[K5 {precision}] {label}: max_abs_err vs plain {err:.3e} "
                 f"({tol} tolerance) on {CHECK_B} random windows and the "
-                f"window view of {TIME_B} rows; max abs vs K1 {vs_k1:.3e}")
+                f"window view of {TIME_B} rows; max abs vs K1 {vs_k1:.3e}"
+                + ("; K1's bits (torch.equal) on both"
+                   if same_bits_as_k1(label, precision) else ""))
         del wants, k1_out
 
         # the main path of K5c: its public entry point on the detect shape
@@ -1140,9 +1205,9 @@ def phase_schedules(device, k1: dict) -> dict:
             ms = time_ms(lambda: ops.bilstm_center_mono(
                 packed, xt, cfg, precision, **flags))
             tiles = {}
-            # the tensor-core kernel takes one tile, 64: no sweep
-            for tile in (() if ops.tensor_core(schedule, precision)
-                         else SCHEDULE_TILES):
+            # the tensor-core kernel takes one tile, 64: no sweep; the fp32
+            # core's schedules sweep its tiles (2- and 4-CTA clusters)
+            for tile in sweep_tiles(schedule, precision):
                 threads, most, smem = ops.mono_block(cfg, schedule, tile, precision)
                 if threads <= most and smem <= ops.MAX_SMEM:
                     tiles[tile] = round(time_ms(lambda: ops.bilstm_center_mono(
@@ -1160,6 +1225,8 @@ def phase_schedules(device, k1: dict) -> dict:
                 f"{flops_per_window(cfg) * TIME_B / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
         del xt
         torch.cuda.empty_cache()
+        if precision == "fp32":
+            res["big_view"] = phase_big_view(cfg, params, packed, device)
 
     # the main paths of K5a and K5b: their probe tools, counts from 0 just
     # before each, read just after
@@ -1182,6 +1249,47 @@ def phase_schedules(device, k1: dict) -> dict:
                 for precision in ("fp32", "bf16"):
                     results[precision][label]["launches"] = counts[precision]
     return results
+
+
+def phase_big_view(cfg, params, packed, device) -> dict:
+    """fp32 K5b (fp32 gates) once over the window view of a BIG_ROWS-row
+    feature block (117 MB of fp32 rows): its workspace is the card's, not
+    the batch's; finite output whose first and last CHECK_B windows hold
+    K1 fp32's bits on the same windows."""
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    rows = torch.from_numpy(np.random.default_rng(SEED + 1).standard_normal(
+        (BIG_ROWS, cfg.num_input), dtype=np.float32)).to(device)
+    n = BIG_ROWS - cfg.timesteps + 1
+    view = rows.as_strided((n, cfg.timesteps, cfg.num_input),
+                           (cfg.num_input, cfg.num_input, 1))
+    for batch in (TIME_B, n):
+        log(f"[K5 fp32] {pregemm_f32_line(cfg, batch, device)}")
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = ops.bilstm_center_mono(packed, view, cfg, "fp32", pregemm=True)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(device) - base
+    assert got.shape == (n, 2 * cfg.num_hidden)
+    assert torch.isfinite(got).all(), "fp32 K5b over the big view"
+    for part in (slice(0, CHECK_B), slice(n - CHECK_B, n)):
+        k1 = ops.bilstm_center_features(packed, view[part], cfg, "fp32")
+        torch.cuda.synchronize()
+        assert torch.equal(got[part], k1), (
+            f"fp32 K5b over {BIG_ROWS} rows vs K1 on windows {part}")
+    log(f"[K5 fp32] pregemm over the window view of {BIG_ROWS} rows "
+        f"({BIG_ROWS * cfg.num_input * 4} B of rows, {n} windows): "
+        f"{ms:.3f} ms; device memory beyond the inputs {peak} B (the (B, 2H) "
+        f"output {got.numel() * 4} B); the first and last {CHECK_B} windows "
+        f"K1's bits")
+    del rows, view, got
+    torch.cuda.empty_cache()
+    return dict(ms=ms, windows=n, peak_bytes=peak)
 
 
 def tc_shape_line(cfg, batch: int, device) -> str:
@@ -1215,8 +1323,10 @@ def phase_hidden_128(device) -> dict:
     version: bf16 (Hp 128: K1, K4, K5a and K5c split each layer-lane over
     a 2-CTA cluster; K5b keeps one weight resident) K4 at T=20 and forced
     at T=21, K1, K5a, K5b (both gate stores) and K5c at T=21; fp32 (the
-    fp32 core's 4-CTA clusters) K4 at T=20 and forced at T=21, and K1 at
-    T=21; kernel, plain and cuDNN times at that width beside the bound."""
+    fp32 core's 4-CTA clusters) K4 at T=20 and forced at T=21, and K1, K5a
+    and K5b (both gate stores) at T=21, K5a and K5b (fp32 gates) also
+    K1's bits on the random windows and a window view; kernel, plain and
+    cuDNN times at that width beside the bound."""
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
     from deepmod_tpu_torch.ops import bilstm_fused as ops
 
@@ -1247,12 +1357,16 @@ def phase_hidden_128(device) -> dict:
                     packed, x, cfg, precision),
                     lambda: ops.bilstm_center_plain(params, x, cfg, precision),
                     False))
-            if timesteps % 2 == 1 and precision == "bf16":
+            if timesteps % 2 == 1:
+                # bf16: K5a-c; fp32: K5a and K5b (the fp32 core's 4-CTA
+                # clusters)
                 for label, flags in SCHEDULE_CASES:
+                    if precision == "fp32" and "wavefront" in flags:
+                        continue
                     cases.append((label, lambda f=flags: ops.bilstm_center_mono(
-                        packed, x, cfg, "bf16", **f),
+                        packed, x, cfg, precision, **f),
                         lambda f=flags: ops.bilstm_center_plain(
-                            params, x, cfg, "bf16",
+                            params, x, cfg, precision,
                             gate_store=f.get("gate_store", "fp32")), False))
             for label, kernel, plain, layered in cases:
                 got = kernel()
@@ -1261,7 +1375,8 @@ def phase_hidden_128(device) -> dict:
                 assert torch.isfinite(got).all(), (
                     f"{label} {precision} H=128 T={timesteps}")
                 err = float((got - want).abs().max())
-                assert _close(got, want, precision), (
+                tol = "bf16" if "bf16 gates" in label else precision
+                assert _close(got, want, tol), (
                     f"{label} {precision} H=128 T={timesteps} vs plain: "
                     f"max abs {err}")
                 ms = time_ms(kernel)
@@ -1282,7 +1397,26 @@ def phase_hidden_128(device) -> dict:
                 assert shape.split == 4, shape
                 log(f"[H128 fp32] the fp32 core at {shape}: "
                     f"{ops.f32_clusters(cfg, shape, device)} clusters of "
-                    f"{shape.split} CTAs resident")
+                    f"{shape.split} CTAs resident; "
+                    f"{pregemm_f32_line(cfg, WIDE_B, device)}")
+                # K5a and K5b (fp32 gates): K1 fp32's bits, on the random
+                # windows and on the window view of a row block
+                rows = x[:, 0].contiguous()
+                view = rows.as_strided(
+                    (WIDE_B - timesteps + 1, timesteps, cfg.num_input),
+                    (cfg.num_input, cfg.num_input, 1))
+                for inp in (x, view):
+                    k1 = ops.bilstm_center_features(packed, inp, cfg, "fp32")
+                    for label, flags in SCHEDULE_CASES[:2]:
+                        got = ops.bilstm_center_mono(packed, inp, cfg, "fp32",
+                                                     **flags)
+                        torch.cuda.synchronize()
+                        assert torch.equal(got, k1), (
+                            f"H=128 fp32 {label}: not K1 fp32's bits")
+                log("[H128 fp32] K5a and K5b (fp32 gates): K1's bits "
+                    "(torch.equal) on the random windows and on the window "
+                    "view")
+                del rows, view, k1, got
             del x, lib
             torch.cuda.empty_cache()
     return results
@@ -3424,7 +3558,8 @@ def smoke() -> str:
         log(f"[build] the bf16 K1 / K4 / K5a-c tensor-core kernels at "
             f"H={hidden}: {tc_build_line(BiLSTMConfig(num_hidden=hidden))}")
     log(f"[build] K3's kernels: {k3_build_line()}")
-    log(f"[build] the fp32 core (K1, K4 fp32, K2): {f32_build_line()}")
+    log(f"[build] the fp32 core (K1, K4, K5a, K5b fp32, K2): "
+        f"{f32_build_line()}")
     phase_native()
 
     kern = phase_kernel(device)

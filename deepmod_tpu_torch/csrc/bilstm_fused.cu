@@ -90,7 +90,7 @@ namespace {
 // ---------------------------------------------- fp32: the fp32 core
 
 // one lane of one tile, every layer, a cluster of kSplit CTAs (each its
-// units)
+// units): lstm_f32.cuh::run_stack
 template <int kSplit>
 __global__ void __launch_bounds__(dmt::f32::kMaxThreads, 1)
 bilstm_center_f32_kernel(const float* __restrict__ x, long long stride_b,
@@ -100,91 +100,9 @@ bilstm_center_f32_kernel(const float* __restrict__ x, long long stride_b,
                          const float* __restrict__ bias, float forget_bias,
                          float* __restrict__ ws, float* __restrict__ out,
                          int tile) {
-  namespace f32 = dmt::f32;
-  extern __shared__ __align__(16) unsigned char f32_smem[];
-  const int steps = timesteps / 2 + 1;
-  const int lane = blockIdx.y;  // 0 = fw, 1 = bw
-  const int tile_i = blockIdx.x / kSplit;
-  const int widest = in_dim > hidden ? in_dim : hidden;
-  const f32::Smem sm = f32::carve(f32_smem, widest, hidden,
-                                  f32::units_of(hidden, kSplit), tile);
-  const int hp4 = f32::packed_units(hidden);
-  // this tile's rows of the workspace: (tiles, 2, steps, H * tile)
-  const long long row = static_cast<long long>(hidden) * tile;
-  float* rows = ws + (static_cast<long long>(tile_i) * 2 + lane) * steps * row;
-
-  f32::Layer L;
-  L.w = w;
-  L.bias = bias;
-  L.hidden = hidden;
-  L.steps = steps;
-  L.batch = batch;
-  L.lane = lane;
-  L.tile = tile;
-  L.b0 = static_cast<long long>(tile_i) * tile;
-  L.fb = forget_bias;
-  for (int layer = 0; layer < num_layers; ++layer) {
-    L.in_dim = layer == 0 ? in_dim : hidden;
-    const long long lane_w = static_cast<long long>(L.in_dim + hidden) * hp4 * 4;
-    const bool last = layer == num_layers - 1;
-    f32::LayerIO io;
-    io.x = layer == 0 ? x : nullptr;
-    io.sb = stride_b;
-    io.st = stride_t;
-    io.sf = stride_f;
-    io.reversed = lane == 1;
-    io.in_steps = timesteps;
-    io.seq_in = rows;
-    io.seq_in_t = row;
-    io.seq_out = last ? nullptr : rows;
-    io.seq_out_t = row;
-    io.out = last ? out : nullptr;
-    io.out_step = steps - 1;
-    f32::Layer here = L;
-    here.w += lane * lane_w;
-    here.bias += lane * hp4 * 4;
-    f32::run_layer<kSplit>(sm, here, io);
-    L.w += 2 * lane_w;  // [layer][lane]
-    L.bias += 2 * hp4 * 4;
-  }
-}
-
-template <int kSplit>
-int launch_f32(const void* x, long long stride_b, long long stride_t,
-               long long stride_f, int batch, int timesteps, int in_dim,
-               int hidden, int num_layers, const void* w, const void* bias,
-               float forget_bias, void* ws, void* out, int tile,
-               void* stream) {
-  namespace f32 = dmt::f32;
-  const int threads = f32::threads_of(hidden, kSplit, tile);
-  if (tile % dmt::kR != 0 || threads > f32::kMaxThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int widest = in_dim > hidden ? in_dim : hidden;
-  const size_t smem = f32::smem_bytes(widest, hidden, kSplit, tile);
-  auto kernel = bilstm_center_f32_kernel<kSplit>;
-  const dim3 grid((batch + tile - 1) / tile * kSplit, 2);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* wf = static_cast<const float*>(w);
-  const auto* bf = static_cast<const float*>(bias);
-  auto* wsf = static_cast<float*>(ws);
-  auto* o = static_cast<float*>(out);
-  auto* st = static_cast<cudaStream_t>(stream);
-  if constexpr (kSplit > 1) {
-    return static_cast<int>(dmt::tc::launch_cluster(
-        kernel, grid, threads, smem, st, kSplit, xf, stride_b, stride_t,
-        stride_f, batch, timesteps, in_dim, hidden, num_layers, wf, bf,
-        forget_bias, wsf, o, tile));
-  } else {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, threads, smem, st>>>(
-        xf, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
-        num_layers, wf, bf, forget_bias, wsf, o, tile);
-    return static_cast<int>(cudaGetLastError());
-  }
+  dmt::f32::run_stack<kSplit, false>(x, stride_b, stride_t, stride_f, batch,
+                                     timesteps, in_dim, hidden, num_layers,
+                                     w, bias, forget_bias, ws, out, tile);
 }
 
 // ---------------------------------------------- bf16: the tensor cores
@@ -479,10 +397,11 @@ int dmt_bilstm_center_f32(const void* x, long long stride_b,
                           int num_layers, const void* w, const void* bias,
                           float forget_bias, void* ws, void* out, int tile,
                           int split, void* stream) {
-#define DMT_LAUNCH(s)                                                    \
-  return launch_f32<s>(x, stride_b, stride_t, stride_f, batch,          \
-                          timesteps, in_dim, hidden, num_layers, w, bias,  \
-                          forget_bias, ws, out, tile, stream)
+#define DMT_LAUNCH(s)                                                     \
+  return dmt::f32::launch_stack<s>(                                       \
+      bilstm_center_f32_kernel<s>, x, stride_b, stride_t, stride_f,        \
+      batch, timesteps, in_dim, hidden, num_layers, w, bias,              \
+      forget_bias, ws, out, tile, stream)
   DMT_F32_DISPATCH(split, DMT_LAUNCH)
 #undef DMT_LAUNCH
 }

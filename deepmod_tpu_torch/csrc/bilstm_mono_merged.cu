@@ -22,153 +22,66 @@
 //   tile-lane, each CTA 128 threads over its half of the units
 //   (lstm_tc.cuh, the split), the pair sharing the workspace rows.
 //
-// fp32: each step assembles the operand [x_t; h_{t-1}] in shared memory
-// and each thread runs ONE dot product over its lin+H rows against its
-// unit's column of the layer's whole TF (lin+H, 4H) kernel, which is
-// already [Wx; Wh] stacked, so the wrapper packs nothing of its own.
-//
-// fp32 design (K1's, csrc/bilstm_fused.cu, plus the operand buffer):
-//   grid (ceil(B / tile_b), 2), blockIdx.y the lane; thread (u, g) owns
-//     unit u for the 8 windows g*8 .. g*8+7, all four gates, c in
-//     registers.
-//   shared memory: seq[step][unit][window] (the previous layer's outputs,
-//     row t overwritten with this layer's h_t), xs[step][feature][window]
-//     (the staged layer-0 inputs) and xh[row][window], rows 0..lin-1 the
-//     step's input and rows lin..lin+H-1 h_{t-1} (zeros at t=0).
-//   a step: assemble xh, barrier, one accumulate over lin+H rows, the cell,
-//     write h_t to seq row t (every read of row t went through xh before the
-//     barrier), barrier. Two barriers a step, as K1.
+// fp32 (the fp32 core, csrc/lstm_f32.cuh, run_layer in its merged mode):
+//   K1 fp32's launch (bilstm_fused.cu): grid (ceil(B / tile) * split, 2),
+//     blockIdx.y the lane, a cluster of `split` CTAs (ops/bilstm_fused.py::
+//     f32_shape: 2 at H=100, 4 at H=105-128) running every layer of that
+//     lane for `tile` windows; each layer's [Wx; Wh] (f32_pack_layer's
+//     rows, already stacked) resident in shared memory, split by units;
+//     the inter-layer rows in K1's blocked fp32 workspace.
+//   the merged operand: each slot of a ring of two stacks x_t (rows
+//     0..in-1) on h_{t-1} (rows in..in+H-1), [in+H][tile]; a step is ONE
+//     product over the in+H rows of its slot (the x rows alone at t=0,
+//     where h is 0), the TPU kernel's one [x_t; h] @ [Wx; Wh]; x_{t+1}
+//     arrives by cp.async (register loads through the caller's strides at
+//     layer 0) in the other slot's x rows, and each CTA writes h_t into its
+//     own and its peers' h rows of that slot through distributed shared
+//     memory; one cluster barrier a step. The ring takes the bytes of K1's
+//     h and x rings, so K5a's launch, shared memory and split are K1's.
 //   x is read through the caller's strides (materialized windows or the
 //     overlapping window view of a feature block, read in place).
+//   What it replaces: a CUDA-core body that copied [x_t; h_{t-1}] into an
+//     operand buffer (two barriers a step) and read its unit's column of
+//     the layer's whole TF (in+H, 4H) kernel, 320 KB at H=100, from L2 on
+//     every step in every block with scalar loads.
 //
 // Numerics: K1's contract (lstm_common.cuh's cell; fp32 exp sigmoids; bf16
 // storage with pre-halved i/f/o columns and tanh sigmoids). In fp32 the FMA
-// chain is K1's: the x rows, then the h rows, into the same accumulators
-// (at t=0 the h rows are zeros and add exact zeros), so the result has K1's
-// bits. In bf16 the tensor cores sum in another order: K1's result within
-// the bf16 tolerance, not its bits.
+// chain is K1's: the x rows, then the h rows, into the same accumulators,
+// so the result has K1's bits. In bf16 the tensor cores sum in another
+// order: K1's result within the bf16 tolerance, not its bits.
 //
-// What bounds it on an H100: the same 8.92 MFLOP a window as K1 (operations,
-// not bytes), with 33 dependent steps a lane. fp32: on the CUDA cores; the
-// copy into xh adds (lin+H)*tile_b element moves a step and the buffer
-// adds (max(F,H)+H)*tile_b elements to K1's shared memory: 19.2 KB at tile
-// 24 on top of 113 KB, so only one such block fits an SM; the default tile
-// comes from chip_smoke.py's sweep. bf16: lstm_tc.cuh's note (the cell's
-// tanhf before the tensor cores).
+// What bounds it on an H100: the same 8.92 MFLOP a window as K1 at H=100,
+// F=7, T=21 (operations, not bytes), with 33 dependent steps a lane. fp32:
+// the FMAs on the CUDA cores (67 TFLOP/s), the step's chain (product,
+// cell, exchange, barrier) repeated; the weights stay resident, so no step
+// reads them from device memory, and the one product a step runs the same
+// FMAs as K1's two. bf16: lstm_tc.cuh's note (the cell's tanhf before the
+// tensor cores).
 
-#include "lstm_tc.cuh"
+#include "lstm_f32.cuh"
 
 namespace {
 
-using dmt::accumulate;
-using dmt::from_f;
-using dmt::kMaxThreads;
-using dmt::kR;
-using dmt::store8;
+// ---------------------------------------------- fp32: the fp32 core
 
-template <typename T, bool kPrescaled>
-__global__ void __launch_bounds__(kMaxThreads)
-bilstm_merged_kernel(const T* __restrict__ x, long long stride_b,
-                     long long stride_t, long long stride_f, int batch,
-                     int timesteps, int in_dim, int hidden, int num_layers,
-                     const T* __restrict__ w, const float* __restrict__ bias,
-                     float fb_term, float* __restrict__ out, int tile_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int steps = timesteps / 2 + 1;
-  const int lane = blockIdx.y;  // 0 = fw, 1 = bw
-  const long long b0 = static_cast<long long>(blockIdx.x) * tile_b;
-  T* seq = reinterpret_cast<T*>(smem_raw);  // [steps][hidden][tile_b]
-  T* xs = seq + static_cast<size_t>(steps) * hidden * tile_b;
-  // xs: [steps][in_dim][tile_b]; xh: [lin + hidden][tile_b]
-  T* xh = xs + static_cast<size_t>(steps) * in_dim * tile_b;
-
-  dmt::stage_inputs(x, stride_b, stride_t, stride_f, b0, batch, timesteps,
-                    steps, in_dim, tile_b, lane, xs);
-
-  const int u = threadIdx.x % hidden;
-  const int w0 = (threadIdx.x / hidden) * kR;
-  const size_t lane_w =
-      static_cast<size_t>(in_dim + hidden) * 4 * hidden +
-      static_cast<size_t>(num_layers - 1) * 2 * hidden * 4 * hidden;
-  const T* wl = w + lane * lane_w;
-  const float* bl = bias + static_cast<size_t>(lane) * num_layers * 4 * hidden;
-  const int n_h = hidden * tile_b;
-  __syncthreads();
-
-  for (int layer = 0; layer < num_layers; ++layer) {
-    const int lin = layer == 0 ? in_dim : hidden;
-    const T* src = layer == 0 ? xs : seq;
-    const bool last = layer == num_layers - 1;
-    const int n_x = lin * tile_b;
-    const float bi = bl[u];
-    const float bj = bl[hidden + u];
-    const float bf = bl[2 * hidden + u];
-    const float bo = bl[3 * hidden + u];
-    float c[kR];
-#pragma unroll
-    for (int r = 0; r < kR; ++r) c[r] = 0.0f;
-
-    for (int t = 0; t < steps; ++t) {
-      // [x_t; h_{t-1}]: the input's row t, then this layer's own row t-1
-      // (the staging loop, or the previous step's stores, ended in a barrier)
-      const T* x_row = src + static_cast<size_t>(t) * n_x;
-      for (int i = threadIdx.x; i < n_x + n_h; i += blockDim.x) {
-        T v = from_f<T>(0.0f);
-        if (i < n_x) {
-          v = x_row[i];
-        } else if (t > 0) {
-          v = seq[static_cast<size_t>(t - 1) * n_h + (i - n_x)];
-        }
-        xh[i] = v;
-      }
-      __syncthreads();
-      float acc[4][kR];
-      dmt::zero(acc);
-      accumulate(xh + w0, tile_b, wl + u, lin + hidden, hidden, acc);
-      float h[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        h[r] = dmt::cell<kPrescaled>(acc[0][r] + bi, acc[1][r] + bj,
-                                     acc[2][r] + bf, acc[3][r] + bo, fb_term,
-                                     c[r]);
-      }
-      if (last && t == steps - 1) {
-        // only the center row leaves the kernel
-        dmt::store_center<T>(out, h, b0 + w0, batch, hidden, lane, u);
-      } else {
-        store8(seq + (static_cast<size_t>(t) * hidden + u) * tile_b + w0, h);
-      }
-      // row t written and every thread done with xh before the next copy
-      __syncthreads();
-    }
-    wl += static_cast<size_t>(lin + hidden) * 4 * hidden;
-    bl += 4 * hidden;
-  }
+// one lane of one tile, every layer, a cluster of kSplit CTAs (each its
+// units): lstm_f32.cuh::run_stack with the merged operand ring
+template <int kSplit>
+__global__ void __launch_bounds__(dmt::f32::kMaxThreads, 1)
+bilstm_merged_f32_kernel(const float* __restrict__ x, long long stride_b,
+                         long long stride_t, long long stride_f, int batch,
+                         int timesteps, int in_dim, int hidden,
+                         int num_layers, const float* __restrict__ w,
+                         const float* __restrict__ bias, float forget_bias,
+                         float* __restrict__ ws, float* __restrict__ out,
+                         int tile) {
+  dmt::f32::run_stack<kSplit, true>(x, stride_b, stride_t, stride_f, batch,
+                                    timesteps, in_dim, hidden, num_layers,
+                                    w, bias, forget_bias, ws, out, tile);
 }
 
-template <typename T, bool kPrescaled>
-int launch(const void* x, long long stride_b, long long stride_t,
-           long long stride_f, int batch, int timesteps, int in_dim,
-           int hidden, int num_layers, const void* w, const float* bias,
-           float fb_term, float* out, int tile_b, void* stream) {
-  const int steps = timesteps / 2 + 1;
-  const int max_in = in_dim > hidden ? in_dim : hidden;
-  const size_t smem =
-      (static_cast<size_t>(steps) * (hidden + in_dim) + max_in + hidden) *
-      tile_b * sizeof(T);
-  auto kernel = bilstm_merged_kernel<T, kPrescaled>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + tile_b - 1) / tile_b, 2);
-  const dim3 block(hidden * (tile_b / kR));
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), stride_b, stride_t, stride_f, batch,
-      timesteps, in_dim, hidden, num_layers, static_cast<const T*>(w), bias,
-      fb_term, out, tile_b);
-  return static_cast<int>(cudaGetLastError());
-}
+// ---------------------------------------------- bf16: the tensor cores
 
 // the bf16 tensor-core kernel: one lane of one 64-window tile, every layer
 // (Hp > 104: this CTA's half of the units, a 2-CTA cluster a tile-lane)
@@ -284,17 +197,28 @@ int clusters_tc(int in_dim, int hidden, int* clusters) {
 
 extern "C" {
 
-// fp32 mode; returns cudaGetLastError() after the launch (0 = success)
+// fp32 mode, the fp32 core with the merged operand ring: K1 fp32's
+// arguments (bilstm_fused.cu::dmt_bilstm_center_f32): x is fp32; w and
+// bias are the f32_pack_layer packing (per [layer][lane] the (in+H, Hp4,
+// 4) fp32 weights and the (Hp4, 4) bias); ws is an fp32 workspace of
+// ceil(B/tile) * 2 * (T//2+1) * H * tile elements; `split` CTAs a cluster
+// (1, 2 or 4), tile a multiple of 8, ceil(hidden/split) * tile/8 <= 256
+// threads (else cudaErrorInvalidValue); cudaErrorLaunchOutOfResources
+// where no cluster fits. Returns cudaGetLastError() after the launch (0 =
+// success)
 int dmt_bilstm_merged_f32(const void* x, long long stride_b,
                           long long stride_t, long long stride_f, int batch,
                           int timesteps, int in_dim, int hidden,
                           int num_layers, const void* w, const void* bias,
-                          float forget_bias, void* out, int tile_b,
-                          void* stream) {
-  return launch<float, false>(x, stride_b, stride_t, stride_f, batch,
-                              timesteps, in_dim, hidden, num_layers, w,
-                              static_cast<const float*>(bias), forget_bias,
-                              static_cast<float*>(out), tile_b, stream);
+                          float forget_bias, void* ws, void* out, int tile,
+                          int split, void* stream) {
+#define DMT_LAUNCH(s)                                                     \
+  return dmt::f32::launch_stack<s>(                                       \
+      bilstm_merged_f32_kernel<s>, x, stride_b, stride_t, stride_f,        \
+      batch, timesteps, in_dim, hidden, num_layers, w, bias,              \
+      forget_bias, ws, out, tile, stream)
+  DMT_F32_DISPATCH(split, DMT_LAUNCH)
+#undef DMT_LAUNCH
 }
 
 // bf16 mode, the tensor-core kernel, 64 windows a block: x is bf16; w and

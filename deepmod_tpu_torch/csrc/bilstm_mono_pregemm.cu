@@ -41,26 +41,46 @@
 //     B: 93,184 B at Hp = 104, 131,072 B at Hp = 128) and the bias:
 //     199,680 B at Hp = 128, so K5b needs no cluster at any hidden <= 128.
 //
-// fp32 design (K1's thread layout, csrc/bilstm_fused.cu):
-//   grid (ceil(B / tile_b), 2), blockIdx.y the lane; thread (u, g) owns
-//     unit u for the 8 windows g*8 .. g*8+7, all four gates, c in
-//     registers. Shared memory as K1: seq[step][unit][window] and the
-//     staged layer-0 inputs xs[step][feature][window].
-//   phase 1: for every step t the thread projects the layer's input row t
-//     onto its unit's four x columns and stores the sums to the gate
-//     workspace gx[t][gate*H + u][window]. One barrier ends the phase (the
-//     recurrence overwrites the seq rows the projection read).
-//   phase 2: each step loads its gx row, adds the h rows and the bias, runs
-//     the cell and writes h_t to seq row t. A step reads only row t-1, so
-//     ONE barrier a step suffices (K1 needs two).
-//   the workspace does not fit in shared memory (one lane at tile 24 needs
-//     11*400*24*4 = 422,400 B in fp32), so it lives in device memory,
-//     allocated by the wrapper and reused by every layer: a region
-//     [block][lane][steps][4H][tile_b] in which each thread reads back
-//     exactly the (gate, unit, 8 windows) slices it wrote itself, so the two
-//     phases need no barrier or fence between them.
+// fp32 (the fp32 core, csrc/lstm_f32.cuh's pieces; both gate stores):
+//   persistent grid: one cluster of `split` CTAs a resident slot
+//     (ops/bilstm_fused.py::f32_shape's split: 2 at H=100, 4 at
+//     H=105-128; the slots from cudaOccupancyMaxActiveClusters, at most
+//     the work items), each looping over the (tile, lane) items, `tile`
+//     windows of one lane an item, every layer. Thread (u, g) of CTA r
+//     owns unit r*U + u for the 8 windows g*8 .. g*8+7, as in K1.
+//   workspaces a function of the card, not of the batch: one gate region
+//     a CTA, steps x U x 4 x tile values of its own units only, fp32 or
+//     RNE-rounded to bf16, each step's in fragment order (a thread's 4 x 8
+//     sums as 16-byte vectors, vector q of every thread together, so a
+//     warp's access is 512 contiguous bytes) (352 KB a CTA at H=100,
+//     T=21, tile 40 in fp32:
+//     46.5 MB over 132 CTAs, where the old kernel's, one a block, took
+//     9.2 GB at 262,144 windows and would take 148 GB at 4,194,304), and
+//     K1's blocked rows between layers, one [H][tile] block a step, a
+//     slot's (176 KB).
+//   phase 1 of a layer: only its Wx rows of the CTA's units are resident
+//     (the first `in` rows of f32_pack_layer's (in+H, Hp4, 4) layout);
+//     every step's input row of the tile (cp.async of the blocked row, or
+//     register loads through the caller's strides at layer 0, into an x
+//     ring of two slots) is projected with the core's product, no bias,
+//     and stored to the gate region: a product with no chain between
+//     steps, one CTA barrier a step for the ring. Each thread reads back
+//     only what it wrote, so no fence lies between the phases.
+//   phase 2: Wh takes the same shared memory. A step starts the
+//     accumulators from its stored row (loaded during the previous step),
+//     issues the next step's loads, adds the h rows in ascending k (none
+//     at t = 0), then the bias, runs the cell (the core's Infer), writes
+//     h_t into every CTA's h ring through distributed shared memory and
+//     the blocked row (or the readout) to device memory: one cluster
+//     barrier a step, K1's.
+//   a cluster barrier opens each phase: the previous layer's row stores
+//     (the last step's made after its arrive) are seen by every CTA's
+//     cp.async, and phase 2 rewrites the rows that phase 1 read, in place.
 //   x is read through the caller's strides (materialized windows or the
 //     overlapping window view of a feature block, read in place).
+//   What it replaces: a CUDA-core body that read its unit's column of the
+//     layer's TF (in+H, 4H) kernel from L2 in both phases, on every step in
+//     every block, and a gate workspace a block that grew with the batch.
 //
 // Numerics: K1's contract (lstm_common.cuh's cell). With fp32 gates the FMA
 // chain is K1's (the x-row sum stored in fp32, reloaded, then the h rows),
@@ -68,146 +88,321 @@
 // nearest even (__float2bfloat16_rn), in either precision, as the TPU
 // kernel's bf16 gate buffer is.
 //
-// What bounds it on an H100: the same 8.92 MFLOP a window as K1, by
-// operations. The design adds device-memory traffic that is not part of
-// the function: each layer writes and reads back steps*4H gate values a
-// window and lane, 2*11*400*4 B = 35.2 KB a window per layer in fp32 (17.6
-// KB with bf16 gates), 9.2 GB of workspace at 262,144 windows. Left for
-// later: the projection as a tensor-core product and a workspace that stays
-// in L2 or shared memory at a smaller tile (fp32). In bf16 the product
+// What bounds it on an H100: the same 8.92 MFLOP a window as K1 at H=100,
+// F=7, T=21, by operations. fp32: the FMAs on the CUDA cores, the weights
+// resident; the chain a step runs only H rows of it (in+H in K1), the x
+// rows being done ahead in phase 1. The gate region adds 2 x steps x 4H x
+// 4 B a window, layer and lane of traffic (fp32 gates; 27.7 GB at 262,144
+// windows, the slots' 46.5 MB mostly in the 50 MB L2). In bf16 the product
 // runs on the tensor cores and the bound is lstm_tc.cuh's (the cell's
 // tanhf); the gate buffer adds 2 x steps x 4Hp x 4 B a window, layer and
 // lane of traffic (fp32 gates), 57.6 GB at 262,144 windows, mostly past
 // the 50 MB L2.
 
-#include "lstm_tc.cuh"
+#include "lstm_f32.cuh"
 
 namespace {
 
-using dmt::accumulate;
-using dmt::from_f;
-using dmt::kMaxThreads;
+// ---------------------------------------------- fp32: the fp32 core
+
+namespace f32 = dmt::f32;
 using dmt::kR;
-using dmt::load8;
-using dmt::store8;
 
-template <typename T, typename G, bool kPrescaled>
-__global__ void __launch_bounds__(kMaxThreads)
-bilstm_pregemm_kernel(const T* __restrict__ x, long long stride_b,
-                      long long stride_t, long long stride_f, int batch,
-                      int timesteps, int in_dim, int hidden, int num_layers,
-                      const T* __restrict__ w, const float* __restrict__ bias,
-                      float fb_term, G* gx_all, float* __restrict__ out,
-                      int tile_b) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int steps = timesteps / 2 + 1;
-  const int lane = blockIdx.y;  // 0 = fw, 1 = bw
-  const long long b0 = static_cast<long long>(blockIdx.x) * tile_b;
-  T* seq = reinterpret_cast<T*>(smem_raw);  // [steps][hidden][tile_b]
-  T* xs = seq + static_cast<size_t>(steps) * hidden * tile_b;
-  // xs: [steps][in_dim][tile_b]
+// a thread's 4 x kR gate sums of one step in its CTA's gate region, as
+// 4 x kV 16-byte vectors of G (bf16: rounded to nearest even) in fragment
+// order: vector q of thread tid at (q * threads + tid) * 16 B of the
+// step's region, so a warp's access is 512 contiguous bytes (p: the
+// thread's vector 0, `stride` elements to the next). Read back raw, so
+// that nothing waits on the loads until the sums are widened
+template <typename G>
+struct Gates {
+  static constexpr int kV = kR * static_cast<int>(sizeof(G)) / 16;
+  static constexpr int kE = 16 / static_cast<int>(sizeof(G));  // a vector
+  uint4 raw[4][kV];
 
-  dmt::stage_inputs(x, stride_b, stride_t, stride_f, b0, batch, timesteps,
-                    steps, in_dim, tile_b, lane, xs);
-
-  const int u = threadIdx.x % hidden;
-  const int w0 = (threadIdx.x / hidden) * kR;
-  const size_t lane_w =
-      static_cast<size_t>(in_dim + hidden) * 4 * hidden +
-      static_cast<size_t>(num_layers - 1) * 2 * hidden * 4 * hidden;
-  const T* wl = w + lane * lane_w;
-  const float* bl = bias + static_cast<size_t>(lane) * num_layers * 4 * hidden;
-  // this block and lane's workspace, [steps][4 * hidden][tile_b]
-  const size_t gx_row = static_cast<size_t>(4) * hidden * tile_b;
-  G* gx = gx_all + (static_cast<size_t>(blockIdx.x) * 2 + lane) * steps *
-                       gx_row;
-  __syncthreads();
-
-  for (int layer = 0; layer < num_layers; ++layer) {
-    const int lin = layer == 0 ? in_dim : hidden;
-    const T* src = layer == 0 ? xs : seq;
-    const bool last = layer == num_layers - 1;
-
-    // phase 1: the input projection of every step, without the bias
-    for (int t = 0; t < steps; ++t) {
-      float acc[4][kR];
-      dmt::zero(acc);
-      accumulate(src + static_cast<size_t>(t) * lin * tile_b + w0, tile_b,
-                 wl + u, lin, hidden, acc);
+  __device__ __forceinline__ static void store(G* p, long long stride,
+                                               const float (&acc)[4][kR]) {
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        store8(gx + t * gx_row + (static_cast<size_t>(g) * hidden + u) *
-                                     tile_b + w0,
-               acc[g]);
-      }
-    }
-    // every thread has read the layer's input rows before row 0 is rewritten
-    __syncthreads();
-
-    const float bi = bl[u];
-    const float bj = bl[hidden + u];
-    const float bf = bl[2 * hidden + u];
-    const float bo = bl[3 * hidden + u];
-    float c[kR];
+    for (int g = 0; g < 4; ++g) {
+      if constexpr (sizeof(G) == 4) {
 #pragma unroll
-    for (int r = 0; r < kR; ++r) c[r] = 0.0f;
-
-    // phase 2: the recurrence, starting each step from its stored row
-    for (int t = 0; t < steps; ++t) {
-      float acc[4][kR];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        load8(gx + t * gx_row + (static_cast<size_t>(g) * hidden + u) *
-                                    tile_b + w0,
-              acc[g]);
-      }
-      if (t > 0) {  // h_{-1} = 0 contributes nothing
-        accumulate(seq + static_cast<size_t>(t - 1) * hidden * tile_b + w0,
-                   tile_b, wl + static_cast<size_t>(lin) * 4 * hidden + u,
-                   hidden, hidden, acc);
-      }
-      float h[kR];
-#pragma unroll
-      for (int r = 0; r < kR; ++r) {
-        h[r] = dmt::cell<kPrescaled>(acc[0][r] + bi, acc[1][r] + bj,
-                                     acc[2][r] + bf, acc[3][r] + bo, fb_term,
-                                     c[r]);
-      }
-      if (last && t == steps - 1) {
-        // only the center row leaves the kernel
-        dmt::store_center<T>(out, h, b0 + w0, batch, hidden, lane, u);
+        for (int v = 0; v < kV; ++v) {
+          reinterpret_cast<float4*>(p + (g * kV + v) * stride)[0] =
+              make_float4(acc[g][4 * v], acc[g][4 * v + 1],
+                          acc[g][4 * v + 2], acc[g][4 * v + 3]);
+        }
       } else {
-        // nobody reads row t during step t: it held the layer's input,
-        // already projected
-        store8(seq + (static_cast<size_t>(t) * hidden + u) * tile_b + w0, h);
+        dmt::store8(p + g * stride, acc[g]);
       }
-      __syncthreads();
     }
-    wl += static_cast<size_t>(lin + hidden) * 4 * hidden;
-    bl += 4 * hidden;
+  }
+  __device__ __forceinline__ void load(const G* p, long long stride) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        raw[g][v] =
+            reinterpret_cast<const uint4*>(p + (g * kV + v) * stride)[0];
+      }
+  }
+  // into acc, exactly (bf16 -> fp32 is exact)
+  __device__ __forceinline__ void widen(float (&acc)[4][kR]) const {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      if constexpr (sizeof(G) == 4) {
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+          acc[g][4 * v] = __uint_as_float(raw[g][v].x);
+          acc[g][4 * v + 1] = __uint_as_float(raw[g][v].y);
+          acc[g][4 * v + 2] = __uint_as_float(raw[g][v].z);
+          acc[g][4 * v + 3] = __uint_as_float(raw[g][v].w);
+        }
+      } else {
+        // store8's bfloat162 pairs: the low half first
+        const uint32_t wv[4] = {raw[g][0].x, raw[g][0].y, raw[g][0].z,
+                                raw[g][0].w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          acc[g][2 * k] = __uint_as_float(wv[k] << 16);
+          acc[g][2 * k + 1] = __uint_as_float(wv[k] & 0xffff0000u);
+        }
+      }
+    }
+  }
+};
+
+// the barrier that opens a phase: the whole cluster's (release / acquire:
+// the rows stored before it, in device memory too, are seen after it)
+template <bool kCluster>
+__device__ __forceinline__ void phase_barrier() {
+  if constexpr (kCluster) {
+    dmt::tc::cluster_arrive();
+    dmt::tc::cluster_wait();
+  } else {
+    __syncthreads();
   }
 }
 
-template <typename T, typename G, bool kPrescaled>
-int launch(const void* x, long long stride_b, long long stride_t,
-           long long stride_f, int batch, int timesteps, int in_dim,
-           int hidden, int num_layers, const void* w, const float* bias,
-           float fb_term, void* gx, float* out, int tile_b, void* stream) {
+// One layer of one lane for the CTA's tile in K5b's two phases (the
+// header); gx: this thread's vector 0 in its CTA's gate region at step 0,
+// gx_t values a step on, gx_v from one of its vectors to the next
+template <int kSplit, typename G>
+__device__ __forceinline__ void run_layer_pregemm(
+    const f32::Smem& sm, float* const (&peer_h)[kSplit], const f32::Layer& L,
+    const f32::LayerIO& io, G* gx, long long gx_t, long long gx_v) {
+  constexpr bool kCluster = kSplit > 1;
+  const int tid = threadIdx.x;
+  const int rank =
+      kCluster ? static_cast<int>(f32::cg::this_cluster().block_rank()) : 0;
+  const int units = f32::units_of(L.hidden, kSplit);
+  const int ul = tid % units;
+  const int w0 = (tid / units) * kR;
+  const int u = rank * units + ul;  // this thread's unit
+  const bool live = u < L.hidden;   // not a padded unit
+  const int hp4 = f32::packed_units(L.hidden);
+  const float4* w = sm.w + ul;
+  const f32::Infer pol{};
+
+  // phase 1: gx_t = x_t . Wx for every step, no bias (the barrier first:
+  // the last step's rows were stored after its arrive)
+  phase_barrier<kCluster>();
+  f32::load_weights(sm.w, L.w, L.in_dim, hp4, rank * units, units);
+  {
+    float v[f32::kXRegs];
+    f32::x_issue(io, L, 0, sm.x, v);
+    f32::x_complete(io, L, 0, sm.x, v);
+    dmt::tc::cp_async_wait_all();
+  }
+  __syncthreads();
+  for (int t = 0; t < L.steps; ++t) {
+    const int s = t & 1;
+    float* x_next = sm.x + (s ^ 1) * sm.x_slot;
+    float xv[f32::kXRegs];
+    if (t + 1 < L.steps) f32::x_issue(io, L, t + 1, x_next, xv);
+    float acc[4][kR];
+    dmt::zero(acc);
+    f32::product(sm.x + s * sm.x_slot + w0, L.tile, w, units, L.in_dim, acc);
+    Gates<G>::store(gx + t * gx_t, gx_v, acc);
+    if (t + 1 < L.steps) f32::x_complete(io, L, t + 1, x_next, xv);
+    __syncthreads();
+  }
+
+  // phase 2: Wh in Wx's place (every thread's last product is behind the
+  // barrier above), the recurrence from the stored rows
+  f32::load_weights(sm.w, L.w + static_cast<long long>(L.in_dim) * hp4 * 4,
+                    L.hidden, hp4, rank * units, units);
+  const float4 bias = pol.bias(L, u);
+  Gates<G> next;
+  next.load(gx, gx_v);
+  dmt::tc::cp_async_wait_all();
+  phase_barrier<kCluster>();
+  float c[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) c[r] = 0.0f;
+  for (int t = 0; t < L.steps; ++t) {
+    const int s = t & 1;
+    float acc[4][kR];
+    next.widen(acc);
+    // the next step's row, in flight under this step's product and cell
+    if (t + 1 < L.steps) next.load(gx + (t + 1) * gx_t, gx_v);
+    if (t > 0) {  // h_{-1} = 0 adds nothing
+      f32::product(sm.h + (s ^ 1) * sm.h_slot + w0, L.tile, w, units,
+                   L.hidden, acc);
+    }
+    float h[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      h[r] = pol.cell_h(acc[0][r] + bias.x, acc[1][r] + bias.y,
+                        acc[2][r] + bias.z, acc[3][r] + bias.w, L.fb, c[r]);
+    }
+    const int at = s * sm.h_slot + u * L.tile + w0;
+    if (live) {
+#pragma unroll
+      for (int p = 0; p < kSplit; ++p) f32::store_vec(peer_h[p] + at, h);
+    }
+    if constexpr (kCluster) dmt::tc::cluster_arrive();
+    // the step's global stores, while the barrier settles
+    if (live) pol.stores(io, L, t, u, w0, h, c);
+    if constexpr (kCluster) {
+      dmt::tc::cluster_wait();
+    } else {
+      __syncthreads();
+    }
+  }
+}
+
+// the persistent grid: cluster `slot` of gridDim.x / kSplit runs items
+// slot, slot + slots, ... (item = 2 * tile + lane), every layer
+template <int kSplit, typename G>
+__global__ void __launch_bounds__(f32::kMaxThreads, 1)
+bilstm_pregemm_f32_kernel(const float* __restrict__ x, long long stride_b,
+                          long long stride_t, long long stride_f, int batch,
+                          int timesteps, int in_dim, int hidden,
+                          int num_layers, const float* __restrict__ w,
+                          const float* __restrict__ bias, float forget_bias,
+                          G* gx_ws, float* seq_ws,
+                          float* __restrict__ out, int tile) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
   const int steps = timesteps / 2 + 1;
-  const size_t smem =
-      static_cast<size_t>(steps) * (hidden + in_dim) * tile_b * sizeof(T);
-  auto kernel = bilstm_pregemm_kernel<T, G, kPrescaled>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((batch + tile_b - 1) / tile_b, 2);
-  const dim3 block(hidden * (tile_b / kR));
-  kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), stride_b, stride_t, stride_f, batch,
-      timesteps, in_dim, hidden, num_layers, static_cast<const T*>(w), bias,
-      fb_term, static_cast<G*>(gx), out, tile_b);
-  return static_cast<int>(cudaGetLastError());
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const int units = f32::units_of(hidden, kSplit);
+  // one of Wx and Wh resident at a time
+  const f32::Smem sm = f32::carve(f32_smem, widest, widest, hidden, units,
+                                  tile);
+  const int hp4 = f32::packed_units(hidden);
+  const int slot = blockIdx.x / kSplit;
+  const int slots = gridDim.x / kSplit;
+  const int items = 2 * ((batch + tile - 1) / tile);
+  // this slot's rows, (steps, H * tile); this thread's gate values
+  const long long row = static_cast<long long>(hidden) * tile;
+  float* rows = seq_ws + slot * steps * row;
+  const long long gx_t = static_cast<long long>(units) * 4 * tile;
+  const long long gx_v = static_cast<long long>(blockDim.x) * Gates<G>::kE;
+  G* gx = gx_ws + blockIdx.x * steps * gx_t + threadIdx.x * Gates<G>::kE;
+  float* peer_h[kSplit];
+  if constexpr (kSplit > 1) {
+#pragma unroll
+    for (int p = 0; p < kSplit; ++p) {
+      peer_h[p] = f32::cg::this_cluster().map_shared_rank(sm.h, p);
+    }
+  } else {
+    peer_h[0] = sm.h;
+  }
+
+  for (int item = slot; item < items; item += slots) {
+    const int lane = item & 1;  // 0 = fw, 1 = bw
+    f32::Layer L;
+    L.w = w;
+    L.bias = bias;
+    L.hidden = hidden;
+    L.steps = steps;
+    L.batch = batch;
+    L.lane = lane;
+    L.tile = tile;
+    L.b0 = static_cast<long long>(item >> 1) * tile;
+    L.fb = forget_bias;
+    for (int layer = 0; layer < num_layers; ++layer) {
+      L.in_dim = layer == 0 ? in_dim : hidden;
+      const long long lane_w =
+          static_cast<long long>(L.in_dim + hidden) * hp4 * 4;
+      const bool last = layer == num_layers - 1;
+      f32::LayerIO io;
+      io.x = layer == 0 ? x : nullptr;
+      io.sb = stride_b;
+      io.st = stride_t;
+      io.sf = stride_f;
+      io.reversed = lane == 1;
+      io.in_steps = timesteps;
+      io.seq_in = rows;
+      io.seq_in_t = row;
+      io.seq_out = last ? nullptr : rows;
+      io.seq_out_t = row;
+      io.out = last ? out : nullptr;
+      io.out_step = steps - 1;
+      f32::Layer here = L;
+      here.w += lane * lane_w;
+      here.bias += lane * hp4 * 4;
+      run_layer_pregemm<kSplit, G>(sm, peer_h, here, io, gx, gx_t, gx_v);
+      L.w += 2 * lane_w;  // [layer][lane]
+      L.bias += 2 * hp4 * 4;
+    }
+  }
+}
+
+// a CTA's shared memory: the wider of Wx and Wh, the core's rings
+template <int kSplit>
+size_t smem_f32(int in_dim, int hidden, int tile) {
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  return f32::smem_bytes(widest, widest, hidden, kSplit, tile);
+}
+
+// resident clusters of the kernel at this shape, into *n
+template <int kSplit, typename G>
+int clusters_f32(int in_dim, int hidden, int tile, int* n) {
+  const int threads = f32::threads_of(hidden, kSplit, tile);
+  if (tile % kR != 0 || threads > f32::kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(dmt::tc::cluster_occupancy(
+      bilstm_pregemm_f32_kernel<kSplit, G>, threads,
+      smem_f32<kSplit>(in_dim, hidden, tile), kSplit, n));
+}
+
+template <int kSplit, typename G>
+int launch_f32(const void* x, long long stride_b, long long stride_t,
+               long long stride_f, int batch, int timesteps, int in_dim,
+               int hidden, int num_layers, const void* w, const void* bias,
+               float forget_bias, void* gx, void* seq_ws, int slots,
+               void* out, int tile, void* stream) {
+  const int threads = f32::threads_of(hidden, kSplit, tile);
+  if (tile % kR != 0 || threads > f32::kMaxThreads || slots < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = smem_f32<kSplit>(in_dim, hidden, tile);
+  auto kernel = bilstm_pregemm_f32_kernel<kSplit, G>;
+  const dim3 grid(slots * kSplit);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* gxg = static_cast<G*>(gx);
+  auto* sq = static_cast<float*>(seq_ws);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if constexpr (kSplit > 1) {
+    return static_cast<int>(dmt::tc::launch_cluster(
+        kernel, grid, threads, smem, st, kSplit, xf, stride_b, stride_t,
+        stride_f, batch, timesteps, in_dim, hidden, num_layers, wf, bf,
+        forget_bias, gxg, sq, o, tile));
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, threads, smem, st>>>(
+        xf, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
+        num_layers, wf, bf, forget_bias, gxg, sq, o, tile);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // ------------------------------------------------- bf16: the tensor cores
@@ -520,25 +715,49 @@ int launch_tc(const void* x, long long stride_b, long long stride_t,
 
 extern "C" {
 
-// fp32 mode. gx: the wrapper's workspace of ceil(batch / tile_b) * tile_b
-// * 2 * (timesteps/2+1) * 4 * hidden gate values, fp32, or bf16 when
-// gate_bf16 is set. Returns cudaGetLastError() after the launch.
+// fp32 mode, the fp32 core on a persistent grid of `slots` clusters of
+// `split` CTAs (1, 2 or 4): x is fp32; w and bias are the f32_pack_layer
+// packing of ops/bilstm_fused.py (per [layer][lane] the (in+H, Hp4, 4)
+// fp32 weights and the (Hp4, 4) bias); gx: slots * split * (T//2+1) *
+// ceil(hidden/split) * 4 * tile gate values, fp32, or bf16 when gate_bf16
+// is set; seq_ws: slots * (T//2+1) * hidden * tile fp32; slots from
+// dmt_bilstm_pregemm_f32_clusters, at most the 2 * ceil(B/tile) items.
+// Tile a multiple of 8, ceil(hidden/split) * tile/8 <= 256 threads (else
+// cudaErrorInvalidValue); cudaErrorLaunchOutOfResources where no cluster
+// fits. Returns cudaGetLastError() after the launch (0 = success)
 int dmt_bilstm_pregemm_f32(const void* x, long long stride_b,
                            long long stride_t, long long stride_f, int batch,
                            int timesteps, int in_dim, int hidden,
                            int num_layers, const void* w, const void* bias,
                            float forget_bias, void* gx, int gate_bf16,
-                           void* out, int tile_b, void* stream) {
-  auto* b = static_cast<const float*>(bias);
-  auto* o = static_cast<float*>(out);
-  if (gate_bf16) {
-    return launch<float, __nv_bfloat16, false>(
-        x, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
-        num_layers, w, b, forget_bias, gx, o, tile_b, stream);
-  }
-  return launch<float, float, false>(
-      x, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
-      num_layers, w, b, forget_bias, gx, o, tile_b, stream);
+                           void* seq_ws, int slots, void* out, int tile,
+                           int split, void* stream) {
+#define DMT_LAUNCH(s)                                                     \
+  return gate_bf16                                                        \
+             ? launch_f32<s, __nv_bfloat16>(                              \
+                   x, stride_b, stride_t, stride_f, batch, timesteps,     \
+                   in_dim, hidden, num_layers, w, bias, forget_bias, gx,  \
+                   seq_ws, slots, out, tile, stream)                      \
+             : launch_f32<s, float>(x, stride_b, stride_t, stride_f,      \
+                                    batch, timesteps, in_dim, hidden,     \
+                                    num_layers, w, bias, forget_bias, gx, \
+                                    seq_ws, slots, out, tile, stream)
+  DMT_F32_DISPATCH(split, DMT_LAUNCH)
+#undef DMT_LAUNCH
+}
+
+// cudaOccupancyMaxActiveClusters of the fp32 kernel at this shape and gate
+// dtype (clusters of `split` CTAs), into *clusters: the persistent grid's
+// slots before the cap by the work items
+int dmt_bilstm_pregemm_f32_clusters(int in_dim, int hidden, int tile,
+                                    int split, int gate_bf16,
+                                    int* clusters) {
+#define DMT_CLUSTERS(s)                                                      \
+  return gate_bf16 ? clusters_f32<s, __nv_bfloat16>(in_dim, hidden, tile,    \
+                                                    clusters)                \
+                   : clusters_f32<s, float>(in_dim, hidden, tile, clusters)
+  DMT_F32_DISPATCH(split, DMT_CLUSTERS)
+#undef DMT_CLUSTERS
 }
 
 // bf16 mode, the tensor-core kernel, 64 windows a work item: x is bf16; w

@@ -1,15 +1,18 @@
 // The fp32 LSTM layer for Hopper (sm_90a): the fp32 modes of K1
-// (bilstm_fused.cu, every layer of a lane in one launch) and of K4
-// (bilstm_layer.cu, one layer of both lanes a launch), and the training
-// forward K2 in both precisions (bilstm_train.cu, every layer of a lane in
-// one launch), run one lane of one layer over a tile of windows through
-// run_layer below, as the bf16 inference modes run lstm_tc.cuh's.
+// (bilstm_fused.cu, every layer of a lane in one launch), of K4
+// (bilstm_layer.cu, one layer of both lanes a launch), of K5a
+// (bilstm_mono_merged.cu, K1's launch with one operand ring) and of K5b
+// (bilstm_mono_pregemm.cu, which builds its two phases from the pieces
+// below), and the training forward K2 in both precisions (bilstm_train.cu,
+// every layer of a lane in one launch), run one lane of one layer over a
+// tile of windows through run_layer below, as the bf16 inference modes run
+// lstm_tc.cuh's.
 //
 // Numerics: each gate pre-activation is one thread's ordered fmaf chain
 // from 0: the x rows in ascending k, then the h rows (skipped at t = 0,
-// where h is 0), then the bias, as in K5a fp32 (bilstm_mono_merged.cu) and
-// in the CUDA-core bodies that this core replaced; so K1 fp32 keeps K5a
-// fp32's bits at every tile, split and thread shape. What follows the
+// where h is 0), then the bias. K1, K4, K5a and K5b (fp32 gates: the x
+// sum stored and reloaded as it is) run that chain, so K5a and K5b keep
+// K1 fp32's bits at every tile, split and thread shape. What follows the
 // product is a policy of run_layer (Infer below, or K2's TrainFwd): where
 // the weights and bias come from, the cell, and the step's global stores.
 // Infer is K1's fp32 contract (lstm_common.cuh::cell<false>): fp32 inputs,
@@ -48,7 +51,11 @@
 //     and an x ring of 2 slots [in][tile]. Every CTA holds the whole
 //     h_{t-1} of its tile: after the cell each thread writes its 8 h
 //     values into its own ring slot t&1 and, through distributed shared
-//     memory, into every peer's, with 16-byte stores.
+//     memory, into every peer's, with 16-byte stores. K5a (kMerged) lays
+//     the same bytes out as one operand ring of 2 slots [in+H][tile]: a
+//     slot stacks x_t (rows 0..in-1) on h_{t-1} (rows in..in+H-1), so a
+//     step is ONE product over in+H rows of one slot, and h_t goes into
+//     the h rows of the other slot, beside x_{t+1}.
 //   a step t: issue x_{t+1} into the other x slot (cp.async of one blocked
 //     row from global memory; at layer 0 register loads through the
 //     caller's strides), the product over x_t then h_{t-1}, the cell, h_t
@@ -97,14 +104,20 @@ __host__ __device__ constexpr int threads_of(int hidden, int split,
                                              int tile) {
   return units_of(hidden, split) * (tile / kR);
 }
-// a CTA's shared memory: the widest layer's weights [rows + 1][U][4], the
-// h ring [2][H][tile], the x ring [2][in_max][tile] and a spare row (the
-// product's look-ahead load of row `rows` reads inside the buffers)
+// a CTA's shared memory: w_rows + 1 rows of its units' weights
+// [rows][U][4], the h ring [2][H][tile], the x ring [2][in_max][tile] and
+// a spare row (the product's look-ahead load of row `rows` reads inside
+// the buffers)
+__host__ __device__ inline size_t smem_bytes(int w_rows, int in_max,
+                                             int hidden, int split,
+                                             int tile) {
+  return (static_cast<size_t>(w_rows) + 1) * units_of(hidden, split) * 16 +
+         (2 * static_cast<size_t>(hidden) + 2 * in_max + 1) * tile * 4;
+}
+// ... holding the widest layer's [Wx; Wh] (K1, K4, K5a, K2)
 __host__ __device__ inline size_t smem_bytes(int in_max, int hidden,
                                              int split, int tile) {
-  const size_t rows = static_cast<size_t>(in_max) + hidden + 1;
-  return rows * units_of(hidden, split) * 16 +
-         (2 * static_cast<size_t>(hidden) + 2 * in_max + 1) * tile * 4;
+  return smem_bytes(in_max + hidden, in_max, hidden, split, tile);
 }
 
 struct Smem {
@@ -114,16 +127,21 @@ struct Smem {
   int h_slot, x_slot;  // floats a slot
 };
 
-__device__ inline Smem carve(unsigned char* base, int in_max, int hidden,
-                             int units, int tile) {
+// smem_bytes' layout: w_rows + 1 weight rows, then the rings
+__device__ inline Smem carve(unsigned char* base, int w_rows, int in_max,
+                             int hidden, int units, int tile) {
   Smem s;
   s.w = reinterpret_cast<float4*>(base);
   s.h = reinterpret_cast<float*>(
-      base + (static_cast<size_t>(in_max) + hidden + 1) * units * 16);
+      base + (static_cast<size_t>(w_rows) + 1) * units * 16);
   s.h_slot = hidden * tile;
   s.x_slot = in_max * tile;
   s.x = s.h + 2 * s.h_slot;
   return s;
+}
+__device__ inline Smem carve(unsigned char* base, int in_max, int hidden,
+                             int units, int tile) {
+  return carve(base, in_max + hidden, in_max, hidden, units, tile);
 }
 
 struct Layer {
@@ -320,7 +338,9 @@ struct Infer {
 // this CTA's units, the peers of the cluster holding the others). Starts
 // with a barrier of the whole cluster (the previous layer's reads of this
 // CTA's buffers are over, and every peer has started) and ends with one.
-template <int kSplit, typename TX, typename Policy = Infer>
+// kMerged: K5a's operand ring (the header), the same chain
+template <int kSplit, typename TX, typename Policy = Infer,
+          bool kMerged = false>
 __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
                                           const LayerIOT<TX>& io,
                                           const Policy& pol = Policy()) {
@@ -333,24 +353,40 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
   const int w0 = (tid / units) * kR;
   const int u = rank * units + ul;  // this thread's unit
   const bool live = u < L.hidden;   // not a padded unit
+  // x_t at x_ring + (t&1) x_stride; h_t at h_ring + slot x h_stride, slot
+  // t&1 (the h ring) or (t+1)&1 (kMerged: the operand slot of step t+1,
+  // its rows from in on; the two rings' bytes are contiguous)
+  float* const x_ring = kMerged ? sm.h : sm.x;
+  float* const h_ring = kMerged ? sm.h + L.in_dim * L.tile : sm.h;
+  const int x_stride = kMerged ? sm.h_slot + sm.x_slot : sm.x_slot;
+  const int h_stride = kMerged ? x_stride : sm.h_slot;
   // every CTA's h ring (this one's too), where the cell's h goes
   float* peer_h[kSplit];
   if constexpr (kCluster) {
 #pragma unroll
     for (int p = 0; p < kSplit; ++p) {
-      peer_h[p] = cg::this_cluster().map_shared_rank(sm.h, p);
+      peer_h[p] = cg::this_cluster().map_shared_rank(h_ring, p);
     }
   } else {
-    peer_h[0] = sm.h;
+    peer_h[0] = h_ring;
   }
 
-  // prologue: the CTA's weights, x_0
+  // prologue: the CTA's weights, x_0. A peer stores its units of a row
+  // after its step's arrive, so row t is seen after step t+1's barrier;
+  // at one step a layer (T = 1) nothing follows the previous layer's
+  // stores of row 0 before this read of it but a barrier here
+  if constexpr (kCluster) {
+    if (L.steps == 1 && io.x == nullptr) {
+      tc::cluster_arrive();
+      tc::cluster_wait();
+    }
+  }
   pol.weights(sm.w, L, rank * units, units);
   const float4 bias = pol.bias(L, u);
   {
     float v[kXRegs];
-    x_issue(io, L, 0, sm.x, v);
-    x_complete(io, L, 0, sm.x, v);
+    x_issue(io, L, 0, x_ring, v);
+    x_complete(io, L, 0, x_ring, v);
     tc::cp_async_wait_all();
   }
   if constexpr (kCluster) {
@@ -368,7 +404,7 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
 
   for (int t = 0; t < L.steps; ++t) {
     const int s = t & 1;
-    float* x_next = sm.x + (s ^ 1) * sm.x_slot;
+    float* x_next = x_ring + (s ^ 1) * x_stride;
     float xv[kXRegs];
     if (t + 1 < L.steps) x_issue(io, L, t + 1, x_next, xv);
 
@@ -377,10 +413,16 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
     for (int g = 0; g < 4; ++g)
 #pragma unroll
       for (int r = 0; r < kR; ++r) acc[g][r] = 0.0f;
-    product(sm.x + s * sm.x_slot + w0, L.tile, wx, units, L.in_dim, acc);
-    if (t > 0) {  // h_{-1} = 0 contributes nothing
-      product(sm.h + (s ^ 1) * sm.h_slot + w0, L.tile, wh, units, L.hidden,
-              acc);
+    if constexpr (kMerged) {
+      // [x_t; h_{t-1}] . [Wx; Wh] in one pass (h_{-1} = 0: x rows only)
+      product(x_ring + s * x_stride + w0, L.tile, wx, units,
+              t > 0 ? L.in_dim + L.hidden : L.in_dim, acc);
+    } else {
+      product(x_ring + s * x_stride + w0, L.tile, wx, units, L.in_dim, acc);
+      if (t > 0) {  // h_{-1} = 0 contributes nothing
+        product(h_ring + (s ^ 1) * h_stride + w0, L.tile, wh, units,
+                L.hidden, acc);
+      }
     }
     float h[kR];
 #pragma unroll
@@ -388,7 +430,7 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
       h[r] = pol.cell_h(acc[0][r] + bias.x, acc[1][r] + bias.y,
                         acc[2][r] + bias.z, acc[3][r] + bias.w, L.fb, c[r]);
     }
-    const int at = s * sm.h_slot + u * L.tile + w0;
+    const int at = (kMerged ? s ^ 1 : s) * h_stride + u * L.tile + w0;
     if (live) {
 #pragma unroll
       for (int p = 0; p < kSplit; ++p) store_vec(peer_h[p] + at, h);
@@ -412,6 +454,110 @@ __device__ __forceinline__ void run_layer(const Smem& sm, const Layer& L,
     case 1: F(1); case 2: F(2); case 4: F(4);                     \
     default: return static_cast<int>(cudaErrorInvalidValue);      \
   }
+
+// Every layer of one lane for one tile, a cluster of kSplit CTAs (each its
+// units): the body of K1's fp32 kernel (bilstm_fused.cu) and, kMerged, of
+// K5a's (bilstm_mono_merged.cu). Grid (ceil(B / tile) * kSplit, 2),
+// blockIdx.y the lane; T//2+1 steps a layer (the readout cone); w and bias
+// the f32_pack_layer packing, [layer][lane]; ws the blocked rows between
+// layers, (tiles, 2, steps, H * tile), each layer overwriting the one
+// before in place: its step t writes row t, which every CTA of the
+// cluster read in step t-1's prefetch, before that step's barrier
+template <int kSplit, bool kMerged>
+__device__ __forceinline__ void run_stack(
+    const float* __restrict__ x, long long stride_b, long long stride_t,
+    long long stride_f, int batch, int timesteps, int in_dim, int hidden,
+    int num_layers, const float* __restrict__ w,
+    const float* __restrict__ bias, float forget_bias,
+    float* __restrict__ ws, float* __restrict__ out, int tile) {
+  extern __shared__ __align__(16) unsigned char f32_smem[];
+  const int steps = timesteps / 2 + 1;
+  const int lane = blockIdx.y;  // 0 = fw, 1 = bw
+  const int tile_i = blockIdx.x / kSplit;
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const Smem sm = carve(f32_smem, widest, hidden, units_of(hidden, kSplit),
+                        tile);
+  const int hp4 = packed_units(hidden);
+  // this tile's rows of the workspace: (tiles, 2, steps, H * tile)
+  const long long row = static_cast<long long>(hidden) * tile;
+  float* rows = ws + (static_cast<long long>(tile_i) * 2 + lane) * steps * row;
+
+  Layer L;
+  L.w = w;
+  L.bias = bias;
+  L.hidden = hidden;
+  L.steps = steps;
+  L.batch = batch;
+  L.lane = lane;
+  L.tile = tile;
+  L.b0 = static_cast<long long>(tile_i) * tile;
+  L.fb = forget_bias;
+  for (int layer = 0; layer < num_layers; ++layer) {
+    L.in_dim = layer == 0 ? in_dim : hidden;
+    const long long lane_w = static_cast<long long>(L.in_dim + hidden) * hp4 * 4;
+    const bool last = layer == num_layers - 1;
+    LayerIO io;
+    io.x = layer == 0 ? x : nullptr;
+    io.sb = stride_b;
+    io.st = stride_t;
+    io.sf = stride_f;
+    io.reversed = lane == 1;
+    io.in_steps = timesteps;
+    io.seq_in = rows;
+    io.seq_in_t = row;
+    io.seq_out = last ? nullptr : rows;
+    io.seq_out_t = row;
+    io.out = last ? out : nullptr;
+    io.out_step = steps - 1;
+    Layer here = L;
+    here.w += lane * lane_w;
+    here.bias += lane * hp4 * 4;
+    run_layer<kSplit, float, Infer, kMerged>(sm, here, io);
+    L.w += 2 * lane_w;  // [layer][lane]
+    L.bias += 2 * hp4 * 4;
+  }
+}
+
+// the launch of a run_stack kernel: `split` CTAs a cluster (1, 2 or 4),
+// tile a multiple of 8, ceil(hidden/split) * tile/8 <= 256 threads (else
+// cudaErrorInvalidValue); cudaErrorLaunchOutOfResources where no cluster
+// fits. Returns cudaGetLastError() after the launch (0 = success)
+template <int kSplit, typename... Params>
+int launch_stack(void (*kernel)(Params...), const void* x,
+                 long long stride_b, long long stride_t, long long stride_f,
+                 int batch, int timesteps, int in_dim, int hidden,
+                 int num_layers, const void* w, const void* bias,
+                 float forget_bias, void* ws, void* out, int tile,
+                 void* stream) {
+  const int threads = threads_of(hidden, kSplit, tile);
+  if (tile % kR != 0 || threads > kMaxThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int widest = in_dim > hidden ? in_dim : hidden;
+  const size_t smem = smem_bytes(widest, hidden, kSplit, tile);
+  const dim3 grid((batch + tile - 1) / tile * kSplit, 2);
+  const auto* xf = static_cast<const float*>(x);
+  const auto* wf = static_cast<const float*>(w);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* wsf = static_cast<float*>(ws);
+  auto* o = static_cast<float*>(out);
+  auto* st = static_cast<cudaStream_t>(stream);
+  if constexpr (kSplit > 1) {
+    return static_cast<int>(tc::launch_cluster(
+        kernel, grid, threads, smem, st, kSplit, xf, stride_b, stride_t,
+        stride_f, batch, timesteps, in_dim, hidden, num_layers, wf, bf,
+        forget_bias, wsf, o, tile));
+  } else {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, threads, smem, st>>>(
+        xf, stride_b, stride_t, stride_f, batch, timesteps, in_dim, hidden,
+        num_layers, wf, bf, forget_bias, wsf, o, tile);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
 
 }  // namespace f32
 }  // namespace dmt

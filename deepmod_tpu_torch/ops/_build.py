@@ -4,8 +4,8 @@ Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
 K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
 ``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
 ``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; the bf16 modes of
-K1, K4 and K5a-c include ``lstm_tc.cuh``, the fp32 modes of K1 and K4
-and K2 ``lstm_f32.cuh``) is compiled by its own ``nvcc`` process
+K1, K4 and K5a-c include ``lstm_tc.cuh``, the fp32 modes of K1, K4, K5a
+and K5b and K2 ``lstm_f32.cuh``) is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -153,23 +153,28 @@ def _bind(lib: ctypes.CDLL) -> None:
     q = ctypes.c_longlong
     n = ctypes.POINTER(ctypes.c_int)
     _bind_k1(lib)
-    for name in ("dmt_bilstm_merged_f32", "dmt_bilstm_wavefront_f32"):
-        # K5a, K5c fp32
-        fn = getattr(lib, name)
-        # x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
-        # hidden, num_layers, w, bias, forget_bias term, out, tile_b,
-        # stream
-        fn.argtypes = [p, q, q, q, i, i, i, i, i, p, p, f, p, i, p]
-        fn.restype = ctypes.c_int
+    # K5a fp32 (the fp32 core, the merged operand ring): K1 fp32's
+    # arguments
+    lib.dmt_bilstm_merged_f32.argtypes = lib.dmt_bilstm_center_f32.argtypes
+    lib.dmt_bilstm_merged_f32.restype = ctypes.c_int
+    # K5c fp32: x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
+    # hidden, num_layers, w, bias, forget_bias term, out, tile_b, stream
+    lib.dmt_bilstm_wavefront_f32.argtypes = [p, q, q, q, i, i, i, i, i, p,
+                                             p, f, p, i, p]
+    lib.dmt_bilstm_wavefront_f32.restype = ctypes.c_int
     # K5a bf16 (tensor cores, 64 windows a block): K1 bf16's arguments
     lib.dmt_bilstm_merged_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
                                            f, p, p, p]
     lib.dmt_bilstm_merged_bf16.restype = ctypes.c_int
-    # K5b fp32: K1's arguments, then the gate workspace and gate_bf16
-    # before out
+    # K5b fp32 (the fp32 core, persistent grid): K1 fp32's arguments up
+    # to forget_bias, then gx, gate_bf16, the row workspace, the grid's
+    # slots, out, tile, split, stream; and its clusters resident at once
+    # (in_dim, hidden, tile, split, gate_bf16)
     lib.dmt_bilstm_pregemm_f32.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
-                                           f, p, i, p, i, p]
+                                           f, p, i, p, i, p, i, i, p]
     lib.dmt_bilstm_pregemm_f32.restype = ctypes.c_int
+    lib.dmt_bilstm_pregemm_f32_clusters.argtypes = [i, i, i, i, i, n]
+    lib.dmt_bilstm_pregemm_f32_clusters.restype = ctypes.c_int
     # K5b bf16 (tensor cores, persistent grid): K1's arguments with the
     # tensor-core packing, then gx, gate_bf16, the row workspace, the
     # grid's slots, out, stream

@@ -24,15 +24,16 @@ and its two kernels:
 
 In bf16, K1, K4 and K5a-c are tensor-core kernels (``csrc/lstm_tc.cuh``:
 ``wgmma`` chains on the tensor cores, 64 windows a tile; hidden 105-128
-over thread-block clusters, see ``TC_MAX_HP``). In fp32, K1 and K4 run
-the fp32 core (``csrc/lstm_f32.cuh``: each layer's weights resident in
-shared memory, split by units over a thread-block cluster, see
-``f32_shape``). This module also holds ``pack_bilstm_params`` (the
-weight operand of K5 fp32: TF ``(in+H, 4H)`` kernels of every layer and
-lane in one flat buffer, i/f/o columns pre-halved in bf16 mode; in bf16
-also the padded, gate-permuted tensor-core layout, ``tc_pack_layer``; in
-fp32 also the gate-interleaved layout of the fp32 core,
-``f32_pack_layer``) and the public wrapper
+over thread-block clusters, see ``TC_MAX_HP``). In fp32, K1, K4, K5a and
+K5b run the fp32 core (``csrc/lstm_f32.cuh``: each layer's weights
+resident in shared memory, split by units over a thread-block cluster,
+see ``f32_shape``; K5b on a persistent grid, ``pregemm_f32_slots``). This
+module also holds ``pack_bilstm_params`` (the weight operand of K5c fp32:
+TF ``(in+H, 4H)`` kernels of every layer and lane in one flat buffer,
+i/f/o columns pre-halved in bf16 mode; in bf16 also the padded,
+gate-permuted tensor-core layout, ``tc_pack_layer``; in fp32 also the
+gate-interleaved layout of the fp32 core, ``f32_pack_layer``) and the
+public wrapper
 ``bilstm_center_features``, which routes as the JAX package does. A CPU
 tensor goes to the plain version of the chosen kernel; a CUDA tensor
 launches the kernel or raises. The chip smoke test holds each kernel
@@ -89,19 +90,22 @@ TC_THREADS = 256
 TC_MAX_HP = 128
 TC_ONE_BLOCK_HP = 104
 # the schedules of K1's function (JAX ``bilstm_fused_center_mono``'s
-# flags): "mono" is K1, the other three K5a-c
+# flags): "mono" is K1, the other three K5a-c; in fp32 the first three
+# run the fp32 core
 SCHEDULES = ("mono", "merged", "pregemm", "wavefront")
+F32_CORE_SCHEDULES = ("mono", "merged", "pregemm")
 GATE_STORES = ("fp32", "bf16")
-# default windows per block by kernel and precision: for K5a-c in fp32
-# each schedule's, the fastest in chip_smoke.py's sweep over 8/16/24 on an
-# H100 at H=100, 3 layers, T=21 (fp32 K5c takes 16 at most there: 600
-# threads); K1 and K4 ("layered") in fp32 TILE_B, the fp32 core's (where
-# it fits: ``f32_shape``); TC_TILE_B, the only tile, for K1, K4 and K5a-c
-# in bf16 (a K1 caller's TILE_B becomes TC_TILE_B there: ``_mono_tile``)
+# default windows per block by kernel and precision: K1 and K4
+# ("layered") in fp32 TILE_B, the fp32 core's (where it fits:
+# ``f32_shape``); K5a and K5b in fp32 (the fp32 core too) and K5c in fp32
+# each schedule's, the fastest in chip_smoke.py's sweep on an H100 at
+# H=100, 3 layers, T=21 (the fp32 core's tiles; K5c's 8/16/24, 16 at most
+# there: 600 threads); TC_TILE_B, the only tile, for K1, K4 and K5a-c in
+# bf16 (a K1 caller's TILE_B becomes TC_TILE_B there: ``_mono_tile``)
 SCHEDULE_TILE_B = {
     "mono": {"fp32": TILE_B, "bf16": TC_TILE_B},
-    "merged": {"fp32": 16, "bf16": TC_TILE_B},
-    "pregemm": {"fp32": 8, "bf16": TC_TILE_B},
+    "merged": {"fp32": TILE_B, "bf16": TC_TILE_B},
+    "pregemm": {"fp32": TILE_B, "bf16": TC_TILE_B},
     "wavefront": {"fp32": 16, "bf16": TC_TILE_B},
     "layered": {"fp32": TILE_B, "bf16": TC_TILE_B},
 }
@@ -420,13 +424,17 @@ def f32_pack_layer(w: torch.Tensor, b: torch.Tensor, in_dim: int,
     return wp.reshape(-1), bias
 
 
-def f32_smem(in_max: int, hidden: int, split: int, tile: int) -> int:
+def f32_smem(in_max: int, hidden: int, split: int, tile: int,
+             w_rows: Optional[int] = None) -> int:
     """Shared-memory bytes of one CTA of the fp32 core
-    (``lstm_f32.cuh::smem_bytes``): its units' weights of the widest layer
-    plus a spare row, the h ring (2 x [H][tile]), the x ring (2 x
-    [in_max][tile]) and a spare operand row."""
+    (``lstm_f32.cuh::smem_bytes``): ``w_rows`` rows of its units' weights
+    (by default the widest layer's [Wx; Wh], ``in_max + hidden``; K5b holds
+    one of the two at a time, ``in_max``) plus a spare row, the h ring (2 x
+    [H][tile]), the x ring (2 x [in_max][tile]) and a spare operand row.
+    K5a's operand ring takes the two rings' bytes."""
     units = -(-hidden // split)
-    return ((in_max + hidden + 1) * units * 16
+    rows = in_max + hidden if w_rows is None else w_rows
+    return ((rows + 1) * units * 16
             + (2 * hidden + 2 * in_max + 1) * tile * 4)
 
 
@@ -453,7 +461,8 @@ def f32_shape(in_dim: int, hidden: int,
     ``F32_MAX_THREADS`` threads or ``MAX_SMEM`` bytes a CTA."""
     if hidden > F32_MAX_HIDDEN:
         raise ValueError(
-            f"the fp32 kernels (K1, K4) take hidden <= {F32_MAX_HIDDEN} "
+            f"the fp32-core kernels (K1, K4, K5a, K5b) take hidden <= "
+            f"{F32_MAX_HIDDEN} "
             f"(the JAX fused kernels' padded width), got {hidden}")
     if tile_b is not None and (tile_b <= 0 or tile_b % 8):
         raise ValueError(f"tile_b must be a positive multiple of 8: {tile_b}")
@@ -470,6 +479,20 @@ def f32_shape(in_dim: int, hidden: int,
         f"{tile_b or 'up to ' + str(TILE_B)} fits {F32_MAX_THREADS} "
         f"threads and {MAX_SMEM} B of shared memory a CTA in a cluster of "
         f"{' or '.join(map(str, F32_SPLITS))}")
+
+
+def f32_schedule_shape(in_dim: int, hidden: int, schedule: str,
+                       tile_b: Optional[int] = None) -> F32Shape:
+    """The launch of a schedule of ``F32_CORE_SCHEDULES`` on the fp32
+    core: ``f32_shape``'s split, tile and threads for all three (K5a's
+    operand ring takes K1's bytes), with K5b's own shared memory: one of
+    Wx and Wh resident at a time, so fewer bytes at the same split."""
+    shape = f32_shape(in_dim, hidden, tile_b)
+    if schedule == "pregemm":
+        in_max = max(in_dim, hidden)
+        shape = dataclasses.replace(shape, smem=f32_smem(
+            in_max, hidden, shape.split, shape.tile, w_rows=in_max))
+    return shape
 
 
 def f32_clusters(config, shape: F32Shape, device) -> int:
@@ -509,8 +532,8 @@ class PackedBiLSTM:
     flat, [layer][lane] ``tc_pack_layer`` weights, and ``tc_bias``:
     ``(layers, 2, Hp, 4)`` fp32 (K1, K4 and K5a-c); in fp32 also ``f32_w``:
     flat, [layer][lane] ``f32_pack_layer`` weights, and ``f32_bias``:
-    ``(layers, 2, Hp4, 4)`` fp32 (K1 and K4); ``params`` keeps the source
-    dict for the plain version."""
+    ``(layers, 2, Hp4, 4)`` fp32 (K1, K4, K5a and K5b); ``params`` keeps
+    the source dict for the plain version."""
 
     w: torch.Tensor
     bias: torch.Tensor
@@ -640,44 +663,41 @@ def mono_block(config, schedule: str, tile_b: int,
     """(threads, most threads the kernel takes, shared-memory bytes) of one
     block of a mono schedule, as its CUDA launcher sizes it. In bf16, all
     four are tensor-core kernels (one CTA's ``tc_threads`` and ``tc_smem``,
-    64 windows, any other ``tile_b`` refused). In fp32, K1 is the fp32
-    core's CTA at ``f32_shape``; K5b holds the sequence and the staged
-    inputs; K5a adds its [x; h] operand buffer; K5c holds the staged inputs
-    and a 2-row h ring a layer, with one thread group a layer."""
+    64 windows, any other ``tile_b`` refused). In fp32, K1, K5a and K5b are
+    one CTA of the fp32 core at ``f32_schedule_shape`` (raising
+    ``ValueError`` where no launch takes ``tile_b``); K5c holds the staged
+    inputs and a 2-row h ring a layer, with one thread group a layer."""
     if tensor_core(schedule, precision):
         threads = tc_threads(schedule, config.num_hidden)
         return threads, threads, tc_smem(config, schedule)
-    if schedule == "mono":
-        shape = f32_shape(config.num_input, config.num_hidden, tile_b)
+    if schedule in F32_CORE_SCHEDULES:
+        shape = f32_schedule_shape(config.num_input, config.num_hidden,
+                                   schedule, tile_b)
         return shape.threads, F32_MAX_THREADS, shape.smem
     h, f, layers = config.num_hidden, config.num_input, config.num_layers
     steps = config.timesteps // 2 + 1
-    size = _itemsize(precision)
     threads = h * tile_b // 8
-    if schedule == "wavefront":
-        return (layers * threads, WAVEFRONT_MAX_THREADS,
-                (steps * f + 2 * layers * h) * tile_b * size)
-    rows = steps * (h + f)
-    if schedule == "merged":
-        rows += max(f, h) + h
-    return threads, MAX_THREADS, rows * tile_b * size
+    return (layers * threads, WAVEFRONT_MAX_THREADS,
+            (steps * f + 2 * layers * h) * tile_b * _itemsize(precision))
 
 
 def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
                  tile_b: int, schedule: str = "mono",
                  gate_store: str = "fp32") -> torch.Tensor:
     """K1 (``schedule="mono"``) or one of K5a-c: the whole stack in one
-    launch (odd T <= 25). K5b gets a device-memory gate workspace of
-    ``gate_store`` dtype, reused by every layer: in fp32 one a block, in
-    bf16 (tensor cores, a persistent grid) one a resident slot, with a
-    bf16 workspace for the inter-layer rows beside it; K1 and K5a in bf16
-    a bf16 workspace for the inter-layer rows, (ceil(B/64), 2, steps, 64 *
-    Hp), each layer overwriting the one before in place."""
+    launch (odd T <= 25). In fp32, K1, K5a and K5b run the fp32 core
+    (``_launch_mono_f32``). In bf16 K5b gets a device-memory gate
+    workspace of ``gate_store`` dtype a resident slot (tensor cores, a
+    persistent grid), with a bf16 workspace for the inter-layer rows
+    beside it; K1 and K5a in bf16 a bf16 workspace for the inter-layer
+    rows, (ceil(B/64), 2, steps, 64 * Hp), each layer overwriting the one
+    before in place."""
     from . import _build
 
     precision = packed.precision
-    if schedule == "mono" and precision == "fp32":
-        return _launch_mono_f32(packed, x, config, tile_b)
+    if precision == "fp32" and schedule in F32_CORE_SCHEDULES:
+        return _launch_mono_f32(packed, x, config, tile_b, schedule,
+                                gate_store)
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
     steps = timesteps // 2 + 1
@@ -703,27 +723,21 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
             _forget_term(config.forget_bias, precision)]
     blocks = -(-batch // tile_b)
     hp = tc_dims(1, hidden)[0]
-    gate_dtype = _SEQ_DTYPE[gate_store]
-    if schedule == "pregemm" and tc:
+    if schedule == "pregemm":
         slots = pregemm_slots(batch, in_dim, hidden, gate_store, x.device)
-        gx = torch.empty(slots * steps * TC_THREADS * hp, dtype=gate_dtype,
-                         device=x.device)
+        gx = torch.empty(slots * steps * TC_THREADS * hp,
+                         dtype=_SEQ_DTYPE[gate_store], device=x.device)
         rows = torch.empty(slots * steps * TC_TILE_B * hp,
                            dtype=torch.bfloat16, device=x.device)
         args += [gx.data_ptr(), int(gate_store == "bf16"), rows.data_ptr(),
                  slots, out.data_ptr()]
-    elif schedule == "pregemm":
-        gx = torch.empty(blocks * tile_b * 2 * steps * 4 * hidden,
-                         dtype=gate_dtype, device=x.device)
-        args += [gx.data_ptr(), int(gate_store == "bf16"), out.data_ptr(),
-                 tile_b]
-    elif schedule in ("mono", "merged") and tc:
+    elif schedule in ("mono", "merged"):
         ws = torch.empty(blocks * 2 * steps * tile_b * hp,
                          dtype=torch.bfloat16, device=x.device)
         args += [ws.data_ptr(), out.data_ptr()]
     elif tc:  # K5c: clusters, no workspace, no tile argument
         args += [out.data_ptr()]
-    else:
+    else:  # K5c fp32
         args += [out.data_ptr(), tile_b]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
@@ -737,17 +751,21 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
 
 
 def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
-                     tile_b: Optional[int]) -> torch.Tensor:
-    """K1 in fp32 on the fp32 core: every layer of a lane in one launch, a
-    cluster of ``f32_shape``'s split a tile-lane, with an fp32 workspace
-    for the inter-layer rows, (ceil(B/tile), 2, T//2+1, H * tile), each
-    layer overwriting the one before in place."""
+                     tile_b: Optional[int], schedule: str = "mono",
+                     gate_store: str = "fp32") -> torch.Tensor:
+    """K1, K5a or K5b in fp32 on the fp32 core, every layer of a lane in
+    one launch, a cluster of ``f32_shape``'s split a tile-lane. K1 and K5a
+    (the merged operand ring) get an fp32 workspace for the inter-layer
+    rows, (ceil(B/tile), 2, T//2+1, H * tile), each layer overwriting the
+    one before in place. K5b runs a persistent grid of
+    ``pregemm_f32_slots`` clusters with ``pregemm_f32_workspace``'s
+    workspaces, a function of the card, not of the batch."""
     from . import _build
 
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
     _check_f32(packed, config)
-    shape = f32_shape(in_dim, hidden, tile_b)
+    shape = f32_schedule_shape(in_dim, hidden, schedule, tile_b)
     x = _check_inputs(packed, x, config, shape.tile, shape.smem,
                       shape.threads, F32_MAX_THREADS)
     batch = x.shape[0]
@@ -755,19 +773,85 @@ def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
                       device=x.device)
     if batch == 0:
         return out
-    tiles = -(-batch // shape.tile)
-    ws = torch.empty(tiles * 2 * (timesteps // 2 + 1) * hidden * shape.tile,
-                     dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    args = [x.data_ptr(), *x.stride(), batch, timesteps, in_dim, hidden,
+            layers, packed.f32_w.data_ptr(), packed.f32_bias.data_ptr(),
+            config.forget_bias]
+    if schedule == "pregemm":
+        slots = pregemm_f32_slots(batch, shape.tile, pregemm_f32_clusters(
+            config, shape, gate_store, x.device))
+        n_gates, n_rows = pregemm_f32_workspace(config, shape, slots)
+        gx = torch.empty(n_gates, dtype=_SEQ_DTYPE[gate_store],
+                         device=x.device)
+        rows = torch.empty(n_rows, dtype=torch.float32, device=x.device)
+        fn = lib.dmt_bilstm_pregemm_f32
+        args += [gx.data_ptr(), int(gate_store == "bf16"), rows.data_ptr(),
+                 slots]
+    else:
+        tiles = -(-batch // shape.tile)
+        ws = torch.empty(tiles * 2 * (timesteps // 2 + 1) * hidden
+                         * shape.tile, dtype=torch.float32, device=x.device)
+        fn = (lib.dmt_bilstm_center_f32 if schedule == "mono" else
+              lib.dmt_bilstm_merged_f32)
+        args += [ws.data_ptr()]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = _build.library().dmt_bilstm_center_f32(
-            x.data_ptr(), *x.stride(), batch, timesteps, in_dim, hidden,
-            layers, packed.f32_w.data_ptr(), packed.f32_bias.data_ptr(),
-            config.forget_bias, ws.data_ptr(), out.data_ptr(), shape.tile,
-            shape.split, stream)
-    _build.check(status, "bilstm mono kernel launch")
-    LAUNCHES["fp32"] += 1
+        status = fn(*args, out.data_ptr(), shape.tile, shape.split, stream)
+    _build.check(status, f"bilstm {schedule} kernel launch")
+    if schedule == "mono":
+        LAUNCHES["fp32"] += 1
+    else:
+        MONO_SCHEDULE_LAUNCHES[schedule]["fp32"] += 1
     return out
+
+
+def pregemm_f32_slots(batch: int, tile: int, resident: int) -> int:
+    """The persistent grid of fp32 K5b: ``resident`` clusters (what the
+    card holds at once, ``pregemm_f32_clusters``), at most the (tile,
+    lane) work items."""
+    return min(resident, 2 * -(-batch // tile))
+
+
+def pregemm_f32_workspace(config, shape: F32Shape,
+                          slots: int) -> Tuple[int, int]:
+    """(gate values, row values) of fp32 K5b's workspaces over ``slots``
+    clusters at ``shape``: a gate region a CTA, [T//2+1][U][i,j,f,o][tile]
+    of its own U = ceil(H/split) units (in the gate store's dtype), and a
+    slot's blocked rows between layers, T//2+1 x [H][tile] fp32. Both
+    depend on the card (the slots), not on the batch."""
+    steps = config.timesteps // 2 + 1
+    units = -(-config.num_hidden // shape.split)
+    return (slots * shape.split * steps * units * 4 * shape.tile,
+            slots * steps * config.num_hidden * shape.tile)
+
+
+def pregemm_f32_bytes(config, shape: F32Shape, slots: int,
+                      gate_store: str) -> int:
+    """Bytes of ``pregemm_f32_workspace`` with ``gate_store`` gates."""
+    gates, rows = pregemm_f32_workspace(config, shape, slots)
+    return gates * _itemsize(gate_store) + rows * 4
+
+
+def pregemm_f32_clusters(config, shape: F32Shape, gate_store: str,
+                         device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of fp32 K5b at this config, shape
+    and gate store: the clusters of ``shape.split`` CTAs the card holds at
+    once."""
+    import ctypes
+
+    from . import _build
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = _build.library().dmt_bilstm_pregemm_f32_clusters(
+            config.num_input, config.num_hidden, shape.tile, shape.split,
+            int(gate_store == "bf16"), ctypes.byref(n))
+    _build.check(status, "bilstm fp32 pregemm cluster occupancy")
+    if n.value < 1:
+        raise RuntimeError(
+            f"no cluster of {shape.split} CTAs of fp32 K5b at {shape} fits "
+            "the card")
+    return n.value
 
 
 def pregemm_slots(batch: int, in_dim: int, hidden: int, gate_store: str,
@@ -1023,7 +1107,9 @@ def bilstm_center_mono(
     plain version (``bilstm_center_plain``, with ``gate_store`` for K5b);
     on a CUDA tensor it launches the chosen kernel or raises. ``tile_b``
     defaults to ``SCHEDULE_TILE_B`` of the schedule and precision (K5a-c
-    in bf16, the tensor-core kernels, take 64 only)."""
+    in bf16, the tensor-core kernels, take 64 only; K5a and K5b in fp32
+    take the fp32 core's tiles, ``f32_shape``). Hidden over 128 raises in
+    both precisions but for K5c fp32."""
     schedule = mono_schedule(config, wavefront, merged_gemm, pregemm,
                              gate_store)
     gates = gate_store if schedule == "pregemm" else "fp32"

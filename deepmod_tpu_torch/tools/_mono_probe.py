@@ -6,9 +6,11 @@ As in the JAX scripts (``scripts/probe_*.py``): H=100, 3 layers, T=21,
 F=7, params from seed 0, windows standard normal from seed 1, 131,072 of
 them by default, and each timed call ends in ``argmax(center @ out_w +
 out_b)``, added into one int32 accumulator over ``ITERS`` chained calls.
-The TPU tiles are replaced by the port's tile sweep; the bf16
-tensor-core kernels (K1, K4 and K5a-c) take one tile, 64 windows, and
-run at it alone.
+The TPU tiles are replaced by the port's tile sweep: the fp32 kernels the
+tools run (K1, K4, K5a, K5b) are the fp32 core's, at its tiles (2-CTA
+clusters up to 40 windows at H=100, 4-CTA ones from 48: ``f32_shape``);
+the bf16 tensor-core kernels (K1, K4 and K5a-c) take one tile, 64
+windows, and run at it alone.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import torch
 
 BATCH = 131072
 ITERS = 16
-TILES = (8, 16, 24)  # the port's tile sweep (windows per block)
+# the port's tile sweep in fp32 (windows a cluster of the fp32 core):
+# below the default, the default (TILE_B) and a 4-CTA one
+TILES = (24, 40, 80)
 
 
 def tiles(kernel: str, precision: str):

@@ -4,9 +4,10 @@
 
 Counterpart of ``scripts/probe_merged_gemm.py``. K1 runs two dot products
 a step (x_t against Wx, then h against Wh, from two buffers); K5a runs
-one over the stacked [Wx; Wh]: in fp32 on the CUDA cores from an [x_t; h]
-buffer assembled in shared memory, in bf16 as one wgmma chain on the
-tensor cores (K1 bf16: two wgmma chains a step). Both through
+one over the stacked [Wx; Wh]: in fp32 on the fp32 core's CUDA cores
+over an operand ring whose slot stacks x_t on h (K1 fp32: the same fmaf
+chains over two rings, so the same bits), in bf16 as one wgmma chain on
+the tensor cores (K1 bf16: two wgmma chains a step). Both through
 ``bilstm_center_mono`` (``merged_gemm``), ending in the argmax of the
 logits, in bf16 and fp32 at each tile of the sweep (in bf16 both are
 tensor-core kernels, at their one tile, 64), in the same process; prints

@@ -3,7 +3,8 @@
     python -m deepmod_tpu_torch.tools.probe_pregemm [--device cuda] [--batch N]
 
 Counterpart of ``scripts/probe_pregemm.py``. K5b projects every step's
-input of a layer first, into a gate buffer (device memory here), and
+input of a layer first, into a gate buffer (device memory here, one
+region a resident slot of a persistent grid in both precisions), and
 leaves one h product a step to the recurrence; ``gate_store="bf16"``
 halves that buffer's traffic and rounds the stored projections. Through
 ``bilstm_center_mono`` (``pregemm``, ``gate_store``), ending in the

@@ -105,7 +105,7 @@ F32_ANCHORS = [
     ("  for (int t = 0; t < L.steps; ++t) {\n", 0, "after"),
     ("    float acc[4][kR];\n", 1, "before"),
     ("    float h[kR];\n", 2, "before"),
-    ("    const int at = s * sm.h_slot", 3, "before"),
+    ("    const int at = ", 3, "before"),
     ("    // the step's global stores, while the barrier settles\n", 4,
      "before"),
     ("    if constexpr (kCluster) {\n      tc::cluster_wait();", 5, "before"),

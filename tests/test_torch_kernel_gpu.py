@@ -2,10 +2,11 @@
 plain versions, on the card. In bf16, K1, K4 and K5a-c are the
 tensor-core kernels (``csrc/lstm_tc.cuh``, 64 windows a tile; hidden
 105-128 over 2-CTA clusters in K1, K4, K5a and K5c, K5c a cluster of one
-CTA a layer). In fp32, K1 and K4 run the fp32 core (``csrc/lstm_f32.cuh``,
-a layer's weights resident over a cluster of 1, 2 or 4 CTAs), and K4
-runs every T over the readout cone only; K2, the training forward, runs
-the same core in both precisions.
+CTA a layer). In fp32, K1, K4, K5a and K5b run the fp32 core
+(``csrc/lstm_f32.cuh``, a layer's weights resident over a cluster of 1, 2
+or 4 CTAs; K5b on a persistent grid), and K4 runs every T over the
+readout cone only; K2, the training forward, runs the same core in both
+precisions.
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -339,6 +340,96 @@ def test_tc_schedules_match_plain(cuda, label, flags, layers, timesteps,
         torch.testing.assert_close(got, want, **TOL["bf16"])
 
 
+# (label, flags) of fp32 K5a and K5b on the fp32 core
+F32_SCHEDULES = [
+    ("merged", dict(merged_gemm=True)),
+    ("pregemm", dict(pregemm=True)),
+    ("pregemm_bf16_gates", dict(pregemm=True, gate_store="bf16")),
+]
+
+
+@pytest.mark.parametrize("hidden", [100, 128])
+@pytest.mark.parametrize("timesteps", [5, 21, 25])
+@pytest.mark.parametrize("label,flags", F32_SCHEDULES,
+                         ids=[c[0] for c in F32_SCHEDULES])
+def test_f32_schedules_match_k1(cuda, label, flags, timesteps, hidden):
+    """fp32 K5a (the merged operand ring) and K5b (persistent grid, fp32
+    gates) on the fp32 core (2-CTA clusters at hidden 100, 4 at 128) give
+    K1 fp32's bits on 333 windows (a ragged last tile) and on the window
+    view of a row block, read in place; K5b with bf16 gates is within the
+    bf16 tolerance of its plain version."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=timesteps)
+    schedule = ops.mono_schedule(cfg, **flags)
+    shape = ops.f32_schedule_shape(7, hidden, schedule)
+    assert shape.split == (2 if hidden == 100 else 4)
+    params = init_bilstm_params(timesteps + hidden, cfg, device=cuda)
+    rows = torch.from_numpy(np.random.default_rng(hidden).standard_normal(
+        (333 + timesteps - 1, 7), dtype=np.float32)).to(cuda)
+    view = rows.as_strided((333, timesteps, 7), (7, 7, 1))
+    x = torch.from_numpy(np.random.default_rng(timesteps).standard_normal(
+        (333, timesteps, 7), dtype=np.float32)).to(cuda)
+    gates = flags.get("gate_store", "fp32")
+    for inp in (x, view):
+        before = ops.MONO_SCHEDULE_LAUNCHES[schedule]["fp32"]
+        got = ops.bilstm_center_mono(params, inp, cfg, "fp32", **flags)
+        torch.cuda.synchronize()
+        assert ops.MONO_SCHEDULE_LAUNCHES[schedule]["fp32"] == before + 1
+        if gates == "bf16":
+            want = ops.bilstm_center_plain(params, inp, cfg, "fp32",
+                                           gate_store="bf16")
+            torch.testing.assert_close(got, want, **TOL["bf16"])
+        else:
+            k1 = ops.bilstm_center_features(params, inp, cfg, "fp32")
+            torch.cuda.synchronize()
+            assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("hidden", [100, 128])
+def test_fp32_core_one_step_layers(cuda, hidden):
+    """T=1: one step a layer, so the next layer's first read of the row
+    workspace follows the previous layer's stores with no step barrier
+    between (the core's prologue adds one in a cluster). K1 fp32 against
+    its plain version, K5a and K5b (fp32 gates) K1's bits, 3 layers in
+    2- and 4-CTA clusters, on 1,001 windows."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=1)
+    params = init_bilstm_params(hidden + 1, cfg, device=cuda)
+    x = torch.from_numpy(np.random.default_rng(hidden).standard_normal(
+        (1001, 1, 7), dtype=np.float32)).to(cuda)
+    k1 = ops.bilstm_center_features(params, x, cfg, "fp32")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        k1, ops.bilstm_center_plain(params, x, cfg, "fp32"), **TOL["fp32"])
+    for flags in (dict(merged_gemm=True), dict(pregemm=True)):
+        got = ops.bilstm_center_mono(params, x, cfg, "fp32", **flags)
+        torch.cuda.synchronize()
+        assert torch.equal(got, k1), flags
+
+
+@pytest.mark.parametrize("label,flags", F32_SCHEDULES[:2],
+                         ids=[c[0] for c in F32_SCHEDULES[:2]])
+def test_f32_schedules_launches_agree(cuda, label, flags):
+    """fp32 K5a and K5b give K1 fp32's bits at every tile of the fp32 core
+    at H=100 (8 to 40 windows in 2-CTA clusters, 64 and 80 in 4-CTA
+    ones), at F=57, and with more (tile, lane) items than K5b's persistent
+    grid has slots (4,001 windows: 202 items at tile 40)."""
+    for fnum in (7, 57):
+        cfg = BiLSTMConfig(num_input=fnum)
+        params = init_bilstm_params(fnum, cfg, device=cuda)
+        packed = ops.pack_bilstm_params(params, cfg, "fp32")
+        x = torch.from_numpy(np.random.default_rng(fnum).standard_normal(
+            (4001, 21, fnum), dtype=np.float32)).to(cuda)
+        k1 = ops.bilstm_center_features(packed, x, cfg, "fp32")
+        for tile in (8, 24, 40, 64, 80):
+            got = ops.bilstm_center_mono(packed, x, cfg, "fp32", tile_b=tile,
+                                         **flags)
+            torch.cuda.synchronize()
+            assert torch.equal(got, k1), (fnum, tile)
+    shape = ops.f32_schedule_shape(7, 100, "pregemm")
+    resident = ops.pregemm_f32_clusters(BiLSTMConfig(num_input=7), shape,
+                                        "fp32", cuda)
+    assert ops.pregemm_f32_slots(4001, shape.tile, resident) < 202
+
+
 @pytest.mark.parametrize("hidden", [112, 128])
 @pytest.mark.parametrize("kernel,timesteps", [("merged", 21),
                                               ("layered", 20),
@@ -378,8 +469,8 @@ def test_tc_kernels_refuse_hidden_over_128(cuda):
 
 
 def test_fp32_pregemm_and_wavefront_unchanged(cuda):
-    """The fp32 bodies of K5b (fp32 gates) and K5c are the CUDA-core
-    kernels as before: K1's bits."""
+    """fp32 K5b (fp32 gates, the fp32 core on a persistent grid) and K5c
+    (the CUDA-core kernel) give K1's bits."""
     cfg = BiLSTMConfig(num_input=7)
     params = init_bilstm_params(13, cfg, device=cuda)
     x = torch.from_numpy(np.random.default_rng(13).standard_normal(
@@ -393,8 +484,8 @@ def test_fp32_pregemm_and_wavefront_unchanged(cuda):
 
 
 def test_fp32_merged_and_layered_unchanged(cuda):
-    """K5a fp32 (the CUDA-core body) gives the bits of K1 fp32 (the fp32
-    core: the same fmaf chains), K4 fp32 (forced at T=21) K1's features
+    """K5a fp32 (the fp32 core's merged operand ring) gives the bits of
+    K1 fp32 (the same fmaf chains), K4 fp32 (forced at T=21) K1's features
     within 2e-5."""
     cfg = BiLSTMConfig(num_input=7)
     params = init_bilstm_params(12, cfg, device=cuda)

@@ -12,7 +12,8 @@ can flip by one ulp the same way. The JAX kernels run with ``tile_b=8``
 on 17 windows: interpret mode costs seconds a call, so each of the eight
 full-width calls runs once, in a module fixture; so do the three calls of
 the hidden-128 case (bf16, 2 layers, 5 windows: K1 and K5b with both gate
-stores).
+stores). K5a and K5b in fp32 run the fp32 core: their launch shapes, K5b's
+per-slot workspace and the weight rows they read are checked here too.
 """
 
 import jax.numpy as jnp
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from deepmod_tpu.models import bilstm as jb
-from deepmod_tpu.ops.bilstm_fused import bilstm_fused_center_mono
+from deepmod_tpu.ops.bilstm_fused import LANE, _pad_weights, bilstm_fused_center_mono
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import bilstm_fused as tf_ops
@@ -204,3 +205,130 @@ def test_probe_tool_runs_plain_versions(tool, capsys, monkeypatch):
     assert len(rows) == (3 if tool == "probe_pregemm" else 6)
     assert sum("tile_b=64" in r for r in rows) == (
         1 if tool == "probe_pregemm" else 2)
+
+
+# ------------------------------------------- K5a and K5b fp32: the fp32 core
+
+@pytest.mark.parametrize("fnum", [7, 57])
+@pytest.mark.parametrize("hidden", [16, 100, 128])
+@pytest.mark.parametrize("schedule", ["merged", "pregemm"])
+def test_f32_schedule_shapes(schedule, hidden, fnum):
+    """fp32 K5a and K5b launch as K1 fp32 does (``f32_shape``'s split,
+    tile and threads), within the card's limits: K5a's operand ring takes
+    K1's bytes, K5b holds one of Wx and Wh at a time and takes fewer."""
+    cfg = tb.BiLSTMConfig(num_input=fnum, num_hidden=hidden, timesteps=21)
+    k1 = tf_ops.f32_shape(fnum, hidden)
+    for tile in (None, 8, 24, 40):
+        shape = tf_ops.f32_schedule_shape(fnum, hidden, schedule, tile)
+        base = tf_ops.f32_shape(fnum, hidden, tile)
+        assert (shape.split, shape.tile, shape.threads) == (
+            base.split, base.tile, base.threads)
+        assert shape.threads <= tf_ops.F32_MAX_THREADS
+        assert shape.smem <= tf_ops.MAX_SMEM
+        in_max = max(fnum, hidden)
+        if schedule == "merged":
+            assert shape.smem == base.smem
+        else:
+            assert shape.smem == tf_ops.f32_smem(in_max, hidden, shape.split,
+                                                 shape.tile, w_rows=in_max)
+            assert shape.smem < base.smem
+    tile = tf_ops.SCHEDULE_TILE_B[schedule]["fp32"]
+    threads, most, smem = tf_ops.mono_block(cfg, schedule, tile, "fp32")
+    shape = tf_ops.f32_schedule_shape(fnum, hidden, schedule, tile)
+    assert (threads, most, smem) == (shape.threads, tf_ops.F32_MAX_THREADS,
+                                     shape.smem)
+    assert shape.split == tf_ops.f32_shape(fnum, hidden, tile).split
+    assert k1.split == (1 if hidden == 16 else 2 if hidden == 100 else 4)
+    with pytest.raises(ValueError, match="hidden <= 128"):
+        tf_ops.mono_block(tb.BiLSTMConfig(num_input=fnum, num_hidden=136),
+                          schedule, tile, "fp32")
+
+
+@pytest.mark.parametrize("gate_store", ["fp32", "bf16"])
+def test_pregemm_f32_workspace_is_per_slot(gate_store):
+    """fp32 K5b's workspaces are a function of the card's resident
+    clusters, not of the batch: the same bytes at 262,144 and 4,194,304
+    windows (the old layout, a gate region a block, took 9.2 GB and 148 GB
+    there in fp32); a batch with fewer work items than slots takes fewer."""
+    cfg = tb.BiLSTMConfig(num_input=7, num_hidden=100, timesteps=21)
+    shape = tf_ops.f32_schedule_shape(7, 100, "pregemm")
+    assert (shape.split, shape.tile) == (2, 40)
+    resident = 66  # 2-CTA clusters on a 132-SM card, one CTA an SM
+    got = {}
+    for batch in (262144, 4194304):
+        slots = tf_ops.pregemm_f32_slots(batch, shape.tile, resident)
+        assert slots == resident
+        got[batch] = tf_ops.pregemm_f32_bytes(cfg, shape, slots, gate_store)
+    assert got[262144] == got[4194304]
+    size = 4 if gate_store == "fp32" else 2
+    # per CTA [11][50][4][40] gate values; per slot [11][100][40] fp32 rows
+    assert got[262144] == 66 * (2 * 11 * 50 * 4 * 40 * size + 11 * 100 * 40 * 4)
+    old = 262144 * 2 * 11 * 400 * 4
+    assert got[262144] * 100 < old
+    small = tf_ops.pregemm_f32_slots(100, shape.tile, resident)
+    assert small == 6  # 3 tiles x 2 lanes
+    assert tf_ops.pregemm_f32_bytes(cfg, shape, small, gate_store) < got[262144]
+
+
+@pytest.mark.parametrize("fnum,hidden", [(7, 100), (57, 100), (7, 128),
+                                         (7, 16)])
+def test_f32_pack_row_blocks_are_the_jax_weights(fnum, hidden):
+    """The rows fp32 K5a and K5b read from ``f32_pack_layer`` (K5a: all
+    in+H of [Wx; Wh]; K5b: the first ``in`` rows, Wx, in phase 1 and the
+    next H, Wh, in phase 2), each CTA its unit range of the split,
+    reassemble to the JAX kernels' W_x and W_h (``_pad_weights`` of the
+    same numpy-seeded params, padding dropped), every layer and lane."""
+    tcfg = tb.BiLSTMConfig(num_input=fnum, num_hidden=hidden, num_layers=2)
+    jcfg = jb.BiLSTMConfig(num_input=fnum, num_hidden=hidden, num_layers=2)
+    tree = _numpy_params(7, jcfg)
+    split = tf_ops.f32_shape(fnum, hidden).split
+    units = -(-hidden // split)
+    hp4 = tf_ops.f32_units(hidden)
+    packed = tf_ops.pack_bilstm_params(params_from_numpy(tree, "cpu"), tcfg,
+                                       "fp32")
+    flat = packed.f32_w.numpy()
+    off = 0
+    for layer in range(2):
+        lin = fnum if layer == 0 else hidden
+        for lane in ("fw", "bw"):
+            block = flat[off:off + (lin + hidden) * hp4 * 4].reshape(
+                lin + hidden, hp4, 4)
+            off += (lin + hidden) * hp4 * 4
+            wx, wh = (np.asarray(a) for a in _pad_weights(
+                jnp.asarray(tree[lane][layer]["kernel"]), lin, hidden))
+            for rows, want, n in ((block[:lin], wx, lin),
+                                  (block[lin:], wh, hidden)):
+                got = np.zeros((n, 4 * hidden), np.float32)
+                for rank in range(split):
+                    u0, u1 = rank * units, min(hidden, rank * units + units)
+                    for g in range(4):
+                        got[:, g * hidden + u0:g * hidden + u1] = (
+                            rows[:, u0:u1, g])
+                jax_w = np.concatenate(
+                    [want[:n, g * LANE:g * LANE + hidden] for g in range(4)],
+                    axis=1)
+                np.testing.assert_array_equal(got, jax_w)
+            # the padded units hold zeros
+            assert not block[:, hidden:].any()
+    assert off == flat.size
+
+
+def test_time_fp32_schedules_tool_runs_plain_versions(capsys, monkeypatch):
+    """``tools/time_fp32_schedules`` on the CPU: the plain versions of K1,
+    K5a and K5b (both gate stores), one line with each time and whether
+    the output holds K1's bits (the plain K5a and K5b with fp32 gates are
+    K1's function; bf16 gates round the projections)."""
+    import ast
+
+    from deepmod_tpu_torch.tools import time_fp32_schedules as tool
+
+    monkeypatch.setattr(tool, "REPS", 1)
+    assert tool.main(["--device", "cpu", "--batch", "16", "--label", "A"]) == 0
+    line = capsys.readouterr().out.strip()
+    label, _, got = line.split(" ", 2)
+    got = ast.literal_eval(got)
+    assert label == "A"
+    assert got["k5a"][1] and got["k5b"][1] and not got["k5b_bf16_gates"][1]
+    assert set(got) == {"k1", "k5a", "k5b", "k5b_bf16_gates", "k5b_tile32",
+                        "k5b_tile40"}
+    assert all(v > 0 for v in (got["k1"], got["k5b_tile32"], got["k5a"][0]))
