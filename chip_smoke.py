@@ -16,9 +16,10 @@ without printing the result line):
    tensor-core kernels and for K3's); the SASS of every bf16 template of
    K1, K4 and K5a-c (the tensor-core kernels, Hp 8-128) must hold HGMMA
    (wgmma), and no bf16 CUDA-core body of any of them may be left; their
-   dynamic shared memory; the fp32 core's templates (K1's, K4's, K5a's
-   and K5b's fp32 bodies, csrc/lstm_f32.cuh) must all be there and the old
-   fp32 bodies gone, with their registers and spills;
+   dynamic shared memory; the fp32 core's templates (K1's, K4's and
+   K5a-c's fp32 bodies and K6's, csrc/lstm_f32.cuh) must all be there and
+   the old fp32 bodies gone, with their registers and spills (none in K5c
+   and K6, asserted);
 3. the BiLSTM center kernel (K1) against its plain PyTorch version at
    full width (H=100, 3 layers, T=21, F=7) on 65,536 random windows and
    on the overlapping window view of a 262,144-row feature chunk (the
@@ -69,9 +70,12 @@ without printing the result line):
    windows beside the bound of the readout cone's steps, which K4 runs at
    every T, and the all-T bound (the steps the plain version runs at even
    T); the fp32 core's sweep at T=20;
-10. the one-direction layer kernel K6 against its plain version (H=100,
-   T=21, both directions, 1e-5), its main path (the model's two
-   one-direction stacks) against K1's center features, and its times;
+10. the one-direction layer kernel K6 (W_h resident over a cluster)
+   against its plain version (T=21, both directions at H=100 and 128, one
+   at 170, 1e-5), its main path (the model's two one-direction stacks)
+   against K1's center features (2e-5), a split x tile sweep with the
+   clusters resident, and its times (the kernel's and the whole call's,
+   which packs W_h);
 11. the transcendental probe P1 against its plain loop at K=256 (fp32
    rtol 1e-5, bf16 within one ulp), its entry point, its rates at K=256
    and 2048 and the bound from the SASS step loop;
@@ -88,28 +92,29 @@ without printing the result line):
    inputs (65,536 random windows and the window view of a 262,144-row
    chunk) in fp32 and bf16 (fp32 max abs 2e-5, bf16 atol 2e-3 + rtol
    2e-2; a bf16 gate store at the bf16 tolerance in both precisions), and
-   against K1 on the same input at the same tolerances (fp32 K5a and K5b
+   against K1 on the same input at the same tolerances (fp32 K5a-c, K5b
    with fp32 gates, on the fp32 core: K1's bits, asserted); kernel and
    plain times at 262,144 windows with a tile sweep (the fp32 core's
-   tiles for K5a and K5b fp32; none for the 64-window tensor-core
-   kernels: K5a-c in bf16), beside K1's bound and cuDNN time; fp32 K5b
-   once over the window view of a 4,194,304-row block (its persistent
-   grid's slots and workspace bytes, the same at 262,144 windows; the
-   first and last 65,536 windows K1's bits); bf16 K5b's persistent grid
-   and workspace bytes, and the clusters of K5a and K5c the card holds at
-   once (cudaOccupancyMaxActiveClusters);
+   tiles for K5a-c fp32, K5c's streamed and a cluster a tile-lane, with
+   the 6- and 12-CTA clusters resident; none for the 64-window
+   tensor-core kernels: K5a-c in bf16), beside K1's bound and cuDNN
+   time; fp32 K5b once over the window view of a 4,194,304-row block (its
+   persistent grid's slots and workspace bytes, the same at 262,144
+   windows; the first and last 65,536 windows K1's bits); bf16 K5b's
+   persistent grid and workspace bytes, and the clusters of K5a and K5c
+   the card holds at once (cudaOccupancyMaxActiveClusters);
    K5c's main path on the window view, and the probe tools (probe_mono,
    probe_merged_gemm: K5a's main path, probe_pregemm: K5b's) at 32,768
    windows with the launch counts read around each;
 15. hidden 128, 3 layers, 32,768 windows: bf16 (Hp 128: K1, K4, K5a and
    K5c split each layer over a 2-CTA cluster) K4 at T=20 and forced at
    T=21, K1, K5a, K5b (both gate stores) and K5c at T=21; fp32 (the fp32
-   core's 4-CTA clusters) K4 at T=20 and forced at T=21, K1, K5a and K5b
-   (both gate stores) at T=21; each against its plain version (fp32 2e-5,
-   bf16 atol 2e-3 + rtol 2e-2; bf16 gates at the bf16 tolerance), fp32
-   K5a and K5b (fp32 gates) also K1's bits on the random windows and a
-   window view, with kernel, plain and cuDNN times at that width and the
-   clusters resident.
+   core's 4-CTA clusters, K5c's 12-CTA ones) K4 at T=20 and forced at
+   T=21, K1 and K5a-c (K5b with both gate stores) at T=21; each against
+   its plain version (fp32 2e-5, bf16 atol 2e-3 + rtol 2e-2; bf16 gates
+   at the bf16 tolerance), fp32 K5a-c (K5b with fp32 gates) also K1's
+   bits on the random windows and a window view, with kernel, plain and
+   cuDNN times at that width and the clusters resident.
 16. (after the build) the native host library (``deepmod_tpu_torch/native``,
    g++ from the checkout's sources): its build seconds and the functions
    it exports; it must load;
@@ -621,9 +626,11 @@ def f32_sweep_line(cfg, launch, device) -> str:
 def f32_build_line() -> str:
     """ptxas's registers and spills of the fp32 core's kernels (K1's
     ``bilstm_center_f32_kernel``, K4's ``bilstm_layer_f32_kernel``, K5a's
-    ``bilstm_merged_f32_kernel``, one template a split; K5b's
+    ``bilstm_merged_f32_kernel``, K5c's ``bilstm_wavefront_f32_kernel``,
+    K6's ``lstm_recurrence_f32_kernel``, one template a split; K5b's
     ``bilstm_pregemm_f32_kernel``, one a split and gate dtype; K2's
-    ``train_fwd_kernel``, one a split and storage type)."""
+    ``train_fwd_kernel``, one a split and storage type). K5c's and K6's
+    templates spill nothing (asserted)."""
     import re
 
     from deepmod_tpu_torch.ops import _build
@@ -631,8 +638,9 @@ def f32_build_line() -> str:
     lines = _build.build_info["log"].splitlines()
     found = []
     for i, line in enumerate(lines):
-        m = re.search(r"bilstm_(center|layer|merged|pregemm)_f32_kernelILi"
-                      r"(\d+)E(f|13__nv_bfloat16)?", line)
+        m = re.search(r"(?:bi)?lstm_(center|layer|merged|pregemm|wavefront|"
+                      r"recurrence)_f32_kernelILi(\d+)E(f|13__nv_bfloat16)?",
+                      line)
         m2 = re.search(r"train_fwd_kernelILi(\d+)E(f|13__nv_bfloat16)E",
                        line)
         if (m or m2) and "Compiling entry" in line:
@@ -645,6 +653,10 @@ def f32_build_line() -> str:
                     f"k2 {'fp32' if m2.group(2) == 'f' else 'bf16'}"
                     f"<split {m2.group(1)}>")
             found.append(f"{what}: " + "; ".join(props))
+            if m and m.group(1) in ("wavefront", "recurrence"):
+                spills = [int(n) for t in props
+                          for n in re.findall(r"(\d+) bytes spill", t)]
+                assert spills and not any(spills), (what, props)
     return " | ".join(found) or "no ptxas log (cached build)"
 
 
@@ -827,37 +839,65 @@ def phase_layered(device) -> dict:
     return results
 
 
+# K6's launches timed at TIME_B windows, H=100: (split, tile)
+K6_SWEEP = ((1, 8), (1, 16), (2, 16), (2, 24), (2, 32), (2, 40), (4, 32),
+            (4, 48), (4, 64), (4, 80))
+# K6's checks against its plain version: (hidden, directions)
+K6_WIDTHS = ((100, (False, True)), (128, (False, True)), (170, (False,)))
+
+
+def _k6_layer(hidden: int, seed: int, device):
+    """The fw lane's first layer of a seeded model at this width, biases
+    0.1 x N(0, 1) (the initializer's are zero)."""
+    from deepmod_tpu_torch.models import bilstm as model
+
+    cfg = model.BiLSTMConfig(num_hidden=hidden)
+    params = model.init_bilstm_params(seed, cfg, device=device)
+    gen = torch.Generator().manual_seed(seed)
+    for lane in ("fw", "bw"):
+        for lp in params[lane]:
+            lp["bias"] = (0.1 * torch.randn(lp["bias"].shape,
+                                            generator=gen)).to(device)
+    return cfg, params
+
+
 def phase_lstm_layer(device) -> dict:
-    """K6 against its plain version at H=100, T=21, both directions; its
-    main path, the model's one-direction stacks (``_stack_direction``),
-    against K1's center features; times beside a one-layer cuDNN LSTM."""
+    """K6 against its plain version at T=21 on CHECK_B windows, both
+    directions at H=100 and 128 and one at H=170; its main path, the
+    model's one-direction stacks (``_stack_direction``), against K1's
+    center features; at TIME_B windows and H=100 a split x tile sweep with
+    the clusters resident, and the kernel's time beside the whole call's
+    (the packing of W_h included), the plain version's and a one-layer
+    cuDNN LSTM's."""
     from deepmod_tpu_torch.models import bilstm as model
     from deepmod_tpu_torch.ops import bilstm_fused as k1
     from deepmod_tpu_torch.ops import lstm_layer as k6
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = model.BiLSTMConfig()
-    params = model.init_bilstm_params(SEED + 6, cfg, device=device)
-    gen = torch.Generator().manual_seed(SEED + 6)
-    for lane in ("fw", "bw"):
-        for lp in params[lane]:
-            lp["bias"] = (0.1 * torch.randn(lp["bias"].shape, generator=gen)).to(device)
+    cfg, params = _k6_layer(100, SEED + 6, device)
     x = torch.from_numpy(np.random.default_rng(SEED + 6).standard_normal(
         (TIME_B, cfg.timesteps, cfg.num_input), dtype=np.float32)).to(device)
-    lp = params["fw"][0]
-    w_h = lp["kernel"][cfg.num_input:].contiguous()
     fb = cfg.forget_bias
     err = 0.0
-    for reverse in (False, True):
+    for hidden, directions in K6_WIDTHS:
+        _, wparams = ((cfg, params) if hidden == 100 else
+                      _k6_layer(hidden, SEED + hidden, device))
+        lp = wparams["fw"][0]
+        w_h = lp["kernel"][cfg.num_input:].contiguous()
         xp = k6.project(lp["kernel"], lp["bias"], x[:CHECK_B])
-        got = k6.lstm_recurrence(xp, w_h, fb, reverse)
-        torch.cuda.synchronize()
-        want = k6.lstm_recurrence_plain(xp, w_h, fb, reverse)
-        e = float((got - want).abs().max())
-        assert torch.isfinite(got).all() and e <= 1e-5, (
-            f"K6 reverse={reverse} vs plain: max abs {e}")
-        err = max(err, e)
+        for reverse in directions:
+            got = k6.lstm_recurrence(xp, w_h, fb, reverse)
+            torch.cuda.synchronize()
+            want = k6.lstm_recurrence_plain(xp, w_h, fb, reverse)
+            e = float((got - want).abs().max())
+            assert torch.isfinite(got).all() and e <= 1e-5, (
+                f"K6 H={hidden} reverse={reverse} vs plain: max abs {e}")
+            err = max(err, e)
+            log(f"[K6] H={hidden} reverse={reverse} B={CHECK_B} at "
+                f"{k6.lstm_layer_shape(hidden)}: max_abs_err {e:.3e}")
+        del xp, got, want
+    torch.cuda.empty_cache()
 
     # the main path: counts from 0 just before, read just after
     k6.reset_launch_counts()
@@ -874,29 +914,46 @@ def phase_lstm_layer(device) -> dict:
     e_model = float((feats - ref).abs().max())
     assert e_model <= 2e-5, f"stacks through K6 vs K1: max abs {e_model}"
     log(f"[K6] T={cfg.timesteps} B={CHECK_B} max_abs_err={err:.3e} (both "
-        f"directions); main path: {launches} launches, stacks vs K1 "
-        f"center features max abs {e_model:.3e}")
+        f"directions at H=100 and 128, fw at 170); main path: {launches} "
+        f"launches, stacks vs K1 center features max abs {e_model:.3e}")
+    del fw, bw, feats, ref
 
+    lp = params["fw"][0]
+    w_h = lp["kernel"][cfg.num_input:].contiguous()
     xp = k6.project(lp["kernel"], lp["bias"], x)
-    ms = time_ms(lambda: k6.lstm_recurrence(xp, w_h, fb, False))
+    wp = k6.pack_wh(w_h)
+    h = cfg.num_hidden
+    swept = []
+    for split, tile in K6_SWEEP:
+        shape = k6.lstm_layer_shape(h, tile, split)
+        t_ms = time_ms(lambda: k6.recurrence_packed(xp, wp, fb, False, shape),
+                       reps=3)
+        swept.append(f"split {split} tile {tile} ({shape.threads} threads, "
+                     f"{shape.smem} B, "
+                     f"{k6.lstm_layer_clusters(h, shape, device)} clusters): "
+                     f"{t_ms:.3f}")
+    log(f"[K6] H={h} B={TIME_B} sweep (ms): " + "; ".join(swept))
+    shape = k6.lstm_layer_shape(h)
+    ms = time_ms(lambda: k6.recurrence_packed(xp, wp, fb, False, shape))
+    call_ms = time_ms(lambda: k6.lstm_recurrence(xp, w_h, fb, False))
     plain_ms = time_ms(lambda: k6.lstm_recurrence_plain(xp, w_h, fb, False))
     lstm = torch.nn.LSTM(cfg.num_input, cfg.num_hidden, 1,
                          batch_first=True).to(device).eval()
     with torch.no_grad():
         lib_ms = time_ms(lambda: lstm(x))
-    ms2 = time_ms(lambda: k6.lstm_recurrence(xp, w_h, fb, False))
-    h = cfg.num_hidden
+    ms2 = time_ms(lambda: k6.recurrence_packed(xp, wp, fb, False, shape))
     flops = 2 * h * 4 * h * cfg.timesteps * TIME_B
     nbytes = _nbytes(xp, w_h) + TIME_B * cfg.timesteps * h * 4
     b_ms, b_by = train_bound_ms(flops, nbytes)
-    log(f"[K6] B={TIME_B} kernel {ms:.3f} / {ms2:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, cudnn 1-layer LSTM (projection included) "
-        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; ops "
+    log(f"[K6] B={TIME_B} at {shape}: kernel {ms:.3f} / {ms2:.3f} ms, the "
+        f"call (W_h packed) {call_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"cudnn 1-layer LSTM (projection included) {lib_ms:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}; ops "
         f"{flops / PEAK_OPS['fp32'] * 1e3:.3f} ms, bytes "
         f"{nbytes / PEAK_BYTES * 1e3:.3f} ms)")
     return dict(max_abs_err=max(err, e_model), ms=ms, ms_repeat=ms2,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, launches=launches)
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, launches=launches)
 
 
 def _sm_clock_hz() -> float:
@@ -950,10 +1007,10 @@ def tensor_core_sass(lib_path: str) -> dict:
     """HGMMA (wgmma) instructions in the SASS of each bf16 kernel of K1, K4
     and K5a-c (``cuobjdump -sass`` of the built library), by mangled name;
     every template (Hp 8-128) of the tensor-core kernels must issue them
-    and no bf16 CUDA-core body of any of them may be left. K1's, K4's and
-    K5a's fp32 bodies are the fp32 core's three templates each (split 1,
-    2, 4), K5b's six (a split and gate dtype), and their old CUDA-core
-    bodies are gone."""
+    and no bf16 CUDA-core body of any of them may be left. K1's, K4's,
+    K5a's and K5c's fp32 bodies and K6's are the fp32 core's three
+    templates each (split 1, 2, 4), K5b's six (a split and gate dtype),
+    and their old CUDA-core bodies are gone."""
     import re
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -969,16 +1026,18 @@ def tensor_core_sass(lib_path: str) -> dict:
             counts[m.group(1) + "_" + m.group(2)] = block.count("HGMMA")
     old = [k for k in counts if "kernelI13__nv" in k]
     assert not old, f"bf16 CUDA-core bodies left: {old}"
-    for kind in ("center", "layer", "merged"):
+    for kind in ("bilstm_center", "bilstm_layer", "bilstm_merged",
+                 "bilstm_wavefront", "lstm_recurrence"):
         for split in (1, 2, 4):
-            name = f"bilstm_{kind}_f32_kernelILi{split}E"
+            name = f"{kind}_f32_kernelILi{split}E"
             assert name in sass, f"the fp32 core's {name} is missing"
     for split in (1, 2, 4):
         for gates in ("f", "13__nv_bfloat16"):
             name = f"bilstm_pregemm_f32_kernelILi{split}E{gates}E"
             assert name in sass, f"the fp32 core's {name} is missing"
     for old_body in ("bilstm_center_mono_kernel", "bilstm_layer_kernelI",
-                     "bilstm_merged_kernelI", "bilstm_pregemm_kernelI"):
+                     "bilstm_merged_kernelI", "bilstm_pregemm_kernelI",
+                     "bilstm_wavefront_kernelI", "lstm_layer_kernel"):
         assert old_body not in sass, f"the old fp32 body {old_body} is left"
     for kind in TC_KINDS:
         tc = {k: v for k, v in counts.items() if k.startswith(kind + "_tc")}
@@ -1074,26 +1133,60 @@ SCHEDULE_CASES = (
     ("pregemm bf16 gates", dict(pregemm=True, gate_store="bf16")),
     ("wavefront", dict(wavefront=True)),
 )
-SCHEDULE_TILES = (8, 16, 24)  # K5c fp32's sweep
 PROBE_B = 32768  # --batch of the probe tools' runs
 BIG_ROWS = 4194304  # rows of the feature block fp32 K5b runs over once
 
 
 def same_bits_as_k1(label: str, precision: str) -> bool:
-    """fp32 K5a and K5b with fp32 gates: K1 fp32's chains on the fp32
+    """fp32 K5a-c (K5b with fp32 gates): K1 fp32's chains on the fp32
     core, so K1's bits."""
-    return precision == "fp32" and label in ("merged", "pregemm")
+    return precision == "fp32" and label in ("merged", "pregemm",
+                                             "wavefront")
 
 
 def sweep_tiles(schedule: str, precision: str) -> tuple:
     """The tiles phase 14 times a schedule at: none for a tensor-core
-    kernel (64 only), the fp32 core's F32_SWEEP for K5a and K5b in fp32,
-    SCHEDULE_TILES for K5c fp32."""
+    kernel (64 only), the fp32 core's F32_SWEEP for K5a and K5b in fp32;
+    K5c fp32's sweep is ``wavefront_f32_line``'s (both grids)."""
     from deepmod_tpu_torch.ops import bilstm_fused as ops
 
-    if ops.tensor_core(schedule, precision):
+    if ops.tensor_core(schedule, precision) or schedule == "wavefront":
         return ()
-    return F32_SWEEP if schedule in ops.F32_CORE_SCHEDULES else SCHEDULE_TILES
+    return F32_SWEEP
+
+
+def wavefront_f32_line(cfg, packed, x, device) -> str:
+    """fp32 K5c at each tile of F32_SWEEP in both forms, in turns: the
+    streamed grid (``f32_slots``: the clusters resident) and a
+    cluster a tile-lane (one an item); the clusters of
+    num_layers x split CTAs the card holds at once, here and at H=128
+    (12 CTAs with 3 layers)."""
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig
+    from deepmod_tpu_torch.ops import bilstm_fused as ops
+
+    got = []
+    batch = x.shape[0]
+    for tile in F32_SWEEP:
+        shape = ops.f32_schedule_shape(cfg.num_input, cfg.num_hidden,
+                                       "wavefront", tile)
+        resident = ops.wavefront_f32_clusters(cfg, shape, device)
+        items = 2 * -(-batch // shape.tile)
+        forms = {}
+        for name, slots in (("streamed", None), ("per item", items)):
+            forms[name] = time_ms(lambda: ops._launch_mono_f32(
+                packed, x, cfg, tile, "wavefront", slots=slots), reps=3)
+        got.append(
+            f"tile {tile}, split {shape.split} ({cfg.num_layers * shape.split}"
+            f"-CTA clusters, {resident} resident, "
+            f"{ops.f32_slots(batch, shape.tile, resident)} slots): "
+            f"streamed {forms['streamed']:.3f}, a cluster a tile-lane "
+            f"{forms['per item']:.3f}")
+    wide = BiLSTMConfig(num_hidden=128, num_layers=cfg.num_layers)
+    wshape = ops.f32_schedule_shape(wide.num_input, 128, "wavefront")
+    return (f"fp32 K5c at H={cfg.num_hidden} B={batch} (ms): "
+            + "; ".join(got) + f" | H=128 at {wshape}: "
+            f"{wide.num_layers * wshape.split}-CTA clusters, "
+            f"{ops.wavefront_f32_clusters(wide, wshape, device)} resident")
 
 
 def pregemm_f32_line(cfg, batch: int, device) -> str:
@@ -1107,7 +1200,7 @@ def pregemm_f32_line(cfg, batch: int, device) -> str:
     got = []
     for gates in ("fp32", "bf16"):
         resident = ops.pregemm_f32_clusters(cfg, shape, gates, device)
-        slots = ops.pregemm_f32_slots(batch, shape.tile, resident)
+        slots = ops.f32_slots(batch, shape.tile, resident)
         got.append(f"{gates} gates: {resident} clusters resident, {slots} "
                    f"slots, workspace "
                    f"{ops.pregemm_f32_bytes(cfg, shape, slots, gates)} B")
@@ -1166,7 +1259,7 @@ def phase_schedules(device, k1: dict) -> dict:
                 vs_k1 = max(vs_k1, float((got - k1_out[which]).abs().max()))
                 assert _close(got, k1_out[which], tol), (
                     f"{label} {precision} {which} vs K1: max abs {vs_k1}")
-                # fp32 K5a and K5b with fp32 gates run K1's fmaf chains on
+                # fp32 K5a-c (K5b with fp32 gates) run K1's fmaf chains on
                 # the fp32 core: K1's bits
                 if same_bits_as_k1(label, precision):
                     assert torch.equal(got, k1_out[which]), (
@@ -1200,6 +1293,8 @@ def phase_schedules(device, k1: dict) -> dict:
             for g in ("fp32", "bf16")}
         w_bytes = packed.w.numel() * packed.w.element_size() + packed.bias.numel() * 4
         b_ms, b_by = bound_ms(cfg, TIME_B, precision, w_bytes)
+        if precision == "fp32":
+            log(f"[K5 fp32] {wavefront_f32_line(cfg, packed, xt, device)}")
         for label, flags in SCHEDULE_CASES:
             schedule = ops.mono_schedule(cfg, **flags)
             ms = time_ms(lambda: ops.bilstm_center_mono(
@@ -1323,10 +1418,10 @@ def phase_hidden_128(device) -> dict:
     version: bf16 (Hp 128: K1, K4, K5a and K5c split each layer-lane over
     a 2-CTA cluster; K5b keeps one weight resident) K4 at T=20 and forced
     at T=21, K1, K5a, K5b (both gate stores) and K5c at T=21; fp32 (the
-    fp32 core's 4-CTA clusters) K4 at T=20 and forced at T=21, and K1, K5a
-    and K5b (both gate stores) at T=21, K5a and K5b (fp32 gates) also
-    K1's bits on the random windows and a window view; kernel, plain and
-    cuDNN times at that width beside the bound."""
+    fp32 core's 4-CTA clusters; K5c's 12-CTA ones) K4 at T=20 and forced
+    at T=21, and K1, K5a-c (K5b with both gate stores) at T=21, K5a-c
+    (fp32 gates) also K1's bits on the random windows and a window view;
+    kernel, plain and cuDNN times at that width beside the bound."""
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
     from deepmod_tpu_torch.ops import bilstm_fused as ops
 
@@ -1358,11 +1453,8 @@ def phase_hidden_128(device) -> dict:
                     lambda: ops.bilstm_center_plain(params, x, cfg, precision),
                     False))
             if timesteps % 2 == 1:
-                # bf16: K5a-c; fp32: K5a and K5b (the fp32 core's 4-CTA
-                # clusters)
+                # K5a-c (fp32: the fp32 core's 4-CTA clusters, K5c's of 12)
                 for label, flags in SCHEDULE_CASES:
-                    if precision == "fp32" and "wavefront" in flags:
-                        continue
                     cases.append((label, lambda f=flags: ops.bilstm_center_mono(
                         packed, x, cfg, precision, **f),
                         lambda f=flags: ops.bilstm_center_plain(
@@ -1399,7 +1491,12 @@ def phase_hidden_128(device) -> dict:
                     f"{ops.f32_clusters(cfg, shape, device)} clusters of "
                     f"{shape.split} CTAs resident; "
                     f"{pregemm_f32_line(cfg, WIDE_B, device)}")
-                # K5a and K5b (fp32 gates): K1 fp32's bits, on the random
+                wshape = ops.f32_schedule_shape(cfg.num_input, 128,
+                                                "wavefront")
+                log(f"[H128 fp32] K5c: {cfg.num_layers * wshape.split}-CTA "
+                    f"clusters, {ops.wavefront_f32_clusters(cfg, wshape, device)}"
+                    f" resident")
+                # K5a-c (K5b with fp32 gates): K1 fp32's bits, on the random
                 # windows and on the window view of a row block
                 rows = x[:, 0].contiguous()
                 view = rows.as_strided(
@@ -1407,13 +1504,15 @@ def phase_hidden_128(device) -> dict:
                     (cfg.num_input, cfg.num_input, 1))
                 for inp in (x, view):
                     k1 = ops.bilstm_center_features(packed, inp, cfg, "fp32")
-                    for label, flags in SCHEDULE_CASES[:2]:
+                    for label, flags in SCHEDULE_CASES:
+                        if not same_bits_as_k1(label, "fp32"):
+                            continue
                         got = ops.bilstm_center_mono(packed, inp, cfg, "fp32",
                                                      **flags)
                         torch.cuda.synchronize()
                         assert torch.equal(got, k1), (
                             f"H=128 fp32 {label}: not K1 fp32's bits")
-                log("[H128 fp32] K5a and K5b (fp32 gates): K1's bits "
+                log("[H128 fp32] K5a-c (K5b with fp32 gates): K1's bits "
                     "(torch.equal) on the random windows and on the window "
                     "view")
                 del rows, view, k1, got
@@ -3558,7 +3657,7 @@ def smoke() -> str:
         log(f"[build] the bf16 K1 / K4 / K5a-c tensor-core kernels at "
             f"H={hidden}: {tc_build_line(BiLSTMConfig(num_hidden=hidden))}")
     log(f"[build] K3's kernels: {k3_build_line()}")
-    log(f"[build] the fp32 core (K1, K4, K5a, K5b fp32, K2): "
+    log(f"[build] the fp32 core (K1, K4, K5a-c fp32, K2, K6): "
         f"{f32_build_line()}")
     phase_native()
 

@@ -1,18 +1,24 @@
 // The fp32 LSTM layer for Hopper (sm_90a): the fp32 modes of K1
 // (bilstm_fused.cu, every layer of a lane in one launch), of K4
 // (bilstm_layer.cu, one layer of both lanes a launch), of K5a
-// (bilstm_mono_merged.cu, K1's launch with one operand ring) and of K5b
-// (bilstm_mono_pregemm.cu, which builds its two phases from the pieces
-// below), and the training forward K2 in both precisions (bilstm_train.cu,
-// every layer of a lane in one launch), run one lane of one layer over a
-// tile of windows through run_layer below, as the bf16 inference modes run
-// lstm_tc.cuh's.
+// (bilstm_mono_merged.cu, K1's launch with one operand ring), and the
+// training forward K2 in both precisions (bilstm_train.cu, every layer of
+// a lane in one launch), run one lane of one layer over a tile of windows
+// through run_layer below, as the bf16 inference modes run lstm_tc.cuh's.
+// Three kernels build their own loops from the pieces below: K5b fp32
+// (bilstm_mono_pregemm.cu, two phases a layer), K5c fp32
+// (bilstm_mono_wavefront.cu, a CTA group a layer, the layers' steps as a
+// wavefront over a stream of tiles) and K6 (lstm_layer.cu, W_h only, over
+// precomputed gates). Every kernel that reads a layer's weights holds them
+// resident here.
 //
 // Numerics: each gate pre-activation is one thread's ordered fmaf chain
 // from 0: the x rows in ascending k, then the h rows (skipped at t = 0,
-// where h is 0), then the bias. K1, K4, K5a and K5b (fp32 gates: the x
-// sum stored and reloaded as it is) run that chain, so K5a and K5b keep
-// K1 fp32's bits at every tile, split and thread shape. What follows the
+// where h is 0), then the bias. K1, K4, K5a, K5b (fp32 gates: the x sum
+// stored and reloaded as it is) and K5c run that chain, so K5a-c keep K1
+// fp32's bits at every tile, split and thread shape (K6 runs the h rows
+// from 0 and adds its precomputed gates after them, JAX's order for that
+// function). What follows the
 // product is a policy of run_layer (Infer below, or K2's TrainFwd): where
 // the weights and bias come from, the cell, and the step's global stores.
 // Infer is K1's fp32 contract (lstm_common.cuh::cell<false>): fp32 inputs,

@@ -4,8 +4,8 @@ Every ``csrc/*.cu`` source (``bilstm_fused.cu``: K1; ``bilstm_train.cu``:
 K2, K3; ``bilstm_layer.cu``: K4; ``bilstm_mono_merged.cu``,
 ``bilstm_mono_pregemm.cu``, ``bilstm_mono_wavefront.cu``: K5a-c;
 ``lstm_layer.cu``: K6; ``probe_transcendental.cu``: P1; the bf16 modes of
-K1, K4 and K5a-c include ``lstm_tc.cuh``, the fp32 modes of K1, K4, K5a
-and K5b and K2 ``lstm_f32.cuh``) is compiled by its own ``nvcc`` process
+K1, K4 and K5a-c include ``lstm_tc.cuh``, the fp32 modes of K1, K4 and
+K5a-c, K2 and K6 ``lstm_f32.cuh``) is compiled by its own ``nvcc`` process
 (all started together) for ``sm_90a``, and the objects are linked into
 ``build/kernels/libdmt_torch_kernels.so`` at the repository root. The
 sources carry a plain C interface, so no PyTorch header is compiled and
@@ -36,15 +36,9 @@ BUILD_DIR = os.environ.get(
 LIB_NAME = "libdmt_torch_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# launch limits every wrapper checks before it launches: threads a block
-# (kMaxThreads in csrc/lstm_common.cuh) and the bytes
-# of shared memory a block may use on Hopper
-MAX_THREADS = 512
+# the bytes of shared memory a block may use on Hopper, which every
+# wrapper checks before it launches
 MAX_SMEM = 232448
-# the fp32 wavefront kernel (K5c) runs one thread group a layer and is
-# bounded at this many threads instead (kWaveMaxThreads in
-# bilstm_mono_wavefront.cu)
-WAVEFRONT_MAX_THREADS = 600
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -157,11 +151,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     # arguments
     lib.dmt_bilstm_merged_f32.argtypes = lib.dmt_bilstm_center_f32.argtypes
     lib.dmt_bilstm_merged_f32.restype = ctypes.c_int
-    # K5c fp32: x, stride_b, stride_t, stride_f, batch, timesteps, in_dim,
-    # hidden, num_layers, w, bias, forget_bias term, out, tile_b, stream
+    # K5c fp32 (the fp32 core, a persistent grid of clusters of a CTA
+    # group a layer): K1 fp32's arguments up to forget_bias, then out,
+    # tile, split, the grid's slots, stream; and its clusters resident at
+    # once (in_dim, hidden, num_layers, tile, split)
     lib.dmt_bilstm_wavefront_f32.argtypes = [p, q, q, q, i, i, i, i, i, p,
-                                             p, f, p, i, p]
+                                             p, f, p, i, i, i, p]
     lib.dmt_bilstm_wavefront_f32.restype = ctypes.c_int
+    lib.dmt_bilstm_wavefront_f32_clusters.argtypes = [i, i, i, i, i, n]
+    lib.dmt_bilstm_wavefront_f32_clusters.restype = ctypes.c_int
     # K5a bf16 (tensor cores, 64 windows a block): K1 bf16's arguments
     lib.dmt_bilstm_merged_bf16.argtypes = [p, q, q, q, i, i, i, i, i, p, p,
                                            f, p, p, p]
@@ -228,10 +226,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dmt_bilstm_layer_bf16.argtypes = [p, q, q, q, i, p, i, i, i, i, i, p,
                                           p, f, p, p, i, i, p]
     lib.dmt_bilstm_layer_bf16.restype = ctypes.c_int
-    # xp, wh, forget_bias, out, batch, timesteps, hidden, reverse, tile_b,
-    # stream
-    lib.dmt_lstm_layer_f32.argtypes = [p, p, f, p, i, i, i, i, i, p]
+    # K6 (the fp32 core's pieces): xp, the packed W_h, forget_bias, out,
+    # batch, timesteps, hidden, reverse, tile, split, stream; and its
+    # clusters resident at once (hidden, tile, split)
+    lib.dmt_lstm_layer_f32.argtypes = [p, p, f, p, i, i, i, i, i, i, p]
     lib.dmt_lstm_layer_f32.restype = ctypes.c_int
+    lib.dmt_lstm_layer_f32_clusters.argtypes = [i, i, i, n]
+    lib.dmt_lstm_layer_f32_clusters.restype = ctypes.c_int
     for name in ("dmt_probe_f32", "dmt_probe_bf16"):
         fn = getattr(lib, name)
         # op, x, out, n, iters, stream

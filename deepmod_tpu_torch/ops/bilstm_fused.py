@@ -24,16 +24,17 @@ and its two kernels:
 
 In bf16, K1, K4 and K5a-c are tensor-core kernels (``csrc/lstm_tc.cuh``:
 ``wgmma`` chains on the tensor cores, 64 windows a tile; hidden 105-128
-over thread-block clusters, see ``TC_MAX_HP``). In fp32, K1, K4, K5a and
-K5b run the fp32 core (``csrc/lstm_f32.cuh``: each layer's weights
-resident in shared memory, split by units over a thread-block cluster,
-see ``f32_shape``; K5b on a persistent grid, ``pregemm_f32_slots``). This
-module also holds ``pack_bilstm_params`` (the weight operand of K5c fp32:
-TF ``(in+H, 4H)`` kernels of every layer and lane in one flat buffer,
-i/f/o columns pre-halved in bf16 mode; in bf16 also the padded,
-gate-permuted tensor-core layout, ``tc_pack_layer``; in fp32 also the
-gate-interleaved layout of the fp32 core, ``f32_pack_layer``) and the
-public wrapper
+over thread-block clusters, see ``TC_MAX_HP``). In fp32, K1, K4 and K5a-c
+run the fp32 core (``csrc/lstm_f32.cuh``: each layer's weights resident
+in shared memory, split by units over a thread-block cluster, see
+``f32_shape``; K5b on a persistent grid, ``f32_slots``; K5c a
+persistent grid of clusters of a CTA group a layer,
+``f32_slots``). This module also holds ``pack_bilstm_params``
+(TF ``(in+H, 4H)`` kernels of every layer and lane in one flat buffer,
+i/f/o columns pre-halved in bf16 mode, which the wrappers check against
+the config; in bf16 also the padded, gate-permuted tensor-core layout,
+``tc_pack_layer``; in fp32 also the gate-interleaved layout of the fp32
+core, ``f32_pack_layer``) and the public wrapper
 ``bilstm_center_features``, which routes as the JAX package does. A CPU
 tensor goes to the plain version of the chosen kernel; a CUDA tensor
 launches the kernel or raises. The chip smoke test holds each kernel
@@ -55,7 +56,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from ._build import MAX_SMEM, MAX_THREADS, WAVEFRONT_MAX_THREADS
+from ._build import MAX_SMEM
 
 PRECISIONS = ("fp32", "bf16")
 _SEQ_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16}
@@ -90,23 +91,21 @@ TC_THREADS = 256
 TC_MAX_HP = 128
 TC_ONE_BLOCK_HP = 104
 # the schedules of K1's function (JAX ``bilstm_fused_center_mono``'s
-# flags): "mono" is K1, the other three K5a-c; in fp32 the first three
-# run the fp32 core
+# flags): "mono" is K1, the other three K5a-c; in fp32 all four run the
+# fp32 core
 SCHEDULES = ("mono", "merged", "pregemm", "wavefront")
-F32_CORE_SCHEDULES = ("mono", "merged", "pregemm")
 GATE_STORES = ("fp32", "bf16")
 # default windows per block by kernel and precision: K1 and K4
 # ("layered") in fp32 TILE_B, the fp32 core's (where it fits:
-# ``f32_shape``); K5a and K5b in fp32 (the fp32 core too) and K5c in fp32
-# each schedule's, the fastest in chip_smoke.py's sweep on an H100 at
-# H=100, 3 layers, T=21 (the fp32 core's tiles; K5c's 8/16/24, 16 at most
-# there: 600 threads); TC_TILE_B, the only tile, for K1, K4 and K5a-c in
+# ``f32_shape``); K5a-c in fp32 (the fp32 core too) each schedule's, the
+# fastest in chip_smoke.py's sweep of the fp32 core's tiles on an H100 at
+# H=100, 3 layers, T=21; TC_TILE_B, the only tile, for K1, K4 and K5a-c in
 # bf16 (a K1 caller's TILE_B becomes TC_TILE_B there: ``_mono_tile``)
 SCHEDULE_TILE_B = {
     "mono": {"fp32": TILE_B, "bf16": TC_TILE_B},
     "merged": {"fp32": TILE_B, "bf16": TC_TILE_B},
     "pregemm": {"fp32": TILE_B, "bf16": TC_TILE_B},
-    "wavefront": {"fp32": 16, "bf16": TC_TILE_B},
+    "wavefront": {"fp32": TILE_B, "bf16": TC_TILE_B},
     "layered": {"fp32": TILE_B, "bf16": TC_TILE_B},
 }
 
@@ -461,7 +460,7 @@ def f32_shape(in_dim: int, hidden: int,
     ``F32_MAX_THREADS`` threads or ``MAX_SMEM`` bytes a CTA."""
     if hidden > F32_MAX_HIDDEN:
         raise ValueError(
-            f"the fp32-core kernels (K1, K4, K5a, K5b) take hidden <= "
+            f"the fp32-core kernels (K1, K4, K5a-c) take hidden <= "
             f"{F32_MAX_HIDDEN} "
             f"(the JAX fused kernels' padded width), got {hidden}")
     if tile_b is not None and (tile_b <= 0 or tile_b % 8):
@@ -483,10 +482,11 @@ def f32_shape(in_dim: int, hidden: int,
 
 def f32_schedule_shape(in_dim: int, hidden: int, schedule: str,
                        tile_b: Optional[int] = None) -> F32Shape:
-    """The launch of a schedule of ``F32_CORE_SCHEDULES`` on the fp32
-    core: ``f32_shape``'s split, tile and threads for all three (K5a's
-    operand ring takes K1's bytes), with K5b's own shared memory: one of
-    Wx and Wh resident at a time, so fewer bytes at the same split."""
+    """The launch of a schedule of ``SCHEDULES`` on the fp32 core:
+    ``f32_shape``'s split, tile and threads for all four (K5a's operand
+    ring takes K1's bytes, K5c's CTA of a layer K1's CTA's), with K5b's
+    own shared memory: one of Wx and Wh resident at a time, so fewer bytes
+    at the same split."""
     shape = f32_shape(in_dim, hidden, tile_b)
     if schedule == "pregemm":
         in_max = max(in_dim, hidden)
@@ -532,7 +532,7 @@ class PackedBiLSTM:
     flat, [layer][lane] ``tc_pack_layer`` weights, and ``tc_bias``:
     ``(layers, 2, Hp, 4)`` fp32 (K1, K4 and K5a-c); in fp32 also ``f32_w``:
     flat, [layer][lane] ``f32_pack_layer`` weights, and ``f32_bias``:
-    ``(layers, 2, Hp4, 4)`` fp32 (K1, K4, K5a and K5b); ``params`` keeps
+    ``(layers, 2, Hp4, 4)`` fp32 (K1, K4 and K5a-c); ``params`` keeps
     the source dict for the plain version."""
 
     w: torch.Tensor
@@ -590,10 +590,10 @@ def pack_bilstm_params(params: Dict[str, Any], config,
 
 
 def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
-                  tile_b: int, smem: int, threads: Optional[int] = None,
-                  max_threads: int = MAX_THREADS) -> torch.Tensor:
-    """Check what the kernels take (``threads`` a block: H * tile_b / 8
-    unless given); returns x in the storage dtype."""
+                  tile_b: int, smem: int, threads: int,
+                  max_threads: int) -> torch.Tensor:
+    """Check what the kernels take (``threads`` a block, at most
+    ``max_threads``); returns x in the storage dtype."""
     dt = seq_dtype(packed.precision)
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
@@ -617,8 +617,6 @@ def _check_inputs(packed: PackedBiLSTM, x: torch.Tensor, config,
         raise ValueError("packed weights do not match the model config")
     if tile_b <= 0 or tile_b % 8:
         raise ValueError(f"tile_b must be a positive multiple of 8: {tile_b}")
-    if threads is None:
-        threads = hidden * tile_b // 8
     if threads > max_threads or smem > MAX_SMEM:
         raise ValueError(
             f"hidden={hidden}, fnum={in_dim}, T={timesteps} need {threads} "
@@ -661,49 +659,40 @@ def _lane_weights(config) -> int:
 def mono_block(config, schedule: str, tile_b: int,
                precision: str) -> Tuple[int, int, int]:
     """(threads, most threads the kernel takes, shared-memory bytes) of one
-    block of a mono schedule, as its CUDA launcher sizes it. In bf16, all
+    CTA of a mono schedule, as its CUDA launcher sizes it. In bf16, all
     four are tensor-core kernels (one CTA's ``tc_threads`` and ``tc_smem``,
-    64 windows, any other ``tile_b`` refused). In fp32, K1, K5a and K5b are
-    one CTA of the fp32 core at ``f32_schedule_shape`` (raising
-    ``ValueError`` where no launch takes ``tile_b``); K5c holds the staged
-    inputs and a 2-row h ring a layer, with one thread group a layer."""
+    64 windows, any other ``tile_b`` refused). In fp32, all four are one
+    CTA of the fp32 core at ``f32_schedule_shape`` (raising ``ValueError``
+    where no launch takes ``tile_b``)."""
     if tensor_core(schedule, precision):
         threads = tc_threads(schedule, config.num_hidden)
         return threads, threads, tc_smem(config, schedule)
-    if schedule in F32_CORE_SCHEDULES:
-        shape = f32_schedule_shape(config.num_input, config.num_hidden,
-                                   schedule, tile_b)
-        return shape.threads, F32_MAX_THREADS, shape.smem
-    h, f, layers = config.num_hidden, config.num_input, config.num_layers
-    steps = config.timesteps // 2 + 1
-    threads = h * tile_b // 8
-    return (layers * threads, WAVEFRONT_MAX_THREADS,
-            (steps * f + 2 * layers * h) * tile_b * _itemsize(precision))
+    shape = f32_schedule_shape(config.num_input, config.num_hidden, schedule,
+                               tile_b)
+    return shape.threads, F32_MAX_THREADS, shape.smem
 
 
 def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
                  tile_b: int, schedule: str = "mono",
                  gate_store: str = "fp32") -> torch.Tensor:
     """K1 (``schedule="mono"``) or one of K5a-c: the whole stack in one
-    launch (odd T <= 25). In fp32, K1, K5a and K5b run the fp32 core
-    (``_launch_mono_f32``). In bf16 K5b gets a device-memory gate
-    workspace of ``gate_store`` dtype a resident slot (tensor cores, a
-    persistent grid), with a bf16 workspace for the inter-layer rows
-    beside it; K1 and K5a in bf16 a bf16 workspace for the inter-layer
-    rows, (ceil(B/64), 2, steps, 64 * Hp), each layer overwriting the one
-    before in place."""
+    launch (odd T <= 25). In fp32 all four run the fp32 core
+    (``_launch_mono_f32``). In bf16 (the tensor-core kernels) K5b gets a
+    device-memory gate workspace of ``gate_store`` dtype a resident slot
+    (a persistent grid), with a bf16 workspace for the inter-layer rows
+    beside it; K1 and K5a a bf16 workspace for the inter-layer rows,
+    (ceil(B/64), 2, steps, 64 * Hp), each layer overwriting the one before
+    in place; K5c (clusters of a CTA a layer) none."""
     from . import _build
 
     precision = packed.precision
-    if precision == "fp32" and schedule in F32_CORE_SCHEDULES:
+    if precision == "fp32":
         return _launch_mono_f32(packed, x, config, tile_b, schedule,
                                 gate_store)
     timesteps, hidden = config.timesteps, config.num_hidden
     in_dim, layers = config.num_input, config.num_layers
     steps = timesteps // 2 + 1
-    tc = tensor_core(schedule, precision)
-    if tc:
-        _check_tc(packed, config, tile_b)
+    _check_tc(packed, config, tile_b)
     threads, max_threads, smem = mono_block(config, schedule, tile_b,
                                             precision)
     x = _check_inputs(packed, x, config, tile_b, smem, threads, max_threads)
@@ -713,13 +702,10 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
     if batch == 0:
         return out
     lib = _build.library()
-    suffix = "bf16" if precision == "bf16" else "f32"
     kernel = "center" if schedule == "mono" else schedule
-    fn = getattr(lib, f"dmt_bilstm_{kernel}_{suffix}")
-    w, bias = (packed.tc_w, packed.tc_bias) if tc else (packed.w,
-                                                         packed.bias)
+    fn = getattr(lib, f"dmt_bilstm_{kernel}_bf16")
     args = [x.data_ptr(), *x.stride(), batch, timesteps, in_dim, hidden,
-            layers, w.data_ptr(), bias.data_ptr(),
+            layers, packed.tc_w.data_ptr(), packed.tc_bias.data_ptr(),
             _forget_term(config.forget_bias, precision)]
     blocks = -(-batch // tile_b)
     hp = tc_dims(1, hidden)[0]
@@ -735,10 +721,8 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
         ws = torch.empty(blocks * 2 * steps * tile_b * hp,
                          dtype=torch.bfloat16, device=x.device)
         args += [ws.data_ptr(), out.data_ptr()]
-    elif tc:  # K5c: clusters, no workspace, no tile argument
+    else:  # K5c: clusters, no workspace, no tile argument
         args += [out.data_ptr()]
-    else:  # K5c fp32
-        args += [out.data_ptr(), tile_b]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         status = fn(*args, stream)
@@ -752,14 +736,18 @@ def _launch_mono(packed: PackedBiLSTM, x: torch.Tensor, config,
 
 def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
                      tile_b: Optional[int], schedule: str = "mono",
-                     gate_store: str = "fp32") -> torch.Tensor:
-    """K1, K5a or K5b in fp32 on the fp32 core, every layer of a lane in
-    one launch, a cluster of ``f32_shape``'s split a tile-lane. K1 and K5a
-    (the merged operand ring) get an fp32 workspace for the inter-layer
-    rows, (ceil(B/tile), 2, T//2+1, H * tile), each layer overwriting the
-    one before in place. K5b runs a persistent grid of
-    ``pregemm_f32_slots`` clusters with ``pregemm_f32_workspace``'s
-    workspaces, a function of the card, not of the batch."""
+                     gate_store: str = "fp32",
+                     slots: Optional[int] = None) -> torch.Tensor:
+    """K1 or K5a-c in fp32 on the fp32 core, every layer of a lane in one
+    launch. K1 and K5a (the merged operand ring) run a cluster of
+    ``f32_shape``'s split a tile-lane with an fp32 workspace for the
+    inter-layer rows, (ceil(B/tile), 2, T//2+1, H * tile), each layer
+    overwriting the one before in place. K5b runs a persistent grid of
+    ``f32_slots`` clusters with ``pregemm_f32_workspace``'s
+    workspaces, a function of the card, not of the batch. K5c runs a
+    persistent grid of ``slots`` clusters of num_layers x split CTAs (by
+    default ``f32_slots``; one an item, ``2 * ceil(B/tile)``, is
+    the cluster-a-tile form), no workspace."""
     from . import _build
 
     timesteps, hidden = config.timesteps, config.num_hidden
@@ -777,8 +765,9 @@ def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
     args = [x.data_ptr(), *x.stride(), batch, timesteps, in_dim, hidden,
             layers, packed.f32_w.data_ptr(), packed.f32_bias.data_ptr(),
             config.forget_bias]
+    tail = [out.data_ptr(), shape.tile, shape.split]
     if schedule == "pregemm":
-        slots = pregemm_f32_slots(batch, shape.tile, pregemm_f32_clusters(
+        slots = f32_slots(batch, shape.tile, pregemm_f32_clusters(
             config, shape, gate_store, x.device))
         n_gates, n_rows = pregemm_f32_workspace(config, shape, slots)
         gx = torch.empty(n_gates, dtype=_SEQ_DTYPE[gate_store],
@@ -787,6 +776,12 @@ def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
         fn = lib.dmt_bilstm_pregemm_f32
         args += [gx.data_ptr(), int(gate_store == "bf16"), rows.data_ptr(),
                  slots]
+    elif schedule == "wavefront":
+        if slots is None:
+            slots = f32_slots(batch, shape.tile, wavefront_f32_clusters(
+                config, shape, x.device))
+        fn = lib.dmt_bilstm_wavefront_f32
+        tail.append(slots)
     else:
         tiles = -(-batch // shape.tile)
         ws = torch.empty(tiles * 2 * (timesteps // 2 + 1) * hidden
@@ -796,7 +791,7 @@ def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
         args += [ws.data_ptr()]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        status = fn(*args, out.data_ptr(), shape.tile, shape.split, stream)
+        status = fn(*args, *tail, stream)
     _build.check(status, f"bilstm {schedule} kernel launch")
     if schedule == "mono":
         LAUNCHES["fp32"] += 1
@@ -805,10 +800,34 @@ def _launch_mono_f32(packed: PackedBiLSTM, x: torch.Tensor, config,
     return out
 
 
-def pregemm_f32_slots(batch: int, tile: int, resident: int) -> int:
-    """The persistent grid of fp32 K5b: ``resident`` clusters (what the
-    card holds at once, ``pregemm_f32_clusters``), at most the (tile,
-    lane) work items."""
+def wavefront_f32_clusters(config, shape: F32Shape, device) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of fp32 K5c at this config and
+    shape: the clusters of num_layers x ``shape.split`` CTAs the card holds
+    at once."""
+    import ctypes
+
+    from . import _build
+
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        status = _build.library().dmt_bilstm_wavefront_f32_clusters(
+            config.num_input, config.num_hidden, config.num_layers,
+            shape.tile, shape.split, ctypes.byref(n))
+    _build.check(status, "bilstm fp32 wavefront cluster occupancy")
+    if n.value < 1:
+        raise RuntimeError(
+            f"no cluster of {config.num_layers * shape.split} CTAs of fp32 "
+            f"K5c at {shape} fits the card")
+    return n.value
+
+
+def f32_slots(batch: int, tile: int, resident: int) -> int:
+    """The persistent grid of fp32 K5b and K5c: ``resident`` clusters (what
+    the card holds at once, ``pregemm_f32_clusters`` or
+    ``wavefront_f32_clusters``), at most the 2 x ceil(B/tile) (tile, lane)
+    work items. K5c's cluster runs a contiguous run of the lane-major
+    items, so it loads each weight once, or twice where its run crosses
+    from the fw lane to the bw lane."""
     return min(resident, 2 * -(-batch // tile))
 
 
@@ -1107,9 +1126,9 @@ def bilstm_center_mono(
     plain version (``bilstm_center_plain``, with ``gate_store`` for K5b);
     on a CUDA tensor it launches the chosen kernel or raises. ``tile_b``
     defaults to ``SCHEDULE_TILE_B`` of the schedule and precision (K5a-c
-    in bf16, the tensor-core kernels, take 64 only; K5a and K5b in fp32
-    take the fp32 core's tiles, ``f32_shape``). Hidden over 128 raises in
-    both precisions but for K5c fp32."""
+    in bf16, the tensor-core kernels, take 64 only; K5a-c in fp32 take
+    the fp32 core's tiles, ``f32_shape``). Hidden over 128 raises in both
+    precisions."""
     schedule = mono_schedule(config, wavefront, merged_gemm, pregemm,
                              gate_store)
     gates = gate_store if schedule == "pregemm" else "fp32"

@@ -2,11 +2,11 @@
 plain versions, on the card. In bf16, K1, K4 and K5a-c are the
 tensor-core kernels (``csrc/lstm_tc.cuh``, 64 windows a tile; hidden
 105-128 over 2-CTA clusters in K1, K4, K5a and K5c, K5c a cluster of one
-CTA a layer). In fp32, K1, K4, K5a and K5b run the fp32 core
+CTA a layer). In fp32, K1, K4 and K5a-c run the fp32 core
 (``csrc/lstm_f32.cuh``, a layer's weights resident over a cluster of 1, 2
-or 4 CTAs; K5b on a persistent grid), and K4 runs every T over the
-readout cone only; K2, the training forward, runs the same core in both
-precisions.
+or 4 CTAs; K5b on a persistent grid; K5c a persistent grid of clusters of
+a CTA group a layer), and K4 runs every T over the readout cone only; K2,
+the training forward, and K6 run the same core's pieces.
 
 Marked ``gpu``: each test skips (inside its fixture) where no CUDA GPU is
 present. On a machine with a GPU and nvcc (the repo's conftest imports
@@ -389,8 +389,8 @@ def test_fp32_core_one_step_layers(cuda, hidden):
     """T=1: one step a layer, so the next layer's first read of the row
     workspace follows the previous layer's stores with no step barrier
     between (the core's prologue adds one in a cluster). K1 fp32 against
-    its plain version, K5a and K5b (fp32 gates) K1's bits, 3 layers in
-    2- and 4-CTA clusters, on 1,001 windows."""
+    its plain version, K5a-c (K5b with fp32 gates) K1's bits, 3 layers in
+    2- and 4-CTA clusters (K5c: a step an item), on 1,001 windows."""
     cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=1)
     params = init_bilstm_params(hidden + 1, cfg, device=cuda)
     x = torch.from_numpy(np.random.default_rng(hidden).standard_normal(
@@ -399,19 +399,24 @@ def test_fp32_core_one_step_layers(cuda, hidden):
     torch.cuda.synchronize()
     torch.testing.assert_close(
         k1, ops.bilstm_center_plain(params, x, cfg, "fp32"), **TOL["fp32"])
-    for flags in (dict(merged_gemm=True), dict(pregemm=True)):
+    for flags in (dict(merged_gemm=True), dict(pregemm=True),
+                  dict(wavefront=True)):
         got = ops.bilstm_center_mono(params, x, cfg, "fp32", **flags)
         torch.cuda.synchronize()
         assert torch.equal(got, k1), flags
 
 
-@pytest.mark.parametrize("label,flags", F32_SCHEDULES[:2],
-                         ids=[c[0] for c in F32_SCHEDULES[:2]])
+F32_SAME_BITS = F32_SCHEDULES[:2] + [("wavefront", dict(wavefront=True))]
+
+
+@pytest.mark.parametrize("label,flags", F32_SAME_BITS,
+                         ids=[c[0] for c in F32_SAME_BITS])
 def test_f32_schedules_launches_agree(cuda, label, flags):
-    """fp32 K5a and K5b give K1 fp32's bits at every tile of the fp32 core
-    at H=100 (8 to 40 windows in 2-CTA clusters, 64 and 80 in 4-CTA
-    ones), at F=57, and with more (tile, lane) items than K5b's persistent
-    grid has slots (4,001 windows: 202 items at tile 40)."""
+    """fp32 K5a-c (K5b with fp32 gates) give K1 fp32's bits at every tile
+    of the fp32 core at H=100 (8 to 40 windows in 2-CTA clusters, 64 and
+    80 in 4-CTA ones; K5c's clusters 3 times that), at F=57, and with more
+    (tile, lane) items than K5b's persistent grid has slots (4,001
+    windows: 202 items at tile 40)."""
     for fnum in (7, 57):
         cfg = BiLSTMConfig(num_input=fnum)
         params = init_bilstm_params(fnum, cfg, device=cuda)
@@ -427,7 +432,7 @@ def test_f32_schedules_launches_agree(cuda, label, flags):
     shape = ops.f32_schedule_shape(7, 100, "pregemm")
     resident = ops.pregemm_f32_clusters(BiLSTMConfig(num_input=7), shape,
                                         "fp32", cuda)
-    assert ops.pregemm_f32_slots(4001, shape.tile, resident) < 202
+    assert ops.f32_slots(4001, shape.tile, resident) < 202
 
 
 @pytest.mark.parametrize("hidden", [112, 128])
@@ -470,7 +475,8 @@ def test_tc_kernels_refuse_hidden_over_128(cuda):
 
 def test_fp32_pregemm_and_wavefront_unchanged(cuda):
     """fp32 K5b (fp32 gates, the fp32 core on a persistent grid) and K5c
-    (the CUDA-core kernel) give K1's bits."""
+    (the fp32 core, a persistent grid of clusters of a CTA group a layer)
+    give K1's bits."""
     cfg = BiLSTMConfig(num_input=7)
     params = init_bilstm_params(13, cfg, device=cuda)
     x = torch.from_numpy(np.random.default_rng(13).standard_normal(
@@ -589,20 +595,73 @@ def test_fp32_core_refuses_what_it_does_not_take(cuda):
 
 
 def test_wavefront_rejects_too_many_threads(cuda):
-    cfg = BiLSTMConfig(num_input=7)  # 3 layers x 100 units x 24/8 = 900
+    """fp32 K5c launches the fp32 core's CTAs: a tile that is not a
+    multiple of 8, a CTA over 256 threads (100 units x 128/8 in any
+    split) or 4 layers raise ``ValueError`` before any launch."""
+    cfg = BiLSTMConfig(num_input=7)
     params = init_bilstm_params(0, cfg, device=cuda)
     x = torch.zeros(8, 21, 7, device=cuda)
-    with pytest.raises(ValueError, match="threads"):
-        ops.bilstm_center_mono(params, x, cfg, wavefront=True, tile_b=24)
+    before = ops.MONO_SCHEDULE_LAUNCHES["wavefront"]["fp32"]
+    with pytest.raises(ValueError, match="multiple of 8"):
+        ops.bilstm_center_mono(params, x, cfg, wavefront=True, tile_b=12)
+    with pytest.raises(ValueError, match="256 threads"):
+        ops.bilstm_center_mono(params, x, cfg, wavefront=True, tile_b=256)
+    deep = BiLSTMConfig(num_input=7, num_layers=4)
+    with pytest.raises(ValueError, match="num_layers <= 3"):
+        ops.bilstm_center_mono(init_bilstm_params(0, deep, device=cuda), x,
+                               deep, wavefront=True)
+    assert ops.MONO_SCHEDULE_LAUNCHES["wavefront"]["fp32"] == before
+
+
+@pytest.mark.parametrize("hidden", [100, 128])
+@pytest.mark.parametrize("timesteps", [5, 21, 25])
+@pytest.mark.parametrize("layers", [1, 2, 3])
+def test_fp32_wavefront_gives_k1_bits(cuda, layers, timesteps, hidden):
+    """fp32 K5c (the fp32 core, a CTA group a layer: clusters of 2 x
+    layers CTAs at H=100, 4 x layers at H=128) gives K1 fp32's bits
+    (``torch.equal``) on 333 windows and on the window view of a row
+    block, streamed (the default grid; 2 clusters, one lane each; 3, whose
+    middle run crosses from the fw lane to the bw lane and reloads its
+    weights) and as a cluster a tile-lane."""
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden, timesteps=timesteps,
+                       num_layers=layers)
+    params = init_bilstm_params(timesteps + hidden + layers, cfg,
+                                device=cuda)
+    packed = ops.pack_bilstm_params(params, cfg, "fp32")
+    gen = np.random.default_rng(timesteps + layers)
+    x = torch.from_numpy(gen.standard_normal((333, timesteps, 7),
+                                             dtype=np.float32)).to(cuda)
+    rows = torch.from_numpy(gen.standard_normal((333 + timesteps - 1, 7),
+                                                dtype=np.float32)).to(cuda)
+    view = rows.as_strided((333, timesteps, 7), (7, 7, 1))
+    shape = ops.f32_schedule_shape(7, hidden, "wavefront")
+    items = 2 * -(-333 // shape.tile)
+    for inp in (x, view):
+        k1 = ops.bilstm_center_features(packed, inp, cfg, "fp32")
+        before = ops.MONO_SCHEDULE_LAUNCHES["wavefront"]["fp32"]
+        wave = ops.bilstm_center_mono(packed, inp, cfg, "fp32",
+                                      wavefront=True)
+        grids = {slots: ops._launch_mono_f32(packed, inp, cfg, None,
+                                             "wavefront", slots=slots)
+                 for slots in (items, 2, 3)}
+        torch.cuda.synchronize()
+        assert ops.MONO_SCHEDULE_LAUNCHES["wavefront"]["fp32"] == before + 4
+        assert torch.equal(wave, k1)
+        for slots, got in grids.items():
+            assert torch.equal(got, k1), slots
 
 
 # ---------------------------------------------------------------- K6, P1
 
+@pytest.mark.parametrize("hidden", [100, 128, 170])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_lstm_layer_kernel_matches_plain(cuda, reverse):
+def test_lstm_layer_kernel_matches_plain(cuda, reverse, hidden):
+    """K6 (W_h resident over a cluster: 2 CTAs at H=100 and 128, 4 at 170)
+    within 1e-5 of its plain version on 1,001 windows (a ragged last
+    tile), each launch split (1, 2, 4) at H=100 with the same bits."""
     from deepmod_tpu_torch.ops import lstm_layer as k6
 
-    cfg = BiLSTMConfig(num_input=7)
+    cfg = BiLSTMConfig(num_input=7, num_hidden=hidden)
     lp = init_bilstm_params(7, cfg, device=cuda)["fw"][0]
     x = torch.from_numpy(np.random.default_rng(7).standard_normal(
         (1001, 21, 7), dtype=np.float32)).to(cuda)
@@ -614,6 +673,13 @@ def test_lstm_layer_kernel_matches_plain(cuda, reverse):
     assert k6.LAUNCHES["fp32"] == before + 1
     want = k6.lstm_recurrence_plain(xp, w_h, 1.0, reverse)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if hidden == 100:
+        wp = k6.pack_wh(w_h)
+        for tile, split in ((16, 1), (40, 2), (64, 4)):
+            shape = k6.lstm_layer_shape(hidden, tile, split)
+            other = k6.recurrence_packed(xp, wp, 1.0, reverse, shape)
+            torch.cuda.synchronize()
+            assert torch.equal(other, got), (tile, split)
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])

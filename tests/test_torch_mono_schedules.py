@@ -12,8 +12,9 @@ can flip by one ulp the same way. The JAX kernels run with ``tile_b=8``
 on 17 windows: interpret mode costs seconds a call, so each of the eight
 full-width calls runs once, in a module fixture; so do the three calls of
 the hidden-128 case (bf16, 2 layers, 5 windows: K1 and K5b with both gate
-stores). K5a and K5b in fp32 run the fp32 core: their launch shapes, K5b's
-per-slot workspace and the weight rows they read are checked here too.
+stores). K5a-c in fp32 run the fp32 core: their launch shapes, K5b's
+per-slot workspace, K5c's clusters, grid and ring slots, and the weight
+rows they read are checked here too.
 """
 
 import jax.numpy as jnp
@@ -211,11 +212,12 @@ def test_probe_tool_runs_plain_versions(tool, capsys, monkeypatch):
 
 @pytest.mark.parametrize("fnum", [7, 57])
 @pytest.mark.parametrize("hidden", [16, 100, 128])
-@pytest.mark.parametrize("schedule", ["merged", "pregemm"])
+@pytest.mark.parametrize("schedule", ["merged", "pregemm", "wavefront"])
 def test_f32_schedule_shapes(schedule, hidden, fnum):
-    """fp32 K5a and K5b launch as K1 fp32 does (``f32_shape``'s split,
-    tile and threads), within the card's limits: K5a's operand ring takes
-    K1's bytes, K5b holds one of Wx and Wh at a time and takes fewer."""
+    """fp32 K5a-c launch their CTAs as K1 fp32 does (``f32_shape``'s split,
+    tile and threads), within the card's limits: K5a's operand ring and
+    K5c's CTA of a layer take K1's bytes, K5b holds one of Wx and Wh at a
+    time and takes fewer."""
     cfg = tb.BiLSTMConfig(num_input=fnum, num_hidden=hidden, timesteps=21)
     k1 = tf_ops.f32_shape(fnum, hidden)
     for tile in (None, 8, 24, 40):
@@ -226,12 +228,12 @@ def test_f32_schedule_shapes(schedule, hidden, fnum):
         assert shape.threads <= tf_ops.F32_MAX_THREADS
         assert shape.smem <= tf_ops.MAX_SMEM
         in_max = max(fnum, hidden)
-        if schedule == "merged":
-            assert shape.smem == base.smem
-        else:
+        if schedule == "pregemm":
             assert shape.smem == tf_ops.f32_smem(in_max, hidden, shape.split,
                                                  shape.tile, w_rows=in_max)
             assert shape.smem < base.smem
+        else:
+            assert shape.smem == base.smem
     tile = tf_ops.SCHEDULE_TILE_B[schedule]["fp32"]
     threads, most, smem = tf_ops.mono_block(cfg, schedule, tile, "fp32")
     shape = tf_ops.f32_schedule_shape(fnum, hidden, schedule, tile)
@@ -256,7 +258,7 @@ def test_pregemm_f32_workspace_is_per_slot(gate_store):
     resident = 66  # 2-CTA clusters on a 132-SM card, one CTA an SM
     got = {}
     for batch in (262144, 4194304):
-        slots = tf_ops.pregemm_f32_slots(batch, shape.tile, resident)
+        slots = tf_ops.f32_slots(batch, shape.tile, resident)
         assert slots == resident
         got[batch] = tf_ops.pregemm_f32_bytes(cfg, shape, slots, gate_store)
     assert got[262144] == got[4194304]
@@ -265,9 +267,122 @@ def test_pregemm_f32_workspace_is_per_slot(gate_store):
     assert got[262144] == 66 * (2 * 11 * 50 * 4 * 40 * size + 11 * 100 * 40 * 4)
     old = 262144 * 2 * 11 * 400 * 4
     assert got[262144] * 100 < old
-    small = tf_ops.pregemm_f32_slots(100, shape.tile, resident)
+    small = tf_ops.f32_slots(100, shape.tile, resident)
     assert small == 6  # 3 tiles x 2 lanes
     assert tf_ops.pregemm_f32_bytes(cfg, shape, small, gate_store) < got[262144]
+
+
+# ------------------------------------- K5c fp32: the streamed wavefront
+
+@pytest.mark.parametrize("layers", [1, 2, 3])
+@pytest.mark.parametrize("fnum", [7, 57])
+@pytest.mark.parametrize("hidden", [16, 100, 128])
+def test_wavefront_f32_cluster(hidden, fnum, layers):
+    """fp32 K5c's cluster is a CTA group a layer of ``f32_shape``'s split:
+    num_layers x split CTAs, 6 at H=100 and 12 at H=128 with 3 layers,
+    never over the 16 an H100 places; each CTA K1's at the default tile."""
+    cfg = tb.BiLSTMConfig(num_input=fnum, num_hidden=hidden, num_layers=layers)
+    shape = tf_ops.f32_schedule_shape(fnum, hidden, "wavefront")
+    assert shape == tf_ops.f32_shape(fnum, hidden)
+    assert shape.tile == tf_ops.SCHEDULE_TILE_B["wavefront"]["fp32"]
+    split = {16: 1, 100: 2, 128: 4}[hidden]
+    assert shape.split == split
+    assert layers * shape.split <= 16
+    assert tf_ops.mono_block(cfg, "wavefront", shape.tile, "fp32") == (
+        shape.threads, tf_ops.F32_MAX_THREADS, shape.smem)
+
+
+@pytest.mark.parametrize("batch,tile,resident", [
+    (262144, 40, 17), (262144, 40, 8), (333, 40, 17), (1000, 40, 1),
+    (7, 8, 20), (80, 40, 3)])
+def test_wavefront_f32_slots_run_every_item_once(batch, tile, resident):
+    """``f32_slots``: the resident clusters, at most the (tile,
+    lane) items; the kernel's split of the lane-major items (item i: lane
+    i // tiles, tile i % tiles) into one contiguous run a cluster runs each
+    item exactly once, the runs differ by at most one item, and a run
+    crosses from one lane to the other at most once (one weight reload)."""
+    slots = tf_ops.f32_slots(batch, tile, resident)
+    tiles = -(-batch // tile)
+    assert slots == min(2 * tiles, resident) >= 1
+    seen, sizes = [], set()
+    for slot in range(slots):
+        first = 2 * tiles * slot // slots
+        items = 2 * tiles * (slot + 1) // slots - first
+        sizes.add(items)
+        run = [(i // tiles, i % tiles) for i in range(first, first + items)]
+        lanes = [lane for lane, _ in run]
+        assert lanes == sorted(lanes)  # fw items, then bw ones
+        seen += [2 * t + lane for lane, t in run]
+    assert sorted(seen) == list(range(2 * tiles))
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def _wavefront_walk(layers, timesteps, items, slot_of):
+    """The rings of one fp32 K5c cluster over ``items`` items, wavefront
+    step by step as the kernel runs them: group L at step s runs q = s - L
+    (item q // steps, step q % steps); it reads x slot ``slot_of(q, t)``
+    (layer 0's own prefetch, or group L-1's h) and, from t = 1 on, h slot
+    ``slot_of(q - 1, t - 1)``; it writes its h into its h slot and group
+    L+1's x slot ``slot_of(q, t)``, and layer 0 prefetches step q + 1's x
+    into ``slot_of(q + 1, ...)``. Asserts that no slot is written in the
+    step that reads it and that every read sees the value it needs,
+    written in the wavefront step before (behind its barrier). Returns the
+    (item, layer) readouts in order."""
+    steps = timesteps // 2 + 1
+    work = items * steps
+    h = [[None, None] for _ in range(layers)]
+    x = [[None, None] for _ in range(layers)]
+    x[0][slot_of(0, 0)] = (("x", 0, 0), -1)  # the prologue's x_0
+    readouts = []
+    for s in range(work + layers - 1):
+        reads, writes = set(), []
+        for layer in range(layers):
+            q = s - layer
+            if not 0 <= q < work:
+                continue  # fill or drain: the barrier only
+            j, t = divmod(q, steps)
+            xs = slot_of(q, t)
+            want = ("x", j, t) if layer == 0 else ("h", layer - 1, j, t)
+            assert x[layer][xs] == (want, s - 1), (s, layer, x[layer][xs])
+            reads.add(("x", layer, xs))
+            if t > 0:
+                hs = slot_of(q - 1, t - 1)
+                assert h[layer][hs] == (("h", layer, j, t - 1), s - 1)
+                reads.add(("h", layer, hs))
+            value = ("h", layer, j, t)
+            writes.append(("h", layer, slot_of(q, t), value))
+            if layer + 1 < layers:
+                writes.append(("x", layer + 1, slot_of(q, t), value))
+            if layer == 0 and q + 1 < work:
+                jn, tn = divmod(q + 1, steps)
+                writes.append(("x", 0, slot_of(q + 1, tn), ("x", jn, tn)))
+            if layer == layers - 1 and t == steps - 1:
+                readouts.append((j, layer))
+        written = {(kind, layer, slot) for kind, layer, slot, _ in writes}
+        assert not reads & written, (s, reads & written)
+        for kind, layer, slot, value in writes:  # the barrier
+            (h if kind == "h" else x)[layer][slot] = (value, s)
+    return readouts
+
+
+@pytest.mark.parametrize("items", [1, 2, 3])
+@pytest.mark.parametrize("layers", [1, 2, 3])
+def test_wavefront_f32_ring_slots_across_items(layers, items):
+    """The streamed wavefront's two-slot rings, at every odd T the mono
+    schedules take (1-25) and 1-3 items a cluster: with the kernel's slots
+    (q & 1, q counting the group's steps over its item stream) one cluster
+    barrier a wavefront step is enough, across item boundaries too, and
+    every item's readout comes out once, in order, in n * steps +
+    num_layers - 1 wavefront steps. Slots by t & 1 instead fail as soon as
+    an item follows another after an odd number of steps."""
+    for timesteps in range(1, 26, 2):
+        steps = timesteps // 2 + 1
+        got = _wavefront_walk(layers, timesteps, items,
+                              lambda q, t: q & 1)
+        assert got == [(j, layers - 1) for j in range(items)]
+        if items > 1 and steps % 2 == 1:
+            with pytest.raises(AssertionError):
+                _wavefront_walk(layers, timesteps, items, lambda q, t: t & 1)
 
 
 @pytest.mark.parametrize("fnum,hidden", [(7, 100), (57, 100), (7, 128),
