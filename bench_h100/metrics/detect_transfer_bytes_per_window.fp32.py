@@ -1,0 +1,11 @@
+"""detect_transfer_bytes_per_window.fp32 (B/window, program counter):
+``detect_transfer_bytes_per_window`` (its reader,
+``detect_transfer_bytes_per_window.py``) in the detect cells that report
+``detect_windows_per_s.fp32``, where K1 on the fp32 core sets the pace."""
+
+import os
+
+from bench_h100.registry import load_reader
+
+read = load_reader(os.path.dirname(os.path.abspath(__file__)),
+                   "detect_transfer_bytes_per_window")

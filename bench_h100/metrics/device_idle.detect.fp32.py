@@ -1,0 +1,10 @@
+"""device_idle.detect.fp32 (%, device trace): ``device_idle.detect`` (its
+reader, ``device_idle.detect.py``) in the detect cells that report
+``detect_windows_per_s.fp32``, where K1 on the fp32 core sets the pace."""
+
+import os
+
+from bench_h100.registry import load_reader
+
+read = load_reader(os.path.dirname(os.path.abspath(__file__)),
+                   "device_idle.detect")
