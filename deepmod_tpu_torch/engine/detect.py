@@ -36,7 +36,6 @@ and names the BEDs ``cluster_mod_pos.*``.
 from __future__ import annotations
 
 import concurrent.futures as cf
-import contextlib
 import dataclasses
 import functools
 import glob
@@ -75,7 +74,7 @@ from deepmod_tpu_torch.parallel.mesh import (
 )
 from deepmod_tpu_torch.utils import ErrorCensus
 from deepmod_tpu_torch.utils.device import resolve_device
-from deepmod_tpu_torch.utils.profiling import StageTimer
+from deepmod_tpu_torch.utils.profiling import StageTimer, count, span
 
 PRE_BASE_STR = "rnn.pred.ind"  # index-file infix (myDetect.py:39)
 
@@ -259,9 +258,11 @@ class WindowPredictor:
     def _to_device(self, host: torch.Tensor,
                    device: Optional[torch.device] = None) -> torch.Tensor:
         self.transfer_bytes += host.numel() * host.element_size()
-        if not self._cuda:
-            return host
-        return host.pin_memory().to(device or self.device, non_blocking=True)
+        with span("detect.h2d"):
+            if not self._cuda:
+                return host
+            return host.pin_memory().to(device or self.device,
+                                        non_blocking=True)
 
     def _launch(self, preds: torch.Tensor):
         """Start the result fetch; returns a handle for ``_fetch``."""
@@ -279,31 +280,34 @@ class WindowPredictor:
         shard: the current stream. Several: contiguous slices of the
         windows, each on its shard's device and stream, written into one
         host buffer in order. Returns a handle for ``_fetch``."""
-        if len(self.devices) == 1:
-            return self._launch(self._fn(windows_on(0, n, self.device)))
-        from deepmod_tpu_torch.ops import bilstm_fused as ops
+        count("detect.windows_run", n)
+        with span("detect.dispatch"):
+            if len(self.devices) == 1:
+                return self._launch(self._fn(windows_on(0, n, self.device)))
+            from deepmod_tpu_torch.ops import bilstm_fused as ops
 
-        host = torch.empty(n, dtype=torch.int8, pin_memory=self._cuda)
-        events = []
-        bounds = np.linspace(0, n, len(self.devices) + 1).round().astype(int)
-        for s, dev in enumerate(self.devices):
-            lo, hi = int(bounds[s]), int(bounds[s + 1])
-            if hi == lo:
-                continue
-            before = _kernel_launches(ops)
-            if self._streams is None:
-                host[lo:hi] = self._fn(windows_on(lo, hi, dev))
-            else:
-                stream = self._streams[s]
-                stream.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.stream(stream):
-                    host[lo:hi].copy_(self._fn(windows_on(lo, hi, dev)),
-                                      non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record(stream)
-                    events.append(done)
-            self.shard_launches[s] += _kernel_launches(ops) - before
-        return host, events
+            host = torch.empty(n, dtype=torch.int8, pin_memory=self._cuda)
+            events = []
+            bounds = np.linspace(0, n, len(self.devices) + 1).round()
+            bounds = bounds.astype(int)
+            for s, dev in enumerate(self.devices):
+                lo, hi = int(bounds[s]), int(bounds[s + 1])
+                if hi == lo:
+                    continue
+                before = _kernel_launches(ops)
+                if self._streams is None:
+                    host[lo:hi] = self._fn(windows_on(lo, hi, dev))
+                else:
+                    stream = self._streams[s]
+                    stream.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.stream(stream):
+                        host[lo:hi].copy_(self._fn(windows_on(lo, hi, dev)),
+                                          non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record(stream)
+                        events.append(done)
+                self.shard_launches[s] += _kernel_launches(ops) - before
+            return host, events
 
     @staticmethod
     def _fetch(handle) -> np.ndarray:
@@ -333,16 +337,19 @@ class WindowPredictor:
     def predict(self, windows: np.ndarray) -> np.ndarray:
         """(N, T, F) -> (N,) int8 predictions."""
         n = len(windows)
+        count("detect.windows_asked", n)
         if n == 0:
             return np.empty(0, np.int8)
-        windows = self._host_cast(windows)
+        with span("detect.pack"):
+            windows = self._host_cast(windows)
         out = np.empty(n, np.int8)
-        inflight: List[Tuple[int, int, Any]] = []  # (start, count, handle)
+        inflight: List[Tuple[int, int, Any]] = []  # (start, rows, handle)
 
         def drain(limit: int) -> None:
             while len(inflight) > limit:
-                start, count, handle = inflight.pop(0)
-                out[start : start + count] = self._fetch(handle)[:count]
+                with span("detect.fetch"):
+                    start, rows, handle = inflight.pop(0)
+                    out[start : start + rows] = self._fetch(handle)[:rows]
 
         done = 0
         # consume DESCENDING buckets greedily, but stop descending once the
@@ -352,22 +359,25 @@ class WindowPredictor:
         max_waste = max(self.buckets[0], n >> 6)
         for b in reversed(self.buckets):
             while n - done >= b:
-                inflight.append((done, b, self._dispatch(b, functools.partial(
-                    self._host_windows, windows[done : done + b]))))
+                with span("detect.chunk"):
+                    windows_on = functools.partial(
+                        self._host_windows, windows[done : done + b])
+                inflight.append((done, b, self._dispatch(b, windows_on)))
                 done += b
                 drain(_LOOKAHEAD)
             rem = n - done
             if rem == 0 or self._bucket_for(rem) - rem <= max_waste:
                 break
         if done < n:
-            rem = n - done
-            bucket = self._bucket_for(rem)
-            if bucket == rem:
-                tail = windows[done:]
-            else:
-                tail = torch.zeros((bucket,) + tuple(windows.shape[1:]),
-                                   dtype=windows.dtype)
-                tail[:rem] = windows[done:]
+            with span("detect.chunk"):
+                rem = n - done
+                bucket = self._bucket_for(rem)
+                if bucket == rem:
+                    tail = windows[done:]
+                else:
+                    tail = torch.zeros((bucket,) + tuple(windows.shape[1:]),
+                                       dtype=windows.dtype)
+                    tail[:rem] = windows[done:]
             inflight.append((done, rem, self._dispatch(
                 bucket, functools.partial(self._host_windows, tail))))
         drain(0)
@@ -419,32 +429,20 @@ class WindowPredictor:
                 features, centers, window, assume_packable
             )
         half = window // 2
-        view = np.lib.stride_tricks.sliding_window_view(features, window, axis=0)
-        windows = np.moveaxis(view[centers - half], 2, 1)
+        with span("detect.pack"):
+            view = np.lib.stride_tricks.sliding_window_view(
+                features, window, axis=0)
+            windows = np.moveaxis(view[centers - half], 2, 1)
         return self.predict(windows)
 
-    def _predict_compact(
-        self, features: np.ndarray, centers: np.ndarray, window: int,
-        assume_packable: bool = False,
-    ) -> np.ndarray:
-        """Ship (rows, fnum) row chunks, classify EVERY window of a chunk
-        (the kernel reads window i as rows i..i+T-1 in place), keep the
-        requested centers on the host. Bit-identical to window transfer:
-        the window build is a pure copy and the bf16 rounding happens on
-        the same host values."""
-        n = len(centers)
-        half = window // 2
-        if n > 1 and not np.all(np.diff(centers) >= 0):
-            raise ValueError("compact transfer requires ascending centers")
-        if int(centers[0]) < half or int(centers[-1]) + half >= len(features):
-            raise ValueError(
-                "compact transfer requires a full window inside features "
-                f"for every center (first={int(centers[0])}, "
-                f"last={int(centers[-1])}, rows={len(features)}, "
-                f"window={window})"
-            )
+    def _compact_columns(
+        self, features: np.ndarray, assume_packable: bool,
+    ) -> List[Tuple[torch.Tensor, int]]:
+        """The row-aligned host tensors that compact transfer ships, each
+        with the value that pads it: (codes, rest) with the one-hot pack,
+        (hist, codes, rest) with the fnum-57 pack, else the cast rows."""
         pack: Any = False
-        feats_t = None
+        cols = None
         if self._pack_hist:
             # fnum-57 columns: [hist 0..49 | onehot 50..53 | mean stdv
             # length 54..56] (features/builder.py layout). The < 256 gate
@@ -464,10 +462,10 @@ class WindowPredictor:
                 codes_t = torch.full((len(features),), 4, dtype=torch.uint8)
                 for k in range(3, -1, -1):
                     codes_t[cast[:, 50 + k] != 0] = k
-                hist_t = hist.to(torch.uint8)
-                rest_t = cast[:, 54:]
+                cols = [(hist.to(torch.uint8), 0), (codes_t, 4),
+                        (cast[:, 54:], 0)]
             else:
-                feats_t = cast
+                cols = [(cast, 0)]
         elif self._pack_onehot:
             check_ok = True
             if not assume_packable:
@@ -482,18 +480,44 @@ class WindowPredictor:
                 codes = np.full(len(features), 4, np.uint8)
                 for k in range(3, -1, -1):
                     codes[features[:, k] != 0] = k
-                codes_t = torch.from_numpy(codes)
-                rest_t = self._host_cast(features[:, 4:])
-        if not pack and feats_t is None:
-            feats_t = self._host_cast(features)
+                cols = [(torch.from_numpy(codes), 4),
+                        (self._host_cast(features[:, 4:]), 0)]
+        if cols is None:
+            cols = [(self._host_cast(features), 0)]
         self.compact_modes.add(pack)
+        return cols
+
+    def _predict_compact(
+        self, features: np.ndarray, centers: np.ndarray, window: int,
+        assume_packable: bool = False,
+    ) -> np.ndarray:
+        """Ship (rows, fnum) row chunks, classify EVERY window of a chunk
+        (the kernel reads window i as rows i..i+T-1 in place), keep the
+        requested centers on the host. Bit-identical to window transfer:
+        the window build is a pure copy and the bf16 rounding happens on
+        the same host values."""
+        n = len(centers)
+        count("detect.windows_asked", n)
+        half = window // 2
+        if n > 1 and not np.all(np.diff(centers) >= 0):
+            raise ValueError("compact transfer requires ascending centers")
+        if int(centers[0]) < half or int(centers[-1]) + half >= len(features):
+            raise ValueError(
+                "compact transfer requires a full window inside features "
+                f"for every center (first={int(centers[0])}, "
+                f"last={int(centers[-1])}, rows={len(features)}, "
+                f"window={window})"
+            )
+        with span("detect.pack"):
+            cols = self._compact_columns(features, assume_packable)
         out = np.empty(n, np.int8)
         inflight: List[Tuple[int, int, np.ndarray, Any]] = []
 
         def drain(limit: int) -> None:
             while len(inflight) > limit:
-                i, j, idx, handle = inflight.pop(0)
-                out[i:j] = self._fetch(handle)[idx]
+                with span("detect.fetch"):
+                    i, j, idx, handle = inflight.pop(0)
+                    out[i:j] = self._fetch(handle)[idx]
 
         # a row chunk must cover at least one full window or the loop
         # below cannot advance; round the floor up to a multiple of the
@@ -502,26 +526,21 @@ class WindowPredictor:
         min_rows = -(-min_rows // self.n_shards) * self.n_shards
         i = 0
         while i < n:
-            row0 = int(centers[i]) - half
-            span = int(centers[-1]) + half + 1 - row0
-            bucket = (
-                self.buckets[-1]
-                if span >= self.buckets[-1]
-                else self._bucket_for(span)
-            )
-            bucket = max(bucket, min_rows)
-            # centers computable from rows [row0, row0+bucket):
-            # c + half <= row0 + bucket - 1
-            j = int(np.searchsorted(centers, row0 + bucket - half, "left"))
-            idx = np.asarray(centers[i:j]) - row0 - half
-            if pack:
-                chunks = (_pad_rows(codes_t[row0 : row0 + bucket], bucket, 4),
-                          _pad_rows(rest_t[row0 : row0 + bucket], bucket, 0))
-                if pack == "hist":
-                    chunks = (_pad_rows(hist_t[row0 : row0 + bucket],
-                                        bucket, 0),) + chunks
-            else:
-                chunks = (_pad_rows(feats_t[row0 : row0 + bucket], bucket, 0),)
+            with span("detect.chunk"):
+                row0 = int(centers[i]) - half
+                span_rows = int(centers[-1]) + half + 1 - row0
+                bucket = (
+                    self.buckets[-1]
+                    if span_rows >= self.buckets[-1]
+                    else self._bucket_for(span_rows)
+                )
+                bucket = max(bucket, min_rows)
+                # centers computable from rows [row0, row0+bucket):
+                # c + half <= row0 + bucket - 1
+                j = int(np.searchsorted(centers, row0 + bucket - half, "left"))
+                idx = np.asarray(centers[i:j]) - row0 - half
+                chunks = tuple(_pad_rows(c[row0 : row0 + bucket], bucket, fill)
+                               for c, fill in cols)
             inflight.append((i, j, idx, self._dispatch(
                 bucket - window + 1,
                 functools.partial(self._window_view, chunks, window))))
@@ -580,28 +599,23 @@ def _host_options(config: DetectConfig):
     )
 
 
-def _nullstage(timer):
-    return timer.stage if timer is not None else (
-        lambda name: contextlib.nullcontext()
-    )
-
-
 def predict_batch_windows(
     results, predictor: WindowPredictor, timer=None,
     target_base: Optional[str] = None,
 ) -> np.ndarray:
     """The DEVICE part of one batch: classify every read's windows (only
     refbase == ``target_base`` windows when set, detect --targetOnly)."""
-    stage = _nullstage(timer)
-    with stage("device_inference"):
-        all_features, all_centers, selections, n_total = build_batch_request(
-            results, target_base
-        )
+    with span("device_inference", timer):
+        with span("detect.request"):
+            all_features, all_centers, selections, n_total = (
+                build_batch_request(results, target_base))
         preds_sel = predictor.predict_from_features(
             all_features, all_centers, window=predictor.config.timesteps,
             assume_packable=True,
         )
-        return scatter_selected_preds(results, selections, preds_sel, n_total)
+        with span("detect.scatter"):
+            return scatter_selected_preds(results, selections, preds_sel,
+                                          n_total)
 
 
 def apply_batch_outputs(
@@ -618,7 +632,6 @@ def apply_batch_outputs(
     count accumulation. Mutates ``counts``: one thread at a time. With
     ``agg_mesh`` (device aggregation), each key's coverage and mod counts
     of the batch go through ONE reduction over the mesh's shards."""
-    stage = _nullstage(timer)
     if not results:
         return 0, 0, []
     batch_obs: Dict[Tuple[str, str], list] = {}
@@ -638,14 +651,14 @@ def apply_batch_outputs(
         )
         return True
 
-    with stage("outputs_and_aggregation"):
+    with span("outputs_and_aggregation", timer):
         n_reads, n_windows, index_entries = write_batch_outputs(
             results, preds, _output_options(config), counts, batch_id,
             ct_folder,
             collect=collect_for_device if agg_mesh is not None else None,
         )
     if batch_obs:
-        with stage("device_aggregation"):
+        with span("device_aggregation", timer):
             for key, obs in batch_obs.items():
                 pos = np.concatenate([o[0] for o in obs])
                 mod = np.concatenate([o[1] for o in obs])
@@ -689,7 +702,6 @@ def _merge_counts_coo(
     """Fold a worker batch's COO count summary into the engine's counters
     — the only serialized piece of the output stage under HostPool; with
     ``agg_mesh``, through the device reduction."""
-    stage = _nullstage(timer)
     for chrom, strand, length, pos, cov, mod in coo:
         key = (chrom, strand)
         if key not in counts:
@@ -697,7 +709,7 @@ def _merge_counts_coo(
         pc = counts[key]
         if agg_mesh is not None and pc.dense and len(pos):
             pc.seen[pos] = True
-            with stage("device_aggregation"):
+            with span("device_aggregation", timer):
                 _device_accumulate(agg_mesh, pc, pos, cov.astype(np.int64),
                                    mod.astype(np.int64))
         else:
@@ -923,14 +935,14 @@ def _detect_run_inner(
                     continue
                 # the engine's wait on the host stage (the single-process
                 # path's counterpart: host_ingest_align_features)
-                with timer.stage("wait_for_host_workers"):
+                with span("wait_for_host_workers", timer):
                     msg = pool.next_message()
                 kind = msg[0]
                 if kind == "features":
                     _, wid, bid, feats, centers, batch_errors = msg
                     for ekind, paths in batch_errors.items():
                         errors.extend(ekind, paths)
-                    with timer.stage("device_inference"):
+                    with span("device_inference", timer):
                         preds_sel = predictor.predict_from_features(
                             feats, centers,
                             window=predictor.config.timesteps,
@@ -947,7 +959,7 @@ def _detect_run_inner(
                     all_index.extend(idx)
                     if secs:
                         timer.add("outputs_in_workers", secs)
-                    with timer.stage("counts_merge"):
+                    with span("counts_merge", timer):
                         _merge_counts_coo(counts, coo, agg_mesh, timer)
                     bid_to_batch.pop(bid, None)
                     outstanding -= 1
@@ -980,7 +992,7 @@ def _detect_run_inner(
             )
             for pos, (batch_id, batch) in enumerate(todo):
                 try:
-                    with timer.stage("host_ingest_align_features"):
+                    with span("host_ingest_align_features", timer):
                         results, batch_errors = future.result()
                 except Exception as exc:
                     errors.add(
@@ -1025,7 +1037,7 @@ def _detect_run_inner(
             merge_index_parts,
         )
 
-        with timer.stage("cross_process_merge"):
+        with span("cross_process_merge", timer):
             ref_fa = FastaReference(config.ref)
             chrom_lengths = {n: ref_fa.length(n) for n in ref_fa.names()}
             counts = merge_counts_across_processes(counts, chrom_lengths)

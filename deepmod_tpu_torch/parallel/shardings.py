@@ -38,6 +38,7 @@ from deepmod_tpu_torch.models.bilstm import (
 )
 from deepmod_tpu_torch.models.tf_import import params_from_numpy
 from deepmod_tpu_torch.ops import bilstm_fused_train as train_ops
+from deepmod_tpu_torch.utils.profiling import span
 
 from .aggregation import _as_tensor
 from .mesh import Mesh, comm_device
@@ -140,12 +141,14 @@ class ShardedTrainStep:
             for p in rleaves:
                 p.requires_grad_(True)
             try:
-                ms = mask[sl].to(dev, torch.float32)
-                per_example = bilstm_example_losses(
-                    replica, x[sl].to(dev, torch.float32), y[sl].to(dev),
-                    self.model_config, self.unbalanced, self.precision)
-                shard_sum = torch.sum(per_example * ms)
-                grads = torch.autograd.grad(shard_sum, rleaves)
+                with span("train.forward"):
+                    ms = mask[sl].to(dev, torch.float32)
+                    per_example = bilstm_example_losses(
+                        replica, x[sl].to(dev, torch.float32), y[sl].to(dev),
+                        self.model_config, self.unbalanced, self.precision)
+                    shard_sum = torch.sum(per_example * ms)
+                with span("train.backward"):
+                    grads = torch.autograd.grad(shard_sum, rleaves)
             finally:
                 for p in rleaves:
                     p.requires_grad_(False)
@@ -157,8 +160,9 @@ class ShardedTrainStep:
                 acc += g.to(home)
         lsum, msum = _reduce(self.mesh, lsum, msum, gsum)
         denom = torch.clamp(msum, min=1.0)
-        adam_update(params, [g / denom for g in gsum], opt_state,
-                    self.learning_rate)
+        grads = [g / denom for g in gsum]
+        with span("train.adam"):
+            adam_update(params, grads, opt_state, self.learning_rate)
         return lsum / denom
 
 
@@ -213,12 +217,14 @@ class TensorParallelTrainStep:
             for p in leaves:
                 p.requires_grad_(True)
             dev = shards[0]["out_w"].device
-            ms = mask[sl].to(dev, torch.float32)
-            per_example = _tp_example_losses(
-                shards, x[sl].to(dev, torch.float32), y[sl],
-                self.model_config, self.unbalanced)
-            shard_sum = torch.sum(per_example * ms)
-            grads = torch.autograd.grad(shard_sum, leaves)
+            with span("train.forward"):
+                ms = mask[sl].to(dev, torch.float32)
+                per_example = _tp_example_losses(
+                    shards, x[sl].to(dev, torch.float32), y[sl],
+                    self.model_config, self.unbalanced)
+                shard_sum = torch.sum(per_example * ms)
+            with span("train.backward"):
+                grads = torch.autograd.grad(shard_sum, leaves)
             lsum += shard_sum.detach().to(home)
             msum += ms.sum().to(home)
             if gsum is None:
@@ -233,14 +239,18 @@ class TensorParallelTrainStep:
         nu = shard_params(opt_state["nu"], groups[0], copy=True)
         count = opt_state["count"]
         grads = iter(gsum)
-        for blocks, m, v in zip(replicas[0], mu, nu):
+        blocks_grads = []
+        for blocks in replicas[0]:
             for p in shard_leaves(blocks):
                 p.requires_grad_(False)
-            block_grads = [next(grads) / denom.to(p.device)
-                           for p in shard_leaves(blocks)]
-            state = {"count": count, "mu": m, "nu": v}
-            adam_update(blocks, block_grads, state, self.learning_rate,
-                        leaves=shard_leaves)
+            blocks_grads.append([next(grads) / denom.to(p.device)
+                                 for p in shard_leaves(blocks)])
+        with span("train.adam"):
+            for blocks, block_grads, m, v in zip(replicas[0], blocks_grads,
+                                                 mu, nu):
+                state = {"count": count, "mu": m, "nu": v}
+                adam_update(blocks, block_grads, state, self.learning_rate,
+                            leaves=shard_leaves)
         opt_state["count"] = count + 1
         self._write_back(params, replicas[0])
         self._write_back(opt_state["mu"], mu)

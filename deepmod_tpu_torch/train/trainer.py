@@ -44,6 +44,7 @@ from deepmod_tpu_torch.models.tf_import import (
 )
 from deepmod_tpu_torch.tools.evaluate import roc_auc_score as roc_auc
 from deepmod_tpu_torch.utils.device import resolve_device
+from deepmod_tpu_torch.utils.profiling import span
 from .loader import TestSplit, iterate_training_batches, load_feature_file
 
 
@@ -161,15 +162,18 @@ def make_train_step(
         for p in leaves:
             p.requires_grad_(True)
         try:
-            per_example = bilstm_example_losses(params, x, y, model_config,
-                                                unbalanced, precision)
-            loss = torch.sum(per_example * mask) / torch.clamp(mask.sum(),
-                                                               min=1.0)
-            grads = torch.autograd.grad(loss, leaves)
+            with span("train.forward"):
+                per_example = bilstm_example_losses(params, x, y, model_config,
+                                                    unbalanced, precision)
+                loss = torch.sum(per_example * mask) / torch.clamp(mask.sum(),
+                                                                   min=1.0)
+            with span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves)
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        adam_update(params, grads, opt_state, learning_rate)
+        with span("train.adam"):
+            adam_update(params, grads, opt_state, learning_rate)
         return loss.detach()
 
     return step
