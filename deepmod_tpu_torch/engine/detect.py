@@ -149,7 +149,10 @@ class WindowPredictor:
     their predictions are dropped). Host->device copies go through pinned
     memory with ``non_blocking=True`` and results come back through an
     async copy and an event, so the host prepares chunk i+1 while the
-    device computes chunk i.
+    device computes chunk i. Compact transfer ships each chunk's feature
+    rows in the caller's fp32, as they stand, and casts them once to the
+    kernel's dtype on the device: the host makes no pass over the batch
+    before the first chunk goes.
 
     Data parallel (more than one shard): ``devices`` lists this process's
     shards, one entry a shard, repeats allowed (by default every visible
@@ -200,15 +203,19 @@ class WindowPredictor:
         self._model = pack_bilstm_params(self.params, config, precision)
         if compact_transfer is None:
             # ship compact (rows, fnum) feature blocks and let the kernel
-            # read each window in place: 21x fewer host->device bytes
+            # read each window in place: 10-21x fewer host->device bytes
+            # than materialized windows (bf16 / fp32)
             compact_transfer = self._cuda
         self.compact_transfer = bool(compact_transfer)
-        # packed compact transfer: the 4 one-hot refbase columns ride as
-        # ONE uint8 code (0..3 = ACGT, 4 = no base) and are rebuilt on the
-        # device from a 5x4 LUT — bit-identical (LUT rows are exact 0/1);
-        # DMT_COMPACT_PACK=0 turns it off (A/B, as in the JAX package)
+        # compact transfer ships fp32 rows, cast to the kernel's dtype on
+        # the device. Opt-in one-hot pack (DMT_COMPACT_PACK=1, as in the
+        # JAX package): the 4 one-hot refbase columns ride as ONE uint8
+        # code (0..3 = ACGT, 4 = no base), rebuilt on the device from a 5x4
+        # LUT, the rest cast on the host — bit-identical (LUT rows are
+        # exact 0/1) with fewer link bytes, but a host pass over the batch
+        # that leaves the card idle behind a fast link
         self._pack_onehot = (config.num_input == 7
-                             and os.environ.get("DMT_COMPACT_PACK", "1") != "0")
+                             and os.environ.get("DMT_COMPACT_PACK", "0") != "0")
         # fnum 57, opt-in (DMT_COMPACT_PACK57=1, as in the JAX package):
         # when every histogram value of a call is an integer in [0, 256)
         # the 50 histogram columns ride as uint8 beside the one-hot code
@@ -388,14 +395,18 @@ class WindowPredictor:
     def _window_view(self, chunks, window: int, lo: int, hi: int,
                      device: torch.device) -> torch.Tensor:
         """Windows lo..hi-1 of a compact row chunk on ``device``: rows
-        lo..hi+T-2 (the T-1 rows of halo) copied over, the one-hot columns
-        rebuilt from the codes through the LUT when ``chunks`` is (codes,
-        rest) or (hist, codes, rest) (the uint8 histogram columns cast to
-        the feature dtype in front), and the overlapping window view the
-        kernel reads in place."""
+        lo..hi+T-2 (the T-1 rows of halo) copied over, then cast there to
+        the kernel's dtype when ``chunks`` is the fp32 rows alone (round to
+        nearest even, the host cast's bits; none at fp32); the one-hot
+        columns rebuilt from the codes through the LUT when ``chunks`` is
+        (codes, rest) or (hist, codes, rest) (the uint8 histogram columns
+        cast to the feature dtype in front); and the overlapping window
+        view the kernel reads in place."""
         rows = slice(lo, hi + window - 1)
         if len(chunks) == 1:
             feats = self._to_device(chunks[0][rows], device)
+            count("detect.rows_cast_on_device", len(feats))
+            feats = feats.to(self._dtype)
         else:
             *hist, codes, rest = (self._to_device(c[rows], device)
                                   for c in chunks)
@@ -440,7 +451,9 @@ class WindowPredictor:
     ) -> List[Tuple[torch.Tensor, int]]:
         """The row-aligned host tensors that compact transfer ships, each
         with the value that pads it: (codes, rest) with the one-hot pack,
-        (hist, codes, rest) with the fnum-57 pack, else the cast rows."""
+        (hist, codes, rest) with the fnum-57 pack, else the rows as they
+        stand in fp32 (a copy only for another dtype), which
+        ``_window_view`` casts on the device."""
         pack: Any = False
         cols = None
         if self._pack_hist:
@@ -464,8 +477,6 @@ class WindowPredictor:
                     codes_t[cast[:, 50 + k] != 0] = k
                 cols = [(hist.to(torch.uint8), 0), (codes_t, 4),
                         (cast[:, 54:], 0)]
-            else:
-                cols = [(cast, 0)]
         elif self._pack_onehot:
             check_ok = True
             if not assume_packable:
@@ -483,7 +494,7 @@ class WindowPredictor:
                 cols = [(torch.from_numpy(codes), 4),
                         (self._host_cast(features[:, 4:]), 0)]
         if cols is None:
-            cols = [(self._host_cast(features), 0)]
+            cols = [(torch.from_numpy(np.asarray(features, np.float32)), 0)]
         self.compact_modes.add(pack)
         return cols
 
@@ -494,8 +505,9 @@ class WindowPredictor:
         """Ship (rows, fnum) row chunks, classify EVERY window of a chunk
         (the kernel reads window i as rows i..i+T-1 in place), keep the
         requested centers on the host. Bit-identical to window transfer:
-        the window build is a pure copy and the bf16 rounding happens on
-        the same host values."""
+        the window build is a pure copy, and the bf16 rounding of the same
+        fp32 values rounds to nearest even on the device as on the
+        host."""
         n = len(centers)
         count("detect.windows_asked", n)
         half = window // 2

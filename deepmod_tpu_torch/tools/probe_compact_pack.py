@@ -4,13 +4,16 @@
     python -m deepmod_tpu_torch.tools.probe_compact_pack [--rows 4194304]
         [--passes 3] [--fnum 7|57] [--device cuda]
 
-Counterpart of ``scripts/probe_compact_pack.py``. ``--fnum 7`` packs the
-4 one-hot columns as one uint8 code (bf16: 7 B a row against 14);
-``--fnum 57`` also the 50 histogram columns as uint8 (bf16: 57 B a row
-against 114; opt-in ``DMT_COMPACT_PACK57=1``). One process alternates
-the two modes over the same block of engine-shaped rows, so the card and
-its link are the same for both; the packed predictions must equal the
-unpacked ones (checked: a mismatch exits non-zero). Each pass is a host
+Counterpart of ``scripts/probe_compact_pack.py``. "plain" is detect's
+default: the fp32 rows as they stand, cast to the kernel's dtype on the
+card (28 B a row at ``--fnum 7``, 228 at 57). "packed" is the opt-in
+pack, its columns cast on the host: ``--fnum 7`` the 4 one-hot columns
+as one uint8 code (``DMT_COMPACT_PACK=1``; bf16: 7 B a row), ``--fnum
+57`` also the 50 histogram columns as uint8 (``DMT_COMPACT_PACK57=1``;
+bf16: 57 B a row). One process alternates the two modes over the same
+block of engine-shaped rows, so the card and its link are the same for
+both; the packed predictions must equal the plain ones (checked: a
+mismatch exits non-zero). Each pass is a host
 clock around a synchronized call. Prints a JSON line a pass and a summary
 line with the bytes each mode moved a row. ``--fnum 57`` caps the rows at
 2,097,152 (57-wide rows). On the card bf16 by default, on the CPU fp32
@@ -35,8 +38,8 @@ PACK_ENV = {7: "DMT_COMPACT_PACK", 57: "DMT_COMPACT_PACK57"}
 
 def predictors(params, config, fnum: int, device: str, precision: str,
                buckets):
-    """(packed, unpacked) compact-transfer predictors: the pack switched
-    by its environment variable, as in the JAX package."""
+    """(packed, plain) compact-transfer predictors: the pack switched on
+    and off by its environment variable, as in the JAX package."""
     from deepmod_tpu_torch.engine.detect import WindowPredictor
 
     name = PACK_ENV[fnum]

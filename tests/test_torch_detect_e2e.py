@@ -309,8 +309,8 @@ def test_predictor_packed_hist_equality(hist_model, monkeypatch, precision):
     ride as uint8 beside the one-hot code (57 B a row in bf16, 63 in
     fp32). Predictions are the bits of the unpacked compact path and of
     window transfer; a count >= 256 falls back to the unpacked transfer
-    also under ``assume_packable``, a fractional count when the scan
-    runs."""
+    (fp32 rows, 228 B) also under ``assume_packable``, a fractional count
+    when the scan runs."""
     feats, centers = _hist_features()
     packed = _predictor(hist_model, monkeypatch, True, precision=precision,
                         compact_transfer=True)
@@ -345,9 +345,8 @@ def test_predictor_packed_hist_equality(hist_model, monkeypatch, precision):
         np.testing.assert_array_equal(
             packed.predict_from_features(frac, centers),
             win.predict_from_features(frac, centers))
-        # unpacked: 57 feature columns a row in the transfer dtype
-        assert packed.transfer_bytes - before == rows * 57 * (
-            2 if precision == "bf16" else 4)
+        # unpacked: 57 fp32 feature columns a row, cast where they land
+        assert packed.transfer_bytes - before == rows * 57 * 4
 
 
 def test_predictor_packed_hist_matches_jax(hist_model, monkeypatch):

@@ -933,3 +933,52 @@ def test_k1_tanh_sigmoid_variant(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL["fp32"])
     assert torch.equal(ops.bilstm_center_mono(params, x, cfg, "fp32"), want)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_compact_rows_cast_on_card_match_the_pack(cuda, precision,
+                                                  monkeypatch):
+    """Detect's default compact transfer ships the caller's fp32 rows and
+    casts them on the card: over two buckets (4,096 and 1,024 rows) and a
+    ragged tail (780 of 1,024 rows), its predictions equal the opt-in
+    one-hot pack's (``DMT_COMPACT_PACK=1``: codes through the LUT, the
+    rest cast on the host) and the materialized windows', bit for bit,
+    and every chunk reaches K1 in the kernel's dtype."""
+    from deepmod_tpu_torch.engine.detect import WindowPredictor
+
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(12, cfg, device="cpu")  # both classes
+    rng = np.random.default_rng(20)
+    rows = 2 * 4096 + 740
+    feats = np.zeros((rows, 7), np.float32)
+    hot = rng.integers(0, 5, rows)  # 4: no base
+    for b in range(4):
+        feats[hot == b, b] = 1.0
+    feats[:, 4:6] = rng.standard_normal((rows, 2)) * 2  # bf16 rounds them
+    feats[:, 6] = rng.integers(1, 40, rows)
+    centers = np.arange(10, rows - 10, dtype=np.int64)
+    kw = dict(buckets=(1024, 4096), device=cuda, precision=precision)
+    plain = WindowPredictor(params, cfg, compact_transfer=True, **kw)
+    win = WindowPredictor(params, cfg, compact_transfer=False, **kw)
+    monkeypatch.setenv("DMT_COMPACT_PACK", "1")
+    packed = WindowPredictor(params, cfg, compact_transfer=True, **kw)
+    fed = []
+    real_fn = plain._fn
+
+    def spy_fn(x):
+        fed.append((x.dtype, x.device.type))
+        return real_fn(x)
+
+    plain._fn = spy_fn
+    before = ops.LAUNCHES[precision]
+    got = plain.predict_from_features(feats, centers, assume_packable=True)
+    assert ops.LAUNCHES[precision] == before + 3
+    assert fed == [(plain._dtype, "cuda")] * 3
+    assert plain.transfer_bytes == 4 * 7 * (2 * 4096 + 1024)
+    want = packed.predict_from_features(feats, centers, assume_packable=True)
+    assert plain.compact_modes == {False}
+    assert packed.compact_modes == {"onehot"}
+    assert 0 < int(got.sum()) < len(got)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, win.predict_from_features(feats,
+                                                                 centers))

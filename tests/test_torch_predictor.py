@@ -1,5 +1,6 @@
-"""The port's WindowPredictor on the CPU: bucket schedule, compact and
-packed transfer, guards and sparse routing (mirroring the JAX package's
+"""The port's WindowPredictor on the CPU: bucket schedule, compact
+transfer (fp32 rows cast where they land, and the opt-in pack), its
+bytes and counter, guards and sparse routing (mirroring the JAX package's
 tests/test_detect_e2e.py predictor tests), then identical fp32
 predictions to the JAX WindowPredictor on the same weights and features.
 """
@@ -7,6 +8,7 @@ predictions to the JAX WindowPredictor on the same weights and features.
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from deepmod_tpu.engine.detect import WindowPredictor as JaxPredictor
 from deepmod_tpu.models import bilstm as jb
@@ -14,6 +16,7 @@ from deepmod_tpu_torch.engine.detect import WindowPredictor
 from deepmod_tpu_torch.models import bilstm as tb
 from deepmod_tpu_torch.models.tf_import import params_to_numpy
 from deepmod_tpu_torch.testing.threads import one_thread  # noqa: F401
+from deepmod_tpu_torch.utils import profiling
 
 
 CFG = tb.BiLSTMConfig(num_input=7)
@@ -110,19 +113,20 @@ def test_compact_transfer_at_layered_window_sizes(window):
     half = window // 2
     centers = np.arange(half, 400 - half, dtype=np.int64)
     got = cmp.predict_from_features(feats, centers, window)
-    assert cmp.compact_modes == {"onehot"}
+    assert cmp.compact_modes == {False}  # fp32 rows, cast where they land
     np.testing.assert_array_equal(
         got, ref.predict_from_features(feats, centers, window))
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_packed_compact_equals_unpacked(params, precision):
+def test_packed_compact_equals_unpacked(params, precision, monkeypatch):
     rng = np.random.default_rng(11)
     feats = _engine_features(rng, 900)
     centers = np.arange(12, 900 - 12, dtype=np.int64)
     kw = dict(buckets=(64, 256), device="cpu", precision=precision)
-    packed = WindowPredictor(params, CFG, compact_transfer=True, **kw)
     win = WindowPredictor(params, CFG, compact_transfer=False, **kw)
+    monkeypatch.setenv("DMT_COMPACT_PACK", "1")  # the pack is opt-in
+    packed = WindowPredictor(params, CFG, compact_transfer=True, **kw)
     assert packed._pack_onehot
     got = packed.predict_from_features(feats, centers)
     assert packed.compact_modes == {"onehot"}
@@ -136,6 +140,73 @@ def test_packed_compact_equals_unpacked(params, precision):
         win.predict_from_features(rand, centers),
     )
     assert False in packed.compact_modes
+
+
+# the hand count of the compact chunks at buckets (64, 256), T=21, the
+# centers every row with a full window: 290 rows, a 256-row chunk (236
+# windows) and a ragged 64-row one (54 rows, 44 windows); 600 rows, three
+# 256-row chunks (236 windows each), the last ragged (128 rows)
+ROW_CHUNKS = {290: (2, 236 + 44), 600: (3, 3 * 236)}
+CAST_ROWS = "detect.rows_cast_on_device"
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_default_compact_ships_fp32_rows_cast_on_device(precision, shards,
+                                                        monkeypatch):
+    """The default compact path ships the caller's fp32 rows as they stand
+    and casts them to the kernel's dtype where they land: predictions equal
+    the materialized windows' and the opt-in one-hot pack's bit for bit,
+    over ragged last chunks, on one shard and two; ``transfer_bytes`` is 4 B
+    a column of every row shipped (each shard's T-1 rows of halo
+    included); the counter of rows cast on the device counts those rows
+    under a profiler and stands still without one."""
+    cfg = tb.BiLSTMConfig(num_input=7, num_hidden=16)
+    p = params_to_numpy(tb.init_bilstm_params(8, cfg, device="cpu"))
+    kw = dict(buckets=(64, 256), device="cpu", precision=precision,
+              devices=["cpu"] * shards)
+    plain = WindowPredictor(p, cfg, compact_transfer=True, **kw)
+    win = WindowPredictor(p, cfg, compact_transfer=False, **kw)
+    monkeypatch.setenv("DMT_COMPACT_PACK", "1")
+    packed = WindowPredictor(p, cfg, compact_transfer=True, **kw)
+    assert packed._pack_onehot and not plain._pack_onehot
+    fed = set()
+    real_fn = plain._fn
+
+    def spy_fn(x):
+        fed.add(x.dtype)
+        return real_fn(x)
+
+    plain._fn = spy_fn
+    rng = np.random.default_rng(17)
+    for rows, (chunks, windows) in ROW_CHUNKS.items():
+        feats = _engine_features(rng, rows)
+        feats[:, 4:6] = rng.standard_normal((rows, 2))  # bf16 rounds them
+        centers = np.arange(10, rows - 10, dtype=np.int64)
+        bytes0 = plain.transfer_bytes
+        before = profiling.counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = plain.predict_from_features(feats, centers,
+                                              assume_packable=True)
+        after = profiling.counters()
+        delta = {k: after.get(k, 0) - before.get(k, 0)
+                 for k in (CAST_ROWS, "detect.windows_run")}
+        shipped = windows + chunks * shards * 20
+        assert plain.transfer_bytes - bytes0 == 4 * 7 * shipped
+        assert delta == {CAST_ROWS: shipped, "detect.windows_run": windows}
+        np.testing.assert_array_equal(
+            got, win.predict_from_features(feats, centers))
+        np.testing.assert_array_equal(
+            got, packed.predict_from_features(feats, centers,
+                                              assume_packable=True))
+        assert 0 < int(got.sum()) < len(got)
+        untraced = profiling.counters()
+        np.testing.assert_array_equal(
+            plain.predict_from_features(feats, centers), got)
+        assert profiling.counters() == untraced
+    assert fed == {plain._dtype}
+    assert plain.compact_modes == {False}
+    assert packed.compact_modes == {"onehot"}
 
 
 def test_compact_transfer_guards(params):
@@ -178,20 +249,25 @@ def test_sparse_selection_routes_to_window_transfer(params):
 
 
 @pytest.mark.parametrize("compact", [False, True])
-def test_predictions_identical_to_jax_predictor(params, compact):
+def test_predictions_identical_to_jax_predictor(params, compact,
+                                                monkeypatch):
     """Same numpy weights and engine-shaped features through the JAX
-    predictor (scan path, fp32) and the port's (plain version, fp32)."""
+    predictor (scan path, fp32) and the port's (plain version, fp32), with
+    the one-hot pack off (the port's default) and on: the same predictions
+    and host->device bytes."""
     rng = np.random.default_rng(21)
     feats = _engine_features(rng, 3000)
     centers = np.arange(100, 2900, dtype=np.int64)
-    jp = JaxPredictor(params, jb.BiLSTMConfig(num_input=7),
-                      buckets=(512, 4096), use_pallas=False,
-                      data_parallel=False, precision="fp32",
-                      compact_transfer=compact)
-    tp = WindowPredictor(params, CFG, buckets=(512, 4096), device="cpu",
-                         precision="fp32", compact_transfer=compact)
-    want = jp.predict_from_features(feats, centers, assume_packable=True)
-    got = tp.predict_from_features(feats, centers, assume_packable=True)
-    assert 0 < int(want.sum()) < len(want)
-    np.testing.assert_array_equal(got, want)
-    assert tp.transfer_bytes == jp.transfer_bytes
+    for pack in ("0", "1") if compact else ("0",):
+        monkeypatch.setenv("DMT_COMPACT_PACK", pack)
+        jp = JaxPredictor(params, jb.BiLSTMConfig(num_input=7),
+                          buckets=(512, 4096), use_pallas=False,
+                          data_parallel=False, precision="fp32",
+                          compact_transfer=compact)
+        tp = WindowPredictor(params, CFG, buckets=(512, 4096), device="cpu",
+                             precision="fp32", compact_transfer=compact)
+        want = jp.predict_from_features(feats, centers, assume_packable=True)
+        got = tp.predict_from_features(feats, centers, assume_packable=True)
+        assert 0 < int(want.sum()) < len(want)
+        np.testing.assert_array_equal(got, want)
+        assert tp.transfer_bytes == jp.transfer_bytes, pack
