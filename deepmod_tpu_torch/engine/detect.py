@@ -54,7 +54,9 @@ from deepmod_tpu_torch.aggregate.summarize import (
 )
 from deepmod_tpu_torch.engine.outputs import (
     OutputOptions,
-    build_batch_request,
+    batch_blocks,
+    center_runs,
+    run_centers,
     scatter_selected_preds,
     write_batch_outputs,
 )
@@ -151,8 +153,13 @@ class WindowPredictor:
     async copy and an event, so the host prepares chunk i+1 while the
     device computes chunk i. Compact transfer ships each chunk's feature
     rows in the caller's fp32, as they stand, and casts them once to the
-    kernel's dtype on the device: the host makes no pass over the batch
-    before the first chunk goes.
+    kernel's dtype on the device. It reads the rows from the reads' own
+    blocks (``predict_from_blocks``): each chunk's rows are gathered from
+    the blocks that overlap them into a pinned host buffer, and its
+    centers are derived from the asked runs inside the chunk loop, so the
+    host makes no pass over the batch before the first chunk goes.
+    PyTorch's caching host allocator serves those buffers and hands one
+    out again only once the copies that read it have completed.
 
     Data parallel (more than one shard): ``devices`` lists this process's
     shards, one entry a shard, repeats allowed (by default every visible
@@ -416,6 +423,13 @@ class WindowPredictor:
         fnum = feats.shape[1]
         return feats.as_strided((hi - lo, window, fnum), (fnum, fnum, 1))
 
+    def _compact(self, n: int, window: int, rows: int) -> bool:
+        """Whether ``n`` windows over ``rows`` feature rows take compact
+        transfer. SPARSE selections (n * window < rows) take the
+        materialized-window path, which then moves fewer bytes and runs
+        fewer windows; dense ones ship each feature row once."""
+        return self.compact_transfer and n * window >= rows
+
     def predict_from_features(
         self, features: np.ndarray, centers: np.ndarray, window: int = 21,
         assume_packable: bool = False,
@@ -424,9 +438,8 @@ class WindowPredictor:
 
         ``features``: concatenated (rows, fnum) blocks (each block carries
         its own +-100 pad); ``centers``: absolute row index of each
-        window's center. SPARSE selections (n * window < rows) take the
-        materialized-window path, which then moves fewer bytes and runs
-        fewer windows; dense ones ship each feature row once.
+        window's center. On the compact path, the one-block case of
+        ``predict_from_blocks``.
 
         ``assume_packable``: skip the one-hot verification scan before
         packed transfer — for engine-built feature blocks, whose leading
@@ -435,10 +448,37 @@ class WindowPredictor:
         n = len(centers)
         if n == 0:
             return np.empty(0, np.int8)
-        if self.compact_transfer and n * window >= len(features):
-            return self._predict_compact(
-                features, centers, window, assume_packable
-            )
+        if self._compact(n, window, len(features)):
+            return self._predict_compact([features], *center_runs(centers),
+                                         window, assume_packable)
+        return self._predict_windows(features, centers, window)
+
+    def predict_from_blocks(
+        self, blocks: Sequence[np.ndarray], firsts: np.ndarray,
+        counts: np.ndarray, window: int = 21, assume_packable: bool = False,
+    ) -> np.ndarray:
+        """Classify windows cut from per-read (rows, fnum) feature blocks
+        read as laid end to end; the compact path stages each chunk's rows
+        from the blocks and never concatenates them. The windows asked are
+        runs of consecutive centers of that layout, run q the ``counts[q]``
+        rows from row ``firsts[q]`` (``engine.outputs.center_runs``),
+        ascending; the predictions come in their order."""
+        firsts = np.asarray(firsts, np.int64)
+        counts = np.asarray(counts, np.int64)
+        firsts, counts = firsts[counts > 0], counts[counts > 0]
+        n = int(counts.sum())
+        if n == 0:
+            return np.empty(0, np.int8)
+        if self._compact(n, window, sum(len(b) for b in blocks)):
+            return self._predict_compact(blocks, firsts, counts, window,
+                                         assume_packable)
+        return self._predict_windows(np.concatenate(blocks),
+                                     run_centers(firsts, counts), window)
+
+    def _predict_windows(self, features: np.ndarray, centers: np.ndarray,
+                         window: int) -> np.ndarray:
+        """Materialized-window transfer: each asked window cut on the
+        host."""
         half = window // 2
         with span("detect.pack"):
             view = np.lib.stride_tricks.sliding_window_view(
@@ -447,15 +487,21 @@ class WindowPredictor:
         return self.predict(windows)
 
     def _compact_columns(
-        self, features: np.ndarray, assume_packable: bool,
-    ) -> List[Tuple[torch.Tensor, int]]:
-        """The row-aligned host tensors that compact transfer ships, each
-        with the value that pads it: (codes, rest) with the one-hot pack,
-        (hist, codes, rest) with the fnum-57 pack, else the rows as they
-        stand in fp32 (a copy only for another dtype), which
+        self, blocks: Sequence[np.ndarray], starts: np.ndarray,
+        assume_packable: bool,
+    ) -> List[Tuple[Sequence, np.ndarray, torch.dtype, int]]:
+        """The row-aligned host columns that compact transfer ships, each
+        group ``(blocks, starts, dtype, fill)`` read as laid end to end
+        (block b from row ``starts[b]``) and padded with ``fill``: (codes,
+        rest) with the one-hot pack, (hist, codes, rest) with the fnum-57
+        pack (one block each, cut from the blocks' concatenation), else the
+        caller's blocks as they stand, staged in fp32, which
         ``_window_view`` casts on the device."""
         pack: Any = False
         cols = None
+        if self._pack_hist or self._pack_onehot:
+            features = (blocks[0] if len(blocks) == 1
+                        else np.concatenate(blocks))
         if self._pack_hist:
             # fnum-57 columns: [hist 0..49 | onehot 50..53 | mean stdv
             # length 54..56] (features/builder.py layout). The < 256 gate
@@ -493,35 +539,56 @@ class WindowPredictor:
                     codes[features[:, k] != 0] = k
                 cols = [(torch.from_numpy(codes), 4),
                         (self._host_cast(features[:, 4:]), 0)]
-        if cols is None:
-            cols = [(torch.from_numpy(np.asarray(features, np.float32)), 0)]
         self.compact_modes.add(pack)
-        return cols
+        if cols is None:
+            return [(blocks, starts, torch.float32, 0)]
+        return [([c], np.zeros(1, np.int64), c.dtype, fill)
+                for c, fill in cols]
+
+    def _stage(self, groups, row0: int, rows: int) -> List[torch.Tensor]:
+        """Rows [row0, row0 + rows) of each column group's blocks, gathered
+        into a new host buffer a group: pinned on the card, from PyTorch's
+        caching host allocator, so ``_to_device`` copies it as it stands
+        and the buffer is reused only once that copy has completed."""
+        staged = []
+        for blocks, starts, dtype, fill in groups:
+            buf = torch.empty((rows,) + tuple(blocks[0].shape[1:]),
+                              dtype=dtype, pin_memory=self._cuda)
+            _gather(blocks, starts, row0,
+                    buf.numpy() if isinstance(blocks[0], np.ndarray) else buf,
+                    fill)
+            staged.append(buf)
+        return staged
 
     def _predict_compact(
-        self, features: np.ndarray, centers: np.ndarray, window: int,
-        assume_packable: bool = False,
+        self, blocks: Sequence[np.ndarray], firsts: np.ndarray,
+        counts: np.ndarray, window: int, assume_packable: bool = False,
     ) -> np.ndarray:
         """Ship (rows, fnum) row chunks, classify EVERY window of a chunk
         (the kernel reads window i as rows i..i+T-1 in place), keep the
-        requested centers on the host. Bit-identical to window transfer:
+        asked centers on the host. Bit-identical to window transfer:
         the window build is a pure copy, and the bf16 rounding of the same
         fp32 values rounds to nearest even on the device as on the
         host."""
-        n = len(centers)
+        n = int(counts.sum())
         count("detect.windows_asked", n)
         half = window // 2
-        if n > 1 and not np.all(np.diff(centers) >= 0):
+        lasts = firsts + counts - 1
+        lengths = np.array([len(b) for b in blocks], np.int64)
+        starts = np.cumsum(lengths) - lengths
+        rows = int(lengths.sum())
+        if np.any(firsts[1:] < lasts[:-1]):
             raise ValueError("compact transfer requires ascending centers")
-        if int(centers[0]) < half or int(centers[-1]) + half >= len(features):
+        if int(firsts[0]) < half or int(lasts[-1]) + half >= rows:
             raise ValueError(
                 "compact transfer requires a full window inside features "
-                f"for every center (first={int(centers[0])}, "
-                f"last={int(centers[-1])}, rows={len(features)}, "
-                f"window={window})"
+                f"for every center (first={int(firsts[0])}, "
+                f"last={int(lasts[-1])}, rows={rows}, window={window})"
             )
         with span("detect.pack"):
-            cols = self._compact_columns(features, assume_packable)
+            groups = self._compact_columns(blocks, starts, assume_packable)
+        # cum[q]: the windows asked before run q
+        cum = np.concatenate([[0], np.cumsum(counts)])
         out = np.empty(n, np.int8)
         inflight: List[Tuple[int, int, np.ndarray, Any]] = []
 
@@ -539,8 +606,9 @@ class WindowPredictor:
         i = 0
         while i < n:
             with span("detect.chunk"):
-                row0 = int(centers[i]) - half
-                span_rows = int(centers[-1]) + half + 1 - row0
+                r = int(np.searchsorted(cum, i, "right")) - 1  # window i's run
+                row0 = int(firsts[r] + i - cum[r]) - half
+                span_rows = int(lasts[-1]) + half + 1 - row0
                 bucket = (
                     self.buckets[-1]
                     if span_rows >= self.buckets[-1]
@@ -548,14 +616,20 @@ class WindowPredictor:
                 )
                 bucket = max(bucket, min_rows)
                 # centers computable from rows [row0, row0+bucket):
-                # c + half <= row0 + bucket - 1
-                j = int(np.searchsorted(centers, row0 + bucket - half, "left"))
-                idx = np.asarray(centers[i:j]) - row0 - half
-                chunks = tuple(_pad_rows(c[row0 : row0 + bucket], bucket, fill)
-                               for c, fill in cols)
+                # c + half <= row0 + bucket - 1; runs r..k-1 hold them
+                limit = row0 + bucket - half
+                k = int(np.searchsorted(firsts, limit, "left"))
+                j = int(cum[k - 1] + min(counts[k - 1], limit - firsts[k - 1]))
+                # each asked window's index among the chunk's windows
+                took = (np.minimum(cum[r + 1 : k + 1], j)
+                        - np.maximum(cum[r:k], i))
+                idx = (np.arange(i, j) - row0 - half
+                       + np.repeat(firsts[r:k] - cum[r:k], took))
+                with span("detect.stage"):
+                    staged = self._stage(groups, row0, bucket)
             inflight.append((i, j, idx, self._dispatch(
                 bucket - window + 1,
-                functools.partial(self._window_view, chunks, window))))
+                functools.partial(self._window_view, staged, window))))
             i = j
             drain(_LOOKAHEAD)
         drain(0)
@@ -567,14 +641,21 @@ def _kernel_launches(ops) -> int:
     return sum(ops.LAUNCHES.values()) + sum(ops.LAYERED_LAUNCHES.values())
 
 
-def _pad_rows(chunk: torch.Tensor, rows: int, fill) -> torch.Tensor:
-    """A contiguous ``rows``-row copy of ``chunk``, padded with ``fill``."""
-    if len(chunk) == rows:
-        return chunk.contiguous()
-    out = torch.full((rows,) + tuple(chunk.shape[1:]), fill,
-                     dtype=chunk.dtype)
-    out[: len(chunk)] = chunk
-    return out
+def _gather(blocks: Sequence, starts: np.ndarray, row0: int, dst,
+            fill) -> None:
+    """Rows [row0, row0 + len(dst)) of ``blocks`` laid end to end (block b
+    from row ``starts[b]``) into ``dst``; rows past the last block take
+    ``fill``. ``dst`` and the blocks are numpy arrays or torch tensors
+    alike."""
+    b = int(np.searchsorted(starts, row0, "right")) - 1
+    pos = 0
+    while pos < len(dst) and b < len(blocks):
+        lo = row0 + pos - int(starts[b])
+        take = min(len(blocks[b]) - lo, len(dst) - pos)
+        dst[pos : pos + take] = blocks[b][lo : lo + take]
+        pos += take
+        b += 1
+    dst[pos:] = fill
 
 
 def discover_fast5(wrk_base: str, recursive: bool = True) -> List[str]:
@@ -616,13 +697,15 @@ def predict_batch_windows(
     target_base: Optional[str] = None,
 ) -> np.ndarray:
     """The DEVICE part of one batch: classify every read's windows (only
-    refbase == ``target_base`` windows when set, detect --targetOnly)."""
+    refbase == ``target_base`` windows when set, detect --targetOnly)
+    straight from the reads' feature blocks, which the compact path stages
+    chunk by chunk without concatenating them."""
     with span("device_inference", timer):
         with span("detect.request"):
-            all_features, all_centers, selections, n_total = (
-                build_batch_request(results, target_base))
-        preds_sel = predictor.predict_from_features(
-            all_features, all_centers, window=predictor.config.timesteps,
+            blocks, firsts, counts, selections, n_total = batch_blocks(
+                results, target_base)
+        preds_sel = predictor.predict_from_blocks(
+            blocks, firsts, counts, window=predictor.config.timesteps,
             assume_packable=True,
         )
         with span("detect.scatter"):

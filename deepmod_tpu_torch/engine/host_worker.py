@@ -44,8 +44,10 @@ class HostReadResult:
     """One read, fully prepared for device inference.
 
     Carries the compact (rows, fnum) feature block instead of
-    materialized windows; WindowPredictor.predict_from_features ships the
-    rows and the kernel reads each 21-row window in place.
+    materialized windows; detect's device stage
+    (WindowPredictor.predict_from_blocks) gathers each chunk's rows from
+    the batch's blocks as they are, without concatenating them, ships
+    them, and the kernel reads each 21-row window in place.
     """
 
     read_id: str

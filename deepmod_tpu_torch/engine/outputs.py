@@ -42,16 +42,37 @@ class OutputOptions:
     gzip_level: int = 1
 
 
-def build_batch_request(
+def center_runs(centers: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """``(firsts, counts)``: ``centers`` as runs of consecutive rows, run q
+    the ``counts[q]`` rows from ``firsts[q]`` (``run_centers`` undoes it)."""
+    centers = np.asarray(centers, np.int64)
+    head = np.ones(len(centers), bool)
+    head[1:] = np.diff(centers) != 1
+    heads = np.flatnonzero(head)
+    return centers[heads], np.diff(np.append(heads, len(centers)))
+
+
+def run_centers(firsts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """The centers of the runs ``(firsts, counts)``, one by one."""
+    counts = np.asarray(counts, np.int64)
+    shift = np.asarray(firsts, np.int64) - (np.cumsum(counts) - counts)
+    return (np.repeat(shift, counts)
+            + np.arange(int(counts.sum()), dtype=np.int64))
+
+
+def batch_blocks(
     results,  # List[HostReadResult]
     target_base: Optional[str] = None,
-) -> Tuple[np.ndarray, np.ndarray, Optional[List[np.ndarray]], int]:
-    """Concatenate a batch's compact feature blocks for classification.
+) -> Tuple[List[np.ndarray], np.ndarray, np.ndarray,
+           Optional[List[np.ndarray]], int]:
+    """A batch's classification request, with no copy of its rows.
 
-    Returns ``(features, centers, selections, n_total)``: the (rows, F)
-    feature array, the absolute center row of every window to classify,
-    the per-read selected event indices (None when every event is
-    selected), and the total aligned-event count across the batch.
+    Returns ``(blocks, firsts, counts, selections, n_total)``: the reads'
+    compact (rows, F) feature blocks, to be read as laid end to end; the
+    windows to classify as runs of consecutive center rows of that layout
+    (``center_runs``: a read's aligned events are one run); the per-read
+    selected event indices (None when every event is selected); and the
+    total aligned-event count across the batch.
 
     With ``target_base`` set (detect --targetOnly) only windows whose
     reference base IS the target are selected — the BED summaries count
@@ -60,24 +81,35 @@ def build_batch_request(
     in the per-read files (where the reference stores model outputs).
     """
     blocks = [r.features for r in results]
-    features = np.concatenate(blocks, axis=0)
-    centers_parts: List[np.ndarray] = []
-    selections: Optional[List[np.ndarray]] = [] if target_base else None
-    offset = 0
-    n_total = 0
+    lengths = np.array([len(b) for b in blocks], np.int64)
+    starts = np.cumsum(lengths) - lengths
+    n_aligned = np.array([r.n_aligned for r in results], np.int64)
+    n_total = int(n_aligned.sum())
+    if target_base is None:
+        return blocks, starts + FEATURE_PAD, n_aligned, None, n_total
+    selections = []
     for r in results:
-        if target_base is None:
-            idx = np.arange(r.n_aligned, dtype=np.int64)
-        else:
-            nongap = r.base_map["readbase"] != "-"
-            idx = np.flatnonzero(
-                (r.base_map["refbase"] == target_base)[nongap]
-            )
-            selections.append(idx)  # type: ignore[union-attr]
-        centers_parts.append(offset + FEATURE_PAD + idx)
-        offset += len(r.features)
-        n_total += r.n_aligned
-    return features, np.concatenate(centers_parts), selections, n_total
+        nongap = r.base_map["readbase"] != "-"
+        selections.append(
+            np.flatnonzero((r.base_map["refbase"] == target_base)[nongap]))
+    centers = np.concatenate([s + FEATURE_PAD + idx
+                              for s, idx in zip(starts, selections)])
+    return (blocks, *center_runs(centers), selections, n_total)
+
+
+def build_batch_request(
+    results,  # List[HostReadResult]
+    target_base: Optional[str] = None,
+) -> Tuple[np.ndarray, np.ndarray, Optional[List[np.ndarray]], int]:
+    """``batch_blocks`` as one array, for callers that ship the batch
+    whole (the HostPool worker, tools): ``(features, centers, selections,
+    n_total)``, the blocks concatenated into a (rows, F) array and the
+    absolute center row of every window to classify. Detect's device
+    stage reads the blocks as they are (``predict_batch_windows``)."""
+    blocks, firsts, counts, selections, n_total = batch_blocks(
+        results, target_base)
+    return (np.concatenate(blocks, axis=0), run_centers(firsts, counts),
+            selections, n_total)
 
 
 def scatter_selected_preds(

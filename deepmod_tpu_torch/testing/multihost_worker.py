@@ -64,6 +64,15 @@ class _RulePredictor:
 
         return (features[centers, features.shape[1] - 3] > 0).astype(np.int8)
 
+    def predict_from_blocks(self, blocks, firsts, counts, window=21,
+                            **kwargs):
+        import numpy as np
+
+        from deepmod_tpu_torch.engine.outputs import run_centers
+
+        return self.predict_from_features(np.concatenate(blocks),
+                                          run_centers(firsts, counts))
+
 
 def run_detect(dataset_dir: str, out_folder: str, out_path: str, mesh,
                basecalls: str = "", host_shard=None) -> None:

@@ -982,3 +982,70 @@ def test_compact_rows_cast_on_card_match_the_pack(cuda, precision,
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, win.predict_from_features(feats,
                                                                  centers))
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_staging_on_card_matches_the_concatenated_array(cuda, precision,
+                                                        shards):
+    """Detect's compact path stages each chunk's rows from the reads' own
+    blocks into a pinned buffer from PyTorch's caching host allocator.
+    With buckets of 1,024 and 4,096 rows, ``_LOOKAHEAD`` chunks stay in
+    flight and the allocator's buffers are handed out again many times
+    over four batches; the predictions equal those of the concatenated
+    array (``predict_from_features``) and of the materialized windows, bit
+    for bit, on one stream and on two shards' streams of one card. A
+    buffer rewritten before the copies that read it completed would
+    change them."""
+    from deepmod_tpu_torch.engine.detect import (
+        WindowPredictor,
+        predict_batch_windows,
+    )
+    from deepmod_tpu_torch.engine.host_worker import HostReadResult
+    from deepmod_tpu_torch.engine.outputs import (
+        FEATURE_PAD,
+        build_batch_request,
+    )
+
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(12, cfg, device="cpu")  # both classes
+    kw = dict(buckets=(1024, 4096), precision=precision,
+              devices=[cuda] * shards)
+    staged = WindowPredictor(params, cfg, compact_transfer=True, **kw)
+    win = WindowPredictor(params, cfg, compact_transfer=False, **kw)
+    stage, pinned = staged._stage, []
+
+    def spy(*args):
+        bufs = stage(*args)
+        pinned.extend(b.is_pinned() for b in bufs)
+        return bufs
+
+    staged._stage = spy
+    rng = np.random.default_rng(22)
+    for batch in range(4):
+        reads = []
+        for i, n in enumerate(rng.integers(50, 3000, 40)):
+            rows = int(n) + 2 * FEATURE_PAD
+            feats = np.zeros((rows, 7), np.float32)
+            hot = rng.integers(0, 5, rows)  # 4: no base
+            for b in range(4):
+                feats[hot == b, b] = 1.0
+            feats[:, 4:6] = rng.standard_normal((rows, 2)) * 2
+            feats[:, 6] = rng.integers(1, 40, rows)
+            reads.append(HostReadResult(
+                read_id=f"r{i}", path="", rname="chr1", strand="+", pos0=0,
+                base_map=None, left_clip=0, right_clip=0, first_match_pos=0,
+                num_match=int(n), num_mismatch=0, num_insert=0, num_del=0,
+                features=feats, n_aligned=int(n), chrom_length=0))
+        got = predict_batch_windows(reads, staged)
+        feats, centers, _, _ = build_batch_request(reads)
+        assert len(got) == len(centers) and 0 < int(got.sum()) < len(got)
+        np.testing.assert_array_equal(
+            got, staged.predict_from_features(feats, centers,
+                                              assume_packable=True),
+            err_msg=f"batch {batch}")
+        np.testing.assert_array_equal(
+            got, win.predict_from_features(feats, centers),
+            err_msg=f"batch {batch}")
+    assert staged.compact_modes == {False}
+    assert len(pinned) > 20 and all(pinned)

@@ -157,16 +157,16 @@ def test_concurrent_requests_coalesce(dataset):
     _, paths, _ = dataset
     svc = _service(dataset)
     predictor = svc.predictor
-    orig = predictor.predict_from_features
+    orig = predictor.predict_from_blocks
     try:
         serial = {p: svc.detect([p]) for p in paths}
         calls = []
 
         def counting(*a, **k):
-            calls.append(len(a[1]))
+            calls.append(int(sum(a[2])))  # windows asked
             return orig(*a, **k)
 
-        predictor.predict_from_features = counting
+        predictor.predict_from_blocks = counting
         calls0 = svc._coalescer.device_calls
         results, errs = {}, []
 
@@ -187,7 +187,7 @@ def test_concurrent_requests_coalesce(dataset):
         assert 1 <= len(calls) < len(threads), calls
         assert svc._coalescer.device_calls - calls0 == len(calls)
     finally:
-        predictor.predict_from_features = orig
+        predictor.predict_from_blocks = orig
         svc.close()
 
 

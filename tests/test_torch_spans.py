@@ -2,7 +2,8 @@
 
 Under ``torch.profiler``, a detect batch through ``predict_batch_windows``
 exports its spans nested in the batch span ``device_inference``, on the
-compact path and on the materialized one, and the counters of windows
+compact path (each chunk's staging, ``detect.stage``, inside its
+``detect.chunk``) and on the materialized one, and the counters of windows
 asked and windows run match a hand count of the bucket layout;
 with no profiler nothing records, no ``record_function`` is made and the
 counters stand still; the predictions keep their bits either way. A train
@@ -114,6 +115,8 @@ def test_detect_spans_nest_in_the_batch_span(params, compact, tmp_path):
     for name in DETECT_SPANS:
         assert _inside(spans, name, "device_inference"), name
     assert _inside(spans, "detect.h2d", "detect.dispatch")
+    # the compact path stages each chunk's rows inside its chunk span
+    assert _inside(spans, "detect.stage", "detect.chunk") == compact
 
 
 @pytest.mark.parametrize("compact", [True, False],
