@@ -1951,7 +1951,7 @@ def compare_devices(device, ds: str, workdir: str, prefix: str,
     )))
     results, errors = host_process_files(
         sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5"))))
-    feats, centers, _, _ = build_batch_request(results)
+    feats, centers, _, _ = build_batch_request(results, window=windowsize)
     params, mcfg = load_model(os.path.join(ds, "model.npz"))
     mcfg = dataclasses.replace(mcfg, timesteps=windowsize)
     t0 = time.perf_counter()
@@ -2980,7 +2980,7 @@ def _features_of(ds: str, files: list, windowsize: int = 21,
         model_path="", out_folder="", align_str="builtin", fnum=fnum,
         basecalls=os.path.join(ds, "calls.bam"), window_size=windowsize)))
     results, _ = host_process_files(files)
-    feats, centers, _, _ = build_batch_request(results)
+    feats, centers, _, _ = build_batch_request(results, window=windowsize)
     return feats, centers
 
 

@@ -146,11 +146,13 @@ class WindowPredictor:
     """Bucketed window classification on one device or over a mesh's
     shards.
 
-    Chunks are cut to a small set of bucket sizes (the last partial chunk
-    pads up to the smallest covering bucket; padding rows are zeros and
-    their predictions are dropped). Host->device copies go through pinned
-    memory with ``non_blocking=True`` and results come back through an
-    async copy and an event, so the host prepares chunk i+1 while the
+    Materialized windows are cut into chunks of a small set of bucket
+    sizes (the last partial chunk pads up to the smallest covering
+    bucket; padding rows are zeros and their predictions are dropped); a
+    compact chunk holds the rows its asked windows read, up to the
+    largest bucket, and runs no tail. Host->device copies go through
+    pinned memory with ``non_blocking=True`` and results come back through
+    an async copy and an event, so the host prepares chunk i+1 while the
     device computes chunk i. Compact transfer ships each chunk's feature
     rows in the caller's fp32, as they stand, and casts them once to the
     kernel's dtype on the device. It reads the rows from the reads' own
@@ -436,10 +438,11 @@ class WindowPredictor:
     ) -> np.ndarray:
         """Classify windows cut from compact per-read feature blocks.
 
-        ``features``: concatenated (rows, fnum) blocks (each block carries
-        its own +-100 pad); ``centers``: absolute row index of each
-        window's center. On the compact path, the one-block case of
-        ``predict_from_blocks``.
+        ``features``: concatenated (rows, fnum) blocks, each with the rows
+        its windows read on either side (``engine.outputs.batch_blocks``
+        trims the engine's +-100 pad to them); ``centers``: absolute row
+        index of each window's center. On the compact path, the one-block
+        case of ``predict_from_blocks``.
 
         ``assume_packable``: skip the one-hot verification scan before
         packed transfer — for engine-built feature blocks, whose leading
@@ -564,12 +567,16 @@ class WindowPredictor:
         self, blocks: Sequence[np.ndarray], firsts: np.ndarray,
         counts: np.ndarray, window: int, assume_packable: bool = False,
     ) -> np.ndarray:
-        """Ship (rows, fnum) row chunks, classify EVERY window of a chunk
-        (the kernel reads window i as rows i..i+T-1 in place), keep the
-        asked centers on the host. Bit-identical to window transfer:
-        the window build is a pure copy, and the bf16 rounding of the same
-        fp32 values rounds to nearest even on the device as on the
-        host."""
+        """Ship (rows, fnum) row chunks, classify every window a chunk's
+        rows hold (the kernel reads window i as rows i..i+T-1 in place),
+        keep the asked centers' predictions on the host. A chunk runs from
+        the first row its first asked window reads and holds as many rows
+        as the asked windows left read, up to the largest bucket; the
+        windows between two reads' runs are run too, so blocks trimmed to
+        their windows' rows (``batch_blocks``) leave T-1 of them a read.
+        Bit-identical to window transfer: the window build is a pure copy,
+        and the bf16 rounding of the same fp32 values rounds to nearest
+        even on the device as on the host."""
         n = int(counts.sum())
         count("detect.windows_asked", n)
         half = window // 2
@@ -579,7 +586,8 @@ class WindowPredictor:
         rows = int(lengths.sum())
         if np.any(firsts[1:] < lasts[:-1]):
             raise ValueError("compact transfer requires ascending centers")
-        if int(firsts[0]) < half or int(lasts[-1]) + half >= rows:
+        # a window centred on row c reads rows c - half .. c - half + T - 1
+        if int(firsts[0]) < half or int(lasts[-1]) - half + window > rows:
             raise ValueError(
                 "compact transfer requires a full window inside features "
                 f"for every center (first={int(firsts[0])}, "
@@ -599,25 +607,20 @@ class WindowPredictor:
                     out[i:j] = self._fetch(handle)[idx]
 
         # a row chunk must cover at least one full window or the loop
-        # below cannot advance; round the floor up to a multiple of the
-        # shard count so sharded chunks stay even
+        # below cannot advance (buckets may be narrower than a window)
         min_rows = 1 << int(window).bit_length()
-        min_rows = -(-min_rows // self.n_shards) * self.n_shards
         i = 0
         while i < n:
             with span("detect.chunk"):
                 r = int(np.searchsorted(cum, i, "right")) - 1  # window i's run
                 row0 = int(firsts[r] + i - cum[r]) - half
-                span_rows = int(lasts[-1]) + half + 1 - row0
-                bucket = (
-                    self.buckets[-1]
-                    if span_rows >= self.buckets[-1]
-                    else self._bucket_for(span_rows)
-                )
-                bucket = max(bucket, min_rows)
-                # centers computable from rows [row0, row0+bucket):
-                # c + half <= row0 + bucket - 1; runs r..k-1 hold them
-                limit = row0 + bucket - half
+                # the rows the asked windows from window i on read, up to
+                # the largest bucket
+                span_rows = int(lasts[-1]) - half + window - row0
+                chunk = max(min(span_rows, self.buckets[-1]), min_rows)
+                # centers computable from rows [row0, row0+chunk):
+                # c - half + T <= row0 + chunk; runs r..k-1 hold them
+                limit = row0 + chunk + half - window + 1
                 k = int(np.searchsorted(firsts, limit, "left"))
                 j = int(cum[k - 1] + min(counts[k - 1], limit - firsts[k - 1]))
                 # each asked window's index among the chunk's windows
@@ -626,9 +629,9 @@ class WindowPredictor:
                 idx = (np.arange(i, j) - row0 - half
                        + np.repeat(firsts[r:k] - cum[r:k], took))
                 with span("detect.stage"):
-                    staged = self._stage(groups, row0, bucket)
+                    staged = self._stage(groups, row0, chunk)
             inflight.append((i, j, idx, self._dispatch(
-                bucket - window + 1,
+                chunk - window + 1,
                 functools.partial(self._window_view, staged, window))))
             i = j
             drain(_LOOKAHEAD)
@@ -702,11 +705,11 @@ def predict_batch_windows(
     chunk by chunk without concatenating them."""
     with span("device_inference", timer):
         with span("detect.request"):
+            window = predictor.config.timesteps
             blocks, firsts, counts, selections, n_total = batch_blocks(
-                results, target_base)
+                results, target_base, window)
         preds_sel = predictor.predict_from_blocks(
-            blocks, firsts, counts, window=predictor.config.timesteps,
-            assume_packable=True,
+            blocks, firsts, counts, window=window, assume_packable=True,
         )
         with span("detect.scatter"):
             return scatter_selected_preds(results, selections, preds_sel,
@@ -1022,7 +1025,7 @@ def _detect_run_inner(
                     batch_id, batch = queued.popleft()
                     bid = pool.submit_ingest(
                         batch_id, batch, ct_folder_for(batch_id),
-                        out_opts, target_base,
+                        out_opts, target_base, predictor.config.timesteps,
                     )
                     bid_to_batch[bid] = batch_id
                     outstanding += 1

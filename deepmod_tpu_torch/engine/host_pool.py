@@ -18,7 +18,8 @@ Protocol (engine <-> worker, over per-worker input queues and one shared
 output queue):
 
   engine -> worker:
-    ("ingest", bid, batch_id, paths, ct_folder, out_opts, target_base)
+    ("ingest", bid, batch_id, paths, ct_folder, out_opts, target_base,
+     window)
     ("preds", bid, preds_sel)          # classification result for bid
     ("ingest_return", bid, paths)      # host stages only, ship results
     ("drop_pending",)                  # abandon stashed batch state
@@ -76,11 +77,11 @@ def _worker_main(wid: int, inq, outq, host_opts: HostOptions) -> None:
         try:
             if kind == "ingest":
                 (_, bid, batch_id, paths, ct_folder, out_opts,
-                 target_base) = msg
+                 target_base, window) = msg
                 results, errors = host_process_files(paths)
                 if results:
                     feats, centers, selections, n_total = (
-                        build_batch_request(results, target_base)
+                        build_batch_request(results, target_base, window)
                     )
                     pending[bid] = (results, selections, n_total,
                                     batch_id, ct_folder, out_opts)
@@ -189,10 +190,13 @@ class HostPool:
         return None if wid is None else self._load[wid]
 
     def submit_ingest(
-        self, batch_id: int, paths, ct_folder: str, out_opts, target_base
+        self, batch_id: int, paths, ct_folder: str, out_opts, target_base,
+        window: int,
     ) -> int:
         """Dispatch a batch; returns the pool-unique bid its messages
-        will carry (``batch_id`` is only used for output file naming)."""
+        will carry (``batch_id`` is only used for output file naming). Its
+        feature rows come back trimmed to the rows the classifier's
+        ``window``-row windows read (``outputs.build_batch_request``)."""
         wid = self._pick_worker()
         if wid is None:
             raise RuntimeError("all host-pool workers have died")
@@ -202,7 +206,7 @@ class HostPool:
         self._inflight[bid] = wid
         self._inqs[wid].put(
             ("ingest", bid, batch_id, paths, ct_folder, out_opts,
-             target_base)
+             target_base, window)
         )
         return bid
 

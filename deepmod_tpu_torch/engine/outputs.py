@@ -20,7 +20,9 @@ from deepmod_tpu_torch.aggregate.summarize import CountsMap, PositionCounts
 from deepmod_tpu_torch.features.builder import FeatureBuildError
 
 # feature blocks carry +-100 context rows on each side (myDetect.py:794,
-# 855); window centers are absolute rows pad + i within each block
+# 855): event i of a block is its row pad + i. A T-row window reads T//2 of
+# them on each side at most, so ``batch_blocks`` hands each block on
+# trimmed to the rows its windows read
 FEATURE_PAD = 100
 
 
@@ -63,6 +65,7 @@ def run_centers(firsts: np.ndarray, counts: np.ndarray) -> np.ndarray:
 def batch_blocks(
     results,  # List[HostReadResult]
     target_base: Optional[str] = None,
+    window: int = 21,
 ) -> Tuple[List[np.ndarray], np.ndarray, np.ndarray,
            Optional[List[np.ndarray]], int]:
     """A batch's classification request, with no copy of its rows.
@@ -74,25 +77,35 @@ def batch_blocks(
     selected event indices (None when every event is selected); and the
     total aligned-event count across the batch.
 
+    Each block is a view of the read's features trimmed to the rows its
+    ``window``-row windows read: a window centred on row c reads rows
+    c - window//2 .. c - window//2 + window - 1 (odd and even windows
+    alike), so of the +-``FEATURE_PAD`` pad only the window//2 rows before
+    the first event and the window - 1 - window//2 after the last remain,
+    and event i is row window//2 + i of the view.
+
     With ``target_base`` set (detect --targetOnly) only windows whose
     reference base IS the target are selected — the BED summaries count
     exclusively refbase==Base positions (sum_handler, myDetect.py:
     1095-1100), so this is BED-identical; non-target rows get mod_pred 0
     in the per-read files (where the reference stores model outputs).
     """
-    blocks = [r.features for r in results]
-    lengths = np.array([len(b) for b in blocks], np.int64)
-    starts = np.cumsum(lengths) - lengths
+    half = window // 2
+    lo = FEATURE_PAD - half
     n_aligned = np.array([r.n_aligned for r in results], np.int64)
+    lengths = n_aligned + (window - 1)
+    blocks = [r.features[lo : lo + n]
+              for r, n in zip(results, lengths.tolist())]
+    starts = np.cumsum(lengths) - lengths
     n_total = int(n_aligned.sum())
     if target_base is None:
-        return blocks, starts + FEATURE_PAD, n_aligned, None, n_total
+        return blocks, starts + half, n_aligned, None, n_total
     selections = []
     for r in results:
         nongap = r.base_map["readbase"] != "-"
         selections.append(
             np.flatnonzero((r.base_map["refbase"] == target_base)[nongap]))
-    centers = np.concatenate([s + FEATURE_PAD + idx
+    centers = np.concatenate([s + half + idx
                               for s, idx in zip(starts, selections)])
     return (blocks, *center_runs(centers), selections, n_total)
 
@@ -100,14 +113,15 @@ def batch_blocks(
 def build_batch_request(
     results,  # List[HostReadResult]
     target_base: Optional[str] = None,
+    window: int = 21,
 ) -> Tuple[np.ndarray, np.ndarray, Optional[List[np.ndarray]], int]:
     """``batch_blocks`` as one array, for callers that ship the batch
     whole (the HostPool worker, tools): ``(features, centers, selections,
-    n_total)``, the blocks concatenated into a (rows, F) array and the
-    absolute center row of every window to classify. Detect's device
+    n_total)``, the trimmed blocks concatenated into a (rows, F) array and
+    the absolute center row of every window to classify. Detect's device
     stage reads the blocks as they are (``predict_batch_windows``)."""
     blocks, firsts, counts, selections, n_total = batch_blocks(
-        results, target_base)
+        results, target_base, window)
     return (np.concatenate(blocks, axis=0), run_centers(firsts, counts),
             selections, n_total)
 

@@ -54,7 +54,7 @@ def dataset_windows(path: str, n_max: int, window: int = 21) -> np.ndarray:
     results, _ = host_process_files(
         sorted(glob.glob(os.path.join(folder, "*.pod5" if pod5
                                       else "*.fast5"))))
-    feats, centers, _, _ = build_batch_request(results)
+    feats, centers, _, _ = build_batch_request(results, window=window)
     half = window // 2
     view = np.lib.stride_tricks.sliding_window_view(feats, window, axis=0)
     return np.ascontiguousarray(

@@ -939,8 +939,9 @@ def test_k1_tanh_sigmoid_variant(cuda):
 def test_compact_rows_cast_on_card_match_the_pack(cuda, precision,
                                                   monkeypatch):
     """Detect's default compact transfer ships the caller's fp32 rows and
-    casts them on the card: over two buckets (4,096 and 1,024 rows) and a
-    ragged tail (780 of 1,024 rows), its predictions equal the opt-in
+    casts them on the card: over two chunks of the 4,096-row bucket and a
+    last one of the 780 rows left (no bucket's size, with buckets of
+    1,024 and 4,096 rows), its predictions equal the opt-in
     one-hot pack's (``DMT_COMPACT_PACK=1``: codes through the LUT, the
     rest cast on the host) and the materialized windows', bit for bit,
     and every chunk reaches K1 in the kernel's dtype."""
@@ -974,7 +975,7 @@ def test_compact_rows_cast_on_card_match_the_pack(cuda, precision,
     got = plain.predict_from_features(feats, centers, assume_packable=True)
     assert ops.LAUNCHES[precision] == before + 3
     assert fed == [(plain._dtype, "cuda")] * 3
-    assert plain.transfer_bytes == 4 * 7 * (2 * 4096 + 1024)
+    assert plain.transfer_bytes == 4 * 7 * (2 * 4096 + 780)
     want = packed.predict_from_features(feats, centers, assume_packable=True)
     assert plain.compact_modes == {False}
     assert packed.compact_modes == {"onehot"}
@@ -1049,3 +1050,73 @@ def test_staging_on_card_matches_the_concatenated_array(cuda, precision,
             err_msg=f"batch {batch}")
     assert staged.compact_modes == {False}
     assert len(pinned) > 20 and all(pinned)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_trimmed_cfdna_batch_matches_the_untrimmed_route(cuda, precision):
+    """A cfDNA-shaped batch of 1,000 reads (60-600 events, median ~170)
+    through ``predict_batch_windows`` at the default buckets: each block
+    trimmed to the rows its windows read, one chunk of those ~200,000
+    rows (no bucket's size), K1 over every window they hold. Its
+    predictions equal the untrimmed route's (the whole blocks
+    concatenated, centers ``start + FEATURE_PAD + i``) on every asked
+    window, and K1's center features of those windows equal, bit for bit,
+    K1's over the untrimmed rows."""
+    from deepmod_tpu_torch.engine.detect import (
+        WindowPredictor,
+        predict_batch_windows,
+    )
+    from deepmod_tpu_torch.engine.host_worker import HostReadResult
+    from deepmod_tpu_torch.engine.outputs import FEATURE_PAD
+
+    cfg = BiLSTMConfig(num_input=7)
+    params = init_bilstm_params(12, cfg, device="cpu")  # both classes
+    pred = WindowPredictor(params, cfg, device=cuda, precision=precision)
+    rng = np.random.default_rng(23)
+    events = np.clip(np.exp(rng.normal(np.log(170), 0.35, 1000)), 60,
+                     600).astype(int)
+    reads = []
+    for i, n in enumerate(events):
+        rows = int(n) + 2 * FEATURE_PAD
+        feats = np.zeros((rows, 7), np.float32)
+        hot = rng.integers(0, 5, rows)  # 4: no base
+        for b in range(4):
+            feats[hot == b, b] = 1.0
+        feats[:, 4:6] = rng.standard_normal((rows, 2)) * 2
+        feats[:, 6] = rng.integers(1, 40, rows)
+        reads.append(HostReadResult(
+            read_id=f"r{i}", path="", rname="chr1", strand="+", pos0=0,
+            base_map=None, left_clip=0, right_clip=0, first_match_pos=0,
+            num_match=int(n), num_mismatch=0, num_insert=0, num_del=0,
+            features=feats, n_aligned=int(n), chrom_length=0))
+    model = pred._replicas[pred.device][0]
+    seen, real_fn = [], pred._fn
+
+    def spy_fn(x):
+        seen.append(ops.bilstm_center_features(model, x, cfg, precision))
+        return real_fn(x)
+
+    pred._fn = spy_fn
+    got = predict_batch_windows(reads, pred)
+    pred._fn = real_fn
+    trimmed = int(events.sum()) + 20 * len(events)
+    assert trimmed not in pred.buckets and trimmed < pred.buckets[-1]
+    assert [len(f) for f in seen] == [trimmed - 20]
+    # each read's asked windows in the chunk: its events, from its start
+    starts = np.cumsum(events + 20) - (events + 20)
+    asked = np.concatenate([s + np.arange(n) for s, n in zip(starts, events)])
+    whole = np.concatenate([r.features for r in reads])
+    # an untrimmed block holds 2 * FEATURE_PAD - 20 rows more than its view
+    pad_starts = starts + (2 * FEATURE_PAD - 20) * np.arange(len(events))
+    centers = np.concatenate([s + FEATURE_PAD + np.arange(n)
+                              for s, n in zip(pad_starts, events)])
+    want = pred.predict_from_features(whole, centers, assume_packable=True)
+    assert len(got) == len(asked) and 0 < int(got.sum()) < len(got)
+    np.testing.assert_array_equal(got, want)
+    rows = torch.from_numpy(whole).to(cuda).to(ops.seq_dtype(precision))
+    view = rows.as_strided((len(whole) - 20, 21, 7), (7, 7, 1))
+    untrimmed = ops.bilstm_center_features(model, view, cfg, precision)
+    torch.cuda.synchronize()
+    idx = torch.from_numpy(centers - 10).to(cuda)
+    assert torch.equal(seen[0][torch.from_numpy(asked).to(cuda)],
+                       untrimmed[idx])

@@ -144,9 +144,10 @@ def test_packed_compact_equals_unpacked(params, precision, monkeypatch):
 
 # the hand count of the compact chunks at buckets (64, 256), T=21, the
 # centers every row with a full window: 290 rows, a 256-row chunk (236
-# windows) and a ragged 64-row one (54 rows, 44 windows); 600 rows, three
-# 256-row chunks (236 windows each), the last ragged (128 rows)
-ROW_CHUNKS = {290: (2, 236 + 44), 600: (3, 3 * 236)}
+# windows) and one of the 54 rows left (34 windows); 600 rows, two
+# 256-row chunks (236 windows each) and one of the 128 rows left (108
+# windows). A chunk holds the rows its windows read, no bucket's tail
+ROW_CHUNKS = {290: (2, 236 + 34), 600: (3, 2 * 236 + 108)}
 CAST_ROWS = "detect.rows_cast_on_device"
 
 
@@ -254,7 +255,9 @@ def test_predictions_identical_to_jax_predictor(params, compact,
     """Same numpy weights and engine-shaped features through the JAX
     predictor (scan path, fp32) and the port's (plain version, fp32), with
     the one-hot pack off (the port's default) and on: the same predictions
-    and host->device bytes."""
+    and host->device bytes a row. A compact chunk of the port ships the
+    2,820 rows its windows read (rows 90..2909), the JAX predictor's the
+    4,096 of its bucket; window transfer ships the same bytes."""
     rng = np.random.default_rng(21)
     feats = _engine_features(rng, 3000)
     centers = np.arange(100, 2900, dtype=np.int64)
@@ -270,4 +273,5 @@ def test_predictions_identical_to_jax_predictor(params, compact,
         got = tp.predict_from_features(feats, centers, assume_packable=True)
         assert 0 < int(want.sum()) < len(want)
         np.testing.assert_array_equal(got, want)
-        assert tp.transfer_bytes == jp.transfer_bytes, pack
+        rows, bucket = (2820, 4096) if compact else (1, 1)
+        assert tp.transfer_bytes * bucket == jp.transfer_bytes * rows, pack

@@ -41,11 +41,12 @@ DETECT_SPANS = ("detect.request", "detect.pack", "detect.chunk",
                 "detect.dispatch", "detect.fetch", "detect.scatter")
 COUNTERS = ("detect.windows_asked", "detect.windows_run")
 # the hand count of each path over the two reads (80 windows asked):
-# compact: rows 90..345 (bucket 256, 236 windows, the first read's 50
-# centers), then rows 340..403 (bucket 64, 44 windows, the second's 30);
+# compact: the blocks trimmed to the rows their windows read (50 + 20 and
+# 30 + 20), one chunk of their 120 rows (under the 256-row bucket), 100
+# windows: the 80 asked and the 20 between the two reads' runs;
 # materialized: one bucket of 64 windows, then the 16 left in a bucket of
 # 64 (64 - 16 <= the waste allowed, max(64, 80 >> 6))
-HAND_COUNT = {True: (80, 236 + 44), False: (80, 64 + 64)}
+HAND_COUNT = {True: (80, 100), False: (80, 64 + 64)}
 
 
 @pytest.fixture(scope="module")
