@@ -198,13 +198,13 @@ without printing the result line):
    2e-6 where |g| >= 1e-7, the CPU test's bound), both steps' times
    (with ``--parallel`` on several cards: a (1, n) mesh, a card a model
    shard); (B) detect --fnum 57 over phase 7's pod5 set (a batch a file)
-   with a seeded fnum-57 model at T=21 (K1) and T=20 (K4), fp32 and bf16,
-   with and without DMT_COMPACT_PACK57=1 (BEDs byte-equal, K1 / K4
-   counted; a file at a time through the predictor: predictions equal,
-   "hist" in ``compact_modes`` where every histogram count is below 256,
-   the host->device bytes); (C) each of the JAX package's remaining scripts as a port tool
-   (``deepmod_tpu_torch/tools``) once at its smallest size in this
-   process, each tool's own checks holding.
+   with a seeded fnum-57 model at T=21 (K1) and T=20 (K4): on the card
+   in fp32 and bf16 (K1 / K4 counted) and on the cpu in fp32, the card's
+   fp32 BEDs against the cpu's as in phase 7, then the histogram pack
+   A/B of ``probe_compact_pack --fnum 57``; (C) each of the JAX
+   package's remaining scripts as a port tool (``deepmod_tpu_torch/
+   tools``) once at its smallest size in this process, each tool's own
+   checks holding.
 
 Every process the script starts is stopped and reaped before it exits,
 whether it passed or failed: it adopts its descendants' orphans (Linux
@@ -1921,21 +1921,13 @@ def phase_detect(device, workdir: str) -> dict:
 
 
 def compare_devices(device, ds: str, workdir: str, prefix: str,
-                    windowsize: int) -> dict:
+                    windowsize: int, model: str = "", fnum: int = 7) -> dict:
     """The fp32 card run's BEDs against the cpu run's, with a window-level
     trace of any difference: the same host features through both devices,
     where every flipped prediction must be a near tie (|logit margin| at
-    most twice the two devices' logit difference)."""
-    from deepmod_tpu_torch.engine.detect import (
-        DetectConfig,
-        WindowPredictor,
-        _host_options,
-    )
-    from deepmod_tpu_torch.engine.host_worker import (
-        host_process_files,
-        init_worker,
-    )
-    from deepmod_tpu_torch.engine.outputs import build_batch_request
+    most twice the two devices' logit difference). ``model`` defaults to
+    the dataset's ``model.npz``."""
+    from deepmod_tpu_torch.engine.detect import WindowPredictor
     from deepmod_tpu_torch.models.tf_import import load_model
 
     beds = {k: read_beds(os.path.join(workdir, prefix + k))
@@ -1944,20 +1936,14 @@ def compare_devices(device, ds: str, workdir: str, prefix: str,
         assert v and all(len(b) > 0 for b in v.values()), f"{k}: empty BEDs"
     beds_equal = beds["gpu_fp32"] == beds["cpu_fp32"]
 
-    init_worker(_host_options(DetectConfig(
-        wrk_base=os.path.join(ds, "pod5"), ref=os.path.join(ds, "ref.fa"),
-        model_path="", out_folder="", align_str="builtin",
-        basecalls=os.path.join(ds, "calls.bam"), window_size=windowsize,
-    )))
-    results, errors = host_process_files(
-        sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5"))))
-    feats, centers, _, _ = build_batch_request(results, window=windowsize)
-    params, mcfg = load_model(os.path.join(ds, "model.npz"))
+    feats, centers = _features_of(
+        ds, sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5"))),
+        windowsize, fnum)
+    params, mcfg = load_model(model or os.path.join(ds, "model.npz"))
     mcfg = dataclasses.replace(mcfg, timesteps=windowsize)
     t0 = time.perf_counter()
     gpu = WindowPredictor(params, mcfg, device=device, precision="fp32")
-    p_gpu = gpu.predict_from_features(feats, centers, windowsize,
-                                      assume_packable=True)
+    p_gpu = gpu.predict_from_features(feats, centers, windowsize)
     torch.cuda.synchronize()
     gpu_s = time.perf_counter() - t0
     cpu = WindowPredictor(params, mcfg, device="cpu", precision="fp32")
@@ -1979,8 +1965,7 @@ def near_tie_flips(gpu, cpu, feats, centers, p_gpu) -> tuple:
 
     mcfg = gpu.config
     windowsize = mcfg.timesteps
-    p_cpu = cpu.predict_from_features(feats, centers, windowsize,
-                                      assume_packable=True)
+    p_cpu = cpu.predict_from_features(feats, centers, windowsize)
     flips = np.flatnonzero(p_gpu != p_cpu)
     n_near_tie = 0
     if len(flips):
@@ -2260,8 +2245,7 @@ def phase_serve(device, workdir: str, prefix: str) -> dict:
         if a_gpu != a_cpu:
             results, _ = host_process_files(two)
             feats, centers, _, _ = build_batch_request(results)
-            p_gpu = gpu.predictor.predict_from_features(
-                feats, centers, 21, assume_packable=True)
+            p_gpu = gpu.predictor.predict_from_features(feats, centers, 21)
             flips, _ = near_tie_flips(gpu.predictor, cpu.predictor, feats,
                                       centers, p_gpu)
             assert len(flips) > 0, "answers differ with no window flip"
@@ -2729,12 +2713,12 @@ def phase_parallel(device, workdir: str, shards: list,
                                 precision=precision)
         assert multi.n_shards == n_shards
         for pred in (one, multi):  # warm-up
-            pred.predict_from_features(feats, centers, 21, assume_packable=True)
+            pred.predict_from_features(feats, centers, 21)
         walls = {id(one): [], id(multi): []}
         for _ in range(3):  # in turns
             for pred in (one, multi):
                 got, sec = _wall(lambda: pred.predict_from_features(
-                    feats, centers, 21, assume_packable=True))
+                    feats, centers, 21))
                 walls[id(pred)].append(sec)
                 if pred is one:
                     p_one = got
@@ -3087,92 +3071,46 @@ def phase_tensor_parallel(device, workdir: str, devices: list) -> dict:
 
 def phase_pack57(device, workdir: str) -> dict:
     """(25 B) detect --fnum 57 over phase 7's pod5 set, a batch a file
-    (16), with a seeded fnum-57 model, at T=21 (K1) and T=20 (K4), fp32
-    and bf16, with and without DMT_COMPACT_PACK57=1: the BEDs byte-equal,
-    K1 / K4 counted around the runs. Then each file's host features
-    through WindowPredictor packed and unpacked: predictions equal; the
-    pack engages ("hist" in ``compact_modes``) on every file whose
-    histogram counts all fall below 256 and falls back on the others (the
-    move table's last base takes the read's trailing samples,
-    MoveTable.py:44-49, so a read whose alignment reaches its end carries
-    a count in the thousands); the host->device bytes a shipped row."""
-    from deepmod_tpu_torch.engine.detect import WindowPredictor
+    (16), with a seeded fnum-57 model, at T=21 (K1) and T=20 (K4), through
+    the one compact path: on the card in fp32 and bf16, K1 / K4 counted
+    around those runs, and on the cpu in fp32; the card's fp32 BEDs
+    against the cpu's, any difference traced to near-tie window flips
+    (``compare_devices``). Then the JAX package's histogram pack against
+    the compact path: ``probe_compact_pack --fnum 57`` (predictions equal,
+    the bytes a row and the walls of both)."""
     from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
     from deepmod_tpu_torch.models.tf_import import save_bilstm_npz
     from deepmod_tpu_torch.ops import bilstm_fused as ops
 
     ds = os.path.join(workdir, "ds")
-    files = sorted(glob.glob(os.path.join(ds, "pod5", "*.pod5")))
     cfg = BiLSTMConfig(num_input=57)
     params = init_bilstm_params(SEED + 57, cfg, device="cpu")
     model = os.path.join(workdir, "model57.npz")
     save_bilstm_npz(model, params, cfg)
-    out = {"launches": {}}
-    saved = os.environ.get("DMT_COMPACT_PACK57")
-    runs = [(precision, pack) for precision in ("fp32", "bf16")
-            for pack in ("0", "1")]
+    out = {"launches": {}, "flips": {}}
     extra = ("--fnum", "57", "--threads", "1", "--files_per_thread", "1")
-    try:
-        for windowsize in PACK57_T:
-            # the main path: counts from 0 just before, read just after
-            ops.reset_launch_counts()
-            for precision, pack in runs:
-                os.environ["DMT_COMPACT_PACK57"] = pack
-                run_detect(ds, os.path.join(
-                    workdir, f"p57_w{windowsize}_{precision}_{pack}"),
-                    "cuda", precision, model, windowsize, extra)
-            torch.cuda.synchronize()
-            k1 = windowsize % 2 == 1
-            counts = dict(ops.LAUNCHES if k1 else ops.LAYERED_LAUNCHES)
-            log(f"[pack57 T={windowsize}] {'K1' if k1 else 'K4'} launches "
-                f"{counts} over {len(runs)} runs of {len(files)} batches")
-            assert counts["fp32"] > 0 and counts["bf16"] > 0, counts
-            out["launches"][windowsize] = counts
-            wcfg = dataclasses.replace(cfg, timesteps=windowsize)
-            for precision in ("fp32", "bf16"):
-                beds = [read_beds(os.path.join(
-                    workdir, f"p57_w{windowsize}_{precision}_{pack}"))
-                    for pack in ("0", "1")]
-                assert beds[0] and beds[0] == beds[1], (
-                    f"T={windowsize} {precision}: packed BEDs differ")
-                preds = {}
-                for pack in ("0", "1"):
-                    os.environ["DMT_COMPACT_PACK57"] = pack
-                    preds[pack] = WindowPredictor(
-                        params, wcfg, device=device, precision=precision,
-                        compact_transfer=True)
-                packed, fellback, moved = 0, 0, {"0": 0, "1": 0}
-                for path in files:
-                    feats, centers = _features_of(ds, [path], windowsize, 57)
-                    got = {}
-                    for pack, pred in preds.items():
-                        before = pred.transfer_bytes
-                        got[pack] = pred.predict_from_features(
-                            feats, centers, windowsize, assume_packable=True)
-                        moved[pack] += pred.transfer_bytes - before
-                    assert np.array_equal(got["0"], got["1"]), path
-                    # the gate: every histogram count of the call below 256
-                    if (feats[:, :50] < 256).all():
-                        packed += 1
-                    else:
-                        fellback += 1
-                assert preds["0"].compact_modes == {False}
-                assert preds["1"].compact_modes == (
-                    {"hist"} | ({False} if fellback else set())), (
-                    preds["1"].compact_modes, packed, fellback)
-                assert packed > 0, "no file of the set is packable"
-                log(f"[pack57 T={windowsize} {precision}] "
-                    f"{len(beds[1])} BEDs byte-equal packed and unpacked; "
-                    f"predictions equal on every file; the pack engaged on "
-                    f"{packed} files and fell back on {fellback} (a count "
-                    f">= 256); host->device bytes {moved['1']} packed "
-                    f"against {moved['0']} unpacked "
-                    f"({moved['1'] / moved['0']:.4f}x)")
-    finally:
-        if saved is None:
-            os.environ.pop("DMT_COMPACT_PACK57", None)
-        else:
-            os.environ["DMT_COMPACT_PACK57"] = saved
+    for windowsize in PACK57_T:
+        prefix = f"p57_w{windowsize}_"
+        # the main path: counts from 0 just before, read just after
+        ops.reset_launch_counts()
+        for precision in ("fp32", "bf16"):
+            run_detect(ds, os.path.join(workdir, f"{prefix}gpu_{precision}"),
+                       "cuda", precision, model, windowsize, extra)
+        torch.cuda.synchronize()
+        k1 = windowsize % 2 == 1
+        counts = dict(ops.LAUNCHES if k1 else ops.LAYERED_LAUNCHES)
+        log(f"[pack57 T={windowsize}] {'K1' if k1 else 'K4'} launches "
+            f"{counts} over 2 runs")
+        assert counts["fp32"] > 0 and counts["bf16"] > 0, counts
+        out["launches"][windowsize] = counts
+        run_detect(ds, os.path.join(workdir, f"{prefix}cpu_fp32"), "cpu",
+                   "fp32", model, windowsize, extra)
+        res = compare_devices(device, ds, workdir, prefix, windowsize,
+                              model=model, fnum=57)
+        out["flips"][windowsize] = res["flips"]
+    last = run_tool("probe_compact_pack", "--rows", "262144", "--passes",
+                    "1", "--fnum", "57")[-1]
+    assert last["identical"], last
     return out
 
 
@@ -3204,10 +3142,9 @@ def phase_tools(workdir: str) -> None:
     its smallest size on the card, in this process; each tool's own
     checks (it exits non-zero when one fails) and its result lines."""
     scale = os.path.join(workdir, "scale")
-    for fnum in ("7", "57"):
-        last = run_tool("probe_compact_pack", "--rows", "262144", "--passes",
-                        "1", "--fnum", fnum)[-1]
-        assert last["identical"], last
+    last = run_tool("probe_compact_pack", "--rows", "262144", "--passes",
+                    "1", "--fnum", "7")[-1]
+    assert last["identical"], last
     rows = run_tool("probe_device_agg", "--reps", "1", "--cases",
                     "1000000:4600000")[-1]["rows"]
     assert all(r["counts_equal"] for r in rows), rows

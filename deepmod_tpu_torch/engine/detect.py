@@ -42,7 +42,7 @@ import glob
 import os
 import time
 from collections import defaultdict, deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -216,33 +216,12 @@ class WindowPredictor:
             # than materialized windows (bf16 / fp32)
             compact_transfer = self._cuda
         self.compact_transfer = bool(compact_transfer)
-        # compact transfer ships fp32 rows, cast to the kernel's dtype on
-        # the device. Opt-in one-hot pack (DMT_COMPACT_PACK=1, as in the
-        # JAX package): the 4 one-hot refbase columns ride as ONE uint8
-        # code (0..3 = ACGT, 4 = no base), rebuilt on the device from a 5x4
-        # LUT, the rest cast on the host — bit-identical (LUT rows are
-        # exact 0/1) with fewer link bytes, but a host pass over the batch
-        # that leaves the card idle behind a fast link
-        self._pack_onehot = (config.num_input == 7
-                             and os.environ.get("DMT_COMPACT_PACK", "0") != "0")
-        # fnum 57, opt-in (DMT_COMPACT_PACK57=1, as in the JAX package):
-        # when every histogram value of a call is an integer in [0, 256)
-        # the 50 histogram columns ride as uint8 beside the one-hot code
-        # (57 B a row in bf16 against 114); uint8 -> bf16 is exact below
-        # 256, so predictions keep their bits
-        self._pack_hist = (config.num_input == 57
-                           and os.environ.get("DMT_COMPACT_PACK57", "0") == "1")
-        lut = torch.zeros(5, 4, dtype=self._dtype)
-        lut[:4] = torch.eye(4, dtype=self._dtype)
-        self._lut = lut.to(self.device)
-        # one replica of the packed weights and the LUT a device
-        self._replicas = {self.device: (self._model, self._lut)}
+        # one replica of the packed weights a device
+        self._replicas = {self.device: self._model}
         for dev in self.devices:
             if dev not in self._replicas:
-                params_d = params_from_numpy(self.params, dev)
-                self._replicas[dev] = (
-                    pack_bilstm_params(params_d, config, precision),
-                    lut.to(dev))
+                self._replicas[dev] = pack_bilstm_params(
+                    params_from_numpy(self.params, dev), config, precision)
         self._streams = None
         if self._cuda and len(self.devices) > 1:
             self._streams = [torch.cuda.Stream(device=d) for d in self.devices]
@@ -252,9 +231,6 @@ class WindowPredictor:
         # counts around the shard's classification)
         self.shard_launches = [0] * len(self.devices)
         self._fn = self._classify
-        # which compact variants ran ('onehot' / 'hist' packed, False
-        # unpacked)
-        self.compact_modes: set = set()
         # host->device payload bytes dispatched (features/windows only).
         # Monotonic across calls — callers snapshot before/after.
         self.transfer_bytes = 0
@@ -267,7 +243,7 @@ class WindowPredictor:
 
     def _classify(self, x: torch.Tensor) -> torch.Tensor:
         """(N, T, F) device tensor (any strides) -> (N,) int8 predictions."""
-        model = self._replicas[x.device][0]
+        model = self._replicas[x.device]
         logits = bilstm_logits(model, x, self.config, self.precision)
         return torch.argmax(logits, dim=-1).to(torch.int8)
 
@@ -358,70 +334,74 @@ class WindowPredictor:
             return np.empty(0, np.int8)
         with span("detect.pack"):
             windows = self._host_cast(windows)
+
+        def chunks():
+            done = 0
+            # consume DESCENDING buckets greedily, but stop descending once
+            # the remainder's covering bucket pads with bounded waste (<=
+            # max of the smallest bucket and ~1.5% of n): fewer device calls
+            # than a full descent, far less padding than one top bucket
+            max_waste = max(self.buckets[0], n >> 6)
+            for b in reversed(self.buckets):
+                while n - done >= b:
+                    with span("detect.chunk"):
+                        windows_on = functools.partial(
+                            self._host_windows, windows[done : done + b])
+                    yield b, windows_on, slice(done, done + b), slice(0, b)
+                    done += b
+                rem = n - done
+                if rem == 0 or self._bucket_for(rem) - rem <= max_waste:
+                    break
+            if done < n:
+                with span("detect.chunk"):
+                    rem = n - done
+                    bucket = self._bucket_for(rem)
+                    if bucket == rem:
+                        tail = windows[done:]
+                    else:
+                        tail = torch.zeros(
+                            (bucket,) + tuple(windows.shape[1:]),
+                            dtype=windows.dtype)
+                        tail[:rem] = windows[done:]
+                yield (bucket, functools.partial(self._host_windows, tail),
+                       slice(done, n), slice(0, rem))
+
+        return self._pipeline(n, chunks())
+
+    def _pipeline(self, n: int, chunks) -> np.ndarray:
+        """The chunk queue both transfers share. ``chunks`` yields ``(m,
+        windows_on, dst, keep)`` a chunk: ``m`` windows to classify, as
+        ``_dispatch`` takes them, and where their predictions go, ``out[dst]
+        = preds[keep]``. Each chunk is dispatched as soon as it is made;
+        the oldest is fetched once more than ``_LOOKAHEAD`` are in flight,
+        and the rest at the end. Returns ``out``, the (n,) predictions."""
         out = np.empty(n, np.int8)
-        inflight: List[Tuple[int, int, Any]] = []  # (start, rows, handle)
+        inflight = deque()
 
         def drain(limit: int) -> None:
             while len(inflight) > limit:
                 with span("detect.fetch"):
-                    start, rows, handle = inflight.pop(0)
-                    out[start : start + rows] = self._fetch(handle)[:rows]
+                    dst, keep, handle = inflight.popleft()
+                    out[dst] = self._fetch(handle)[keep]
 
-        done = 0
-        # consume DESCENDING buckets greedily, but stop descending once the
-        # remainder's covering bucket pads with bounded waste (<= max of
-        # the smallest bucket and ~1.5% of n): fewer device calls than a
-        # full descent, far less padding than one top bucket
-        max_waste = max(self.buckets[0], n >> 6)
-        for b in reversed(self.buckets):
-            while n - done >= b:
-                with span("detect.chunk"):
-                    windows_on = functools.partial(
-                        self._host_windows, windows[done : done + b])
-                inflight.append((done, b, self._dispatch(b, windows_on)))
-                done += b
-                drain(_LOOKAHEAD)
-            rem = n - done
-            if rem == 0 or self._bucket_for(rem) - rem <= max_waste:
-                break
-        if done < n:
-            with span("detect.chunk"):
-                rem = n - done
-                bucket = self._bucket_for(rem)
-                if bucket == rem:
-                    tail = windows[done:]
-                else:
-                    tail = torch.zeros((bucket,) + tuple(windows.shape[1:]),
-                                       dtype=windows.dtype)
-                    tail[:rem] = windows[done:]
-            inflight.append((done, rem, self._dispatch(
-                bucket, functools.partial(self._host_windows, tail))))
+        for m, windows_on, dst, keep in chunks:
+            inflight.append((dst, keep, self._dispatch(m, windows_on)))
+            drain(_LOOKAHEAD)
         drain(0)
         return out
 
     # -- compact transfer ------------------------------------------------
 
-    def _window_view(self, chunks, window: int, lo: int, hi: int,
-                     device: torch.device) -> torch.Tensor:
-        """Windows lo..hi-1 of a compact row chunk on ``device``: rows
-        lo..hi+T-2 (the T-1 rows of halo) copied over, then cast there to
-        the kernel's dtype when ``chunks`` is the fp32 rows alone (round to
-        nearest even, the host cast's bits; none at fp32); the one-hot
-        columns rebuilt from the codes through the LUT when ``chunks`` is
-        (codes, rest) or (hist, codes, rest) (the uint8 histogram columns
-        cast to the feature dtype in front); and the overlapping window
-        view the kernel reads in place."""
-        rows = slice(lo, hi + window - 1)
-        if len(chunks) == 1:
-            feats = self._to_device(chunks[0][rows], device)
-            count("detect.rows_cast_on_device", len(feats))
-            feats = feats.to(self._dtype)
-        else:
-            *hist, codes, rest = (self._to_device(c[rows], device)
-                                  for c in chunks)
-            lut = self._replicas[device][1]
-            feats = torch.cat([h.to(self._dtype) for h in hist]
-                              + [lut[codes.long()], rest], dim=1)
+    def _window_view(self, staged: torch.Tensor, window: int, lo: int,
+                     hi: int, device: torch.device) -> torch.Tensor:
+        """Windows lo..hi-1 of a staged fp32 row chunk on ``device``: rows
+        lo..hi+T-2 (the T-1 rows of halo) copied over, cast there to the
+        kernel's dtype (round to nearest even, the host cast's bits; none
+        at fp32), and the overlapping window view the kernel reads in
+        place."""
+        feats = self._to_device(staged[lo : hi + window - 1], device)
+        count("detect.rows_cast_on_device", len(feats))
+        feats = feats.to(self._dtype)
         fnum = feats.shape[1]
         return feats.as_strided((hi - lo, window, fnum), (fnum, fnum, 1))
 
@@ -444,21 +424,20 @@ class WindowPredictor:
         index of each window's center. On the compact path, the one-block
         case of ``predict_from_blocks``.
 
-        ``assume_packable``: skip the one-hot verification scan before
-        packed transfer — for engine-built feature blocks, whose leading
-        columns are 0/1 one-hots by construction.
+        ``assume_packable`` has no effect; it stays only for callers
+        outside the package.
         """
         n = len(centers)
         if n == 0:
             return np.empty(0, np.int8)
         if self._compact(n, window, len(features)):
             return self._predict_compact([features], *center_runs(centers),
-                                         window, assume_packable)
+                                         window)
         return self._predict_windows(features, centers, window)
 
     def predict_from_blocks(
         self, blocks: Sequence[np.ndarray], firsts: np.ndarray,
-        counts: np.ndarray, window: int = 21, assume_packable: bool = False,
+        counts: np.ndarray, window: int = 21,
     ) -> np.ndarray:
         """Classify windows cut from per-read (rows, fnum) feature blocks
         read as laid end to end; the compact path stages each chunk's rows
@@ -473,8 +452,7 @@ class WindowPredictor:
         if n == 0:
             return np.empty(0, np.int8)
         if self._compact(n, window, sum(len(b) for b in blocks)):
-            return self._predict_compact(blocks, firsts, counts, window,
-                                         assume_packable)
+            return self._predict_compact(blocks, firsts, counts, window)
         return self._predict_windows(np.concatenate(blocks),
                                      run_centers(firsts, counts), window)
 
@@ -489,83 +467,21 @@ class WindowPredictor:
             windows = np.moveaxis(view[centers - half], 2, 1)
         return self.predict(windows)
 
-    def _compact_columns(
-        self, blocks: Sequence[np.ndarray], starts: np.ndarray,
-        assume_packable: bool,
-    ) -> List[Tuple[Sequence, np.ndarray, torch.dtype, int]]:
-        """The row-aligned host columns that compact transfer ships, each
-        group ``(blocks, starts, dtype, fill)`` read as laid end to end
-        (block b from row ``starts[b]``) and padded with ``fill``: (codes,
-        rest) with the one-hot pack, (hist, codes, rest) with the fnum-57
-        pack (one block each, cut from the blocks' concatenation), else the
-        caller's blocks as they stand, staged in fp32, which
-        ``_window_view`` casts on the device."""
-        pack: Any = False
-        cols = None
-        if self._pack_hist or self._pack_onehot:
-            features = (blocks[0] if len(blocks) == 1
-                        else np.concatenate(blocks))
-        if self._pack_hist:
-            # fnum-57 columns: [hist 0..49 | onehot 50..53 | mean stdv
-            # length 54..56] (features/builder.py layout). The < 256 gate
-            # always holds the transfer-dtype values; ``assume_packable``
-            # skips the integrality and one-hot scan only
-            cast = self._host_cast(features)
-            hist = cast[:, :50]
-            check_ok = bool((hist < 256).all())
-            if check_ok and not assume_packable:
-                onehot = cast[:, 50:54].float()
-                check_ok = bool(
-                    (hist >= 0).all() and (hist == torch.floor(hist)).all()
-                    and ((onehot == 0.0) | (onehot == 1.0)).all()
-                    and (onehot.sum(dim=1) <= 1.0).all())
-            if check_ok:
-                pack = "hist"
-                codes_t = torch.full((len(features),), 4, dtype=torch.uint8)
-                for k in range(3, -1, -1):
-                    codes_t[cast[:, 50 + k] != 0] = k
-                cols = [(hist.to(torch.uint8), 0), (codes_t, 4),
-                        (cast[:, 54:], 0)]
-        elif self._pack_onehot:
-            check_ok = True
-            if not assume_packable:
-                onehot = np.asarray(features[:, :4], np.float32)
-                check_ok = bool(
-                    ((onehot == 0.0) | (onehot == 1.0)).all()
-                    and (onehot.sum(axis=1) <= 1.0).all()
-                )
-            if check_ok:
-                pack = "onehot"
-                # rows with no hit ('-'/'N' refbase, pad rows) stay 4
-                codes = np.full(len(features), 4, np.uint8)
-                for k in range(3, -1, -1):
-                    codes[features[:, k] != 0] = k
-                cols = [(torch.from_numpy(codes), 4),
-                        (self._host_cast(features[:, 4:]), 0)]
-        self.compact_modes.add(pack)
-        if cols is None:
-            return [(blocks, starts, torch.float32, 0)]
-        return [([c], np.zeros(1, np.int64), c.dtype, fill)
-                for c, fill in cols]
-
-    def _stage(self, groups, row0: int, rows: int) -> List[torch.Tensor]:
-        """Rows [row0, row0 + rows) of each column group's blocks, gathered
-        into a new host buffer a group: pinned on the card, from PyTorch's
+    def _stage(self, blocks: Sequence[np.ndarray], starts: np.ndarray,
+               row0: int, rows: int) -> torch.Tensor:
+        """Rows [row0, row0 + rows) of ``blocks`` read as laid end to end
+        (block b from row ``starts[b]``), padded with zeros, gathered in
+        fp32 into a new host buffer: pinned on the card, from PyTorch's
         caching host allocator, so ``_to_device`` copies it as it stands
         and the buffer is reused only once that copy has completed."""
-        staged = []
-        for blocks, starts, dtype, fill in groups:
-            buf = torch.empty((rows,) + tuple(blocks[0].shape[1:]),
-                              dtype=dtype, pin_memory=self._cuda)
-            _gather(blocks, starts, row0,
-                    buf.numpy() if isinstance(blocks[0], np.ndarray) else buf,
-                    fill)
-            staged.append(buf)
-        return staged
+        buf = torch.empty((rows,) + tuple(blocks[0].shape[1:]),
+                          dtype=torch.float32, pin_memory=self._cuda)
+        _gather(blocks, starts, row0, buf.numpy())
+        return buf
 
     def _predict_compact(
         self, blocks: Sequence[np.ndarray], firsts: np.ndarray,
-        counts: np.ndarray, window: int, assume_packable: bool = False,
+        counts: np.ndarray, window: int,
     ) -> np.ndarray:
         """Ship (rows, fnum) row chunks, classify every window a chunk's
         rows hold (the kernel reads window i as rows i..i+T-1 in place),
@@ -581,8 +497,9 @@ class WindowPredictor:
         count("detect.windows_asked", n)
         half = window // 2
         lasts = firsts + counts - 1
-        lengths = np.array([len(b) for b in blocks], np.int64)
-        starts = np.cumsum(lengths) - lengths
+        with span("detect.pack"):
+            lengths = np.array([len(b) for b in blocks], np.int64)
+            starts = np.cumsum(lengths) - lengths
         rows = int(lengths.sum())
         if np.any(firsts[1:] < lasts[:-1]):
             raise ValueError("compact transfer requires ascending centers")
@@ -593,50 +510,41 @@ class WindowPredictor:
                 f"for every center (first={int(firsts[0])}, "
                 f"last={int(lasts[-1])}, rows={rows}, window={window})"
             )
-        with span("detect.pack"):
-            groups = self._compact_columns(blocks, starts, assume_packable)
         # cum[q]: the windows asked before run q
         cum = np.concatenate([[0], np.cumsum(counts)])
-        out = np.empty(n, np.int8)
-        inflight: List[Tuple[int, int, np.ndarray, Any]] = []
-
-        def drain(limit: int) -> None:
-            while len(inflight) > limit:
-                with span("detect.fetch"):
-                    i, j, idx, handle = inflight.pop(0)
-                    out[i:j] = self._fetch(handle)[idx]
-
         # a row chunk must cover at least one full window or the loop
         # below cannot advance (buckets may be narrower than a window)
         min_rows = 1 << int(window).bit_length()
-        i = 0
-        while i < n:
-            with span("detect.chunk"):
-                r = int(np.searchsorted(cum, i, "right")) - 1  # window i's run
-                row0 = int(firsts[r] + i - cum[r]) - half
-                # the rows the asked windows from window i on read, up to
-                # the largest bucket
-                span_rows = int(lasts[-1]) - half + window - row0
-                chunk = max(min(span_rows, self.buckets[-1]), min_rows)
-                # centers computable from rows [row0, row0+chunk):
-                # c - half + T <= row0 + chunk; runs r..k-1 hold them
-                limit = row0 + chunk + half - window + 1
-                k = int(np.searchsorted(firsts, limit, "left"))
-                j = int(cum[k - 1] + min(counts[k - 1], limit - firsts[k - 1]))
-                # each asked window's index among the chunk's windows
-                took = (np.minimum(cum[r + 1 : k + 1], j)
-                        - np.maximum(cum[r:k], i))
-                idx = (np.arange(i, j) - row0 - half
-                       + np.repeat(firsts[r:k] - cum[r:k], took))
-                with span("detect.stage"):
-                    staged = self._stage(groups, row0, chunk)
-            inflight.append((i, j, idx, self._dispatch(
-                chunk - window + 1,
-                functools.partial(self._window_view, staged, window))))
-            i = j
-            drain(_LOOKAHEAD)
-        drain(0)
-        return out
+
+        def chunks():
+            i = 0
+            while i < n:
+                with span("detect.chunk"):
+                    r = int(np.searchsorted(cum, i, "right")) - 1  # i's run
+                    row0 = int(firsts[r] + i - cum[r]) - half
+                    # the rows the asked windows from window i on read, up
+                    # to the largest bucket
+                    span_rows = int(lasts[-1]) - half + window - row0
+                    chunk = max(min(span_rows, self.buckets[-1]), min_rows)
+                    # centers computable from rows [row0, row0+chunk):
+                    # c - half + T <= row0 + chunk; runs r..k-1 hold them
+                    limit = row0 + chunk + half - window + 1
+                    k = int(np.searchsorted(firsts, limit, "left"))
+                    j = int(cum[k - 1]
+                            + min(counts[k - 1], limit - firsts[k - 1]))
+                    # each asked window's index among the chunk's windows
+                    took = (np.minimum(cum[r + 1 : k + 1], j)
+                            - np.maximum(cum[r:k], i))
+                    idx = (np.arange(i, j) - row0 - half
+                           + np.repeat(firsts[r:k] - cum[r:k], took))
+                    with span("detect.stage"):
+                        staged = self._stage(blocks, starts, row0, chunk)
+                yield (chunk - window + 1,
+                       functools.partial(self._window_view, staged, window),
+                       slice(i, j), idx)
+                i = j
+
+        return self._pipeline(n, chunks())
 
 
 def _kernel_launches(ops) -> int:
@@ -644,11 +552,10 @@ def _kernel_launches(ops) -> int:
     return sum(ops.LAUNCHES.values()) + sum(ops.LAYERED_LAUNCHES.values())
 
 
-def _gather(blocks: Sequence, starts: np.ndarray, row0: int, dst,
-            fill) -> None:
+def _gather(blocks: Sequence, starts: np.ndarray, row0: int, dst) -> None:
     """Rows [row0, row0 + len(dst)) of ``blocks`` laid end to end (block b
-    from row ``starts[b]``) into ``dst``; rows past the last block take
-    ``fill``. ``dst`` and the blocks are numpy arrays or torch tensors
+    from row ``starts[b]``) into ``dst``; rows past the last block are
+    zeros. ``dst`` and the blocks are numpy arrays or torch tensors
     alike."""
     b = int(np.searchsorted(starts, row0, "right")) - 1
     pos = 0
@@ -658,7 +565,7 @@ def _gather(blocks: Sequence, starts: np.ndarray, row0: int, dst,
         dst[pos : pos + take] = blocks[b][lo : lo + take]
         pos += take
         b += 1
-    dst[pos:] = fill
+    dst[pos:] = 0
 
 
 def discover_fast5(wrk_base: str, recursive: bool = True) -> List[str]:
@@ -709,8 +616,7 @@ def predict_batch_windows(
             blocks, firsts, counts, selections, n_total = batch_blocks(
                 results, target_base, window)
         preds_sel = predictor.predict_from_blocks(
-            blocks, firsts, counts, window=window, assume_packable=True,
-        )
+            blocks, firsts, counts, window=window)
         with span("detect.scatter"):
             return scatter_selected_preds(results, selections, preds_sel,
                                           n_total)
@@ -1043,9 +949,7 @@ def _detect_run_inner(
                     with span("device_inference", timer):
                         preds_sel = predictor.predict_from_features(
                             feats, centers,
-                            window=predictor.config.timesteps,
-                            assume_packable=True,
-                        )
+                            window=predictor.config.timesteps)
                     pool.send_preds(wid, bid, preds_sel)
                 elif kind == "outputs":
                     (_, wid, bid, n_r, n_w, idx, coo, secs,

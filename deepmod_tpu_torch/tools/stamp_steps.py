@@ -32,8 +32,9 @@ with nvcc in a build directory of its own and runs it in a child process:
   on the trainer's 2,048 windows, layers 1-2 of the watched tile-lane in
   fp32; the global stores are K2's residuals (h and c of every window,
   and the rounded h row for the next layer). Prints K2's time in fp32
-  and bf16, and the digests of its outputs that ``stamp_old_fp32.py
-  --kernels k2`` prints for the old K2.
+  and bf16, and the digests of its outputs at a few shapes
+  (``k2_digests``: two builds that print the same digests give the same
+  bits).
 
 Prints the cycles of each span for steps 1-10 and their mean. Needs a
 CUDA GPU and nvcc. The stamps cost a few instructions a step, so the
@@ -184,6 +185,45 @@ def make_copy(kernel: str, out: str) -> str:
     return out
 
 
+# K2's digest shapes: (hidden, batch, T)
+DIGEST_CASES = ((100, 2083, 21), (100, 37, 8), (100, 2048, 20), (128, 2083, 21))
+
+
+def k2_digests(device) -> list:
+    """One line per shape of DIGEST_CASES and precision: the sha-256 of
+    the (hs, cs) bytes ``train_fwd`` returns on inputs made from a seed,
+    to compare two builds' bits."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from deepmod_tpu_torch.models.bilstm import BiLSTMConfig, init_bilstm_params
+    from deepmod_tpu_torch.ops import bilstm_fused_train as tr
+
+    lines = []
+    for hidden, batch, timesteps in DIGEST_CASES:
+        cfg = BiLSTMConfig(num_hidden=hidden, timesteps=timesteps)
+        params = init_bilstm_params(7 + batch, cfg, device=device)
+        gen = torch.Generator().manual_seed(batch)
+        for lane in ("fw", "bw"):
+            for lp in params[lane]:
+                lp["bias"] = (0.1 * torch.randn(lp["bias"].shape,
+                                                generator=gen)).to(device)
+        weights = tr.stack_lanes(params)
+        x = torch.from_numpy(np.random.default_rng(batch).standard_normal(
+            (batch, timesteps, 7), dtype=np.float32)).to(device)
+        for precision in tr.PRECISIONS:
+            xin = tr.layer_inputs(x.to(tr.storage_dtype(precision)),
+                                  tr.readout(timesteps)[0])
+            hs, cs = tr.train_fwd(xin, weights, cfg.forget_bias)
+            raw = b"".join(t.cpu().contiguous().view(torch.uint8).numpy()
+                           .tobytes() for t in (hs, cs))
+            lines.append(f"k2 digest H={hidden} B={batch} T={timesteps} "
+                         f"{precision}: {hashlib.sha256(raw).hexdigest()[:20]}")
+    return lines
+
+
 def _run_child(kernel: str) -> None:
     """In the stamped copy: run the kernel, print times and stamps."""
     import ctypes
@@ -228,8 +268,6 @@ def _run_child(kernel: str) -> None:
                          reps=5)
             print(f"K2 {precision} T={cfg.timesteps} B=2048 at {shape}: "
                   f"{ms:.4f} ms")
-        from deepmod_tpu_torch.tools.stamp_old_fp32 import k2_digests
-
         for line in k2_digests(dev):
             print(line)
         tr.train_fwd(xin, weights, cfg.forget_bias)

@@ -251,9 +251,9 @@ def test_cli_detect_on_cpu(runs, tmp_path):
             assert a.read() == b.read(), rel
 
 
-def test_unported_options_raise(runs, tmp_path, monkeypatch):
-    """No detect option is left unported: the fnum-57 histogram pack
-    builds (tests below), and device aggregation runs, staying on the
+def test_unported_options_raise(runs, tmp_path):
+    """No detect option is left unported: a fnum-57 predictor builds
+    (tests below), and device aggregation runs, staying on the
     host path with one device (several: tests/test_torch_parallel.py;
     --predDet 0 and --mod_cluster: tests/test_torch_summarize.py)."""
     _, common, _ = runs
@@ -262,8 +262,7 @@ def test_unported_options_raise(runs, tmp_path, monkeypatch):
 
     cfg = tb.BiLSTMConfig(num_input=57, num_hidden=8, num_layers=1)
     params = tb.init_bilstm_params(0, cfg, device="cpu")
-    monkeypatch.setenv("DMT_COMPACT_PACK57", "1")
-    assert WindowPredictor(params, cfg, device="cpu")._pack_hist
+    assert WindowPredictor(params, cfg, device="cpu").config.num_input == 57
     base = DetectConfig(**dict(common, out_folder=str(tmp_path / "x")),
                         device="cpu", precision="fp32")
     res = detect_run(dataclasses.replace(base, device_aggregation=True))
@@ -294,67 +293,14 @@ def hist_model():
     return cfg, params_to_numpy(tb.init_bilstm_params(9, cfg, device="cpu"))
 
 
-def _predictor(hist_model, monkeypatch, pack: bool, **kw):
-    from deepmod_tpu_torch.engine.detect import WindowPredictor
-
-    monkeypatch.setenv("DMT_COMPACT_PACK57", "1" if pack else "0")
-    cfg, params = hist_model
-    return WindowPredictor(params, cfg, buckets=(64, 256), device="cpu", **kw)
-
-
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_predictor_packed_hist_equality(hist_model, monkeypatch, precision):
-    """fnum-57 packed compact transfer (tests/test_detect_e2e.py's
-    ``test_predictor_packed_hist_equality``): the 50 histogram columns
-    ride as uint8 beside the one-hot code (57 B a row in bf16, 63 in
-    fp32). Predictions are the bits of the unpacked compact path and of
-    window transfer; a count >= 256 falls back to the unpacked transfer
-    (fp32 rows, 228 B) also under ``assume_packable``, a fractional count
-    when the scan runs."""
-    feats, centers = _hist_features()
-    packed = _predictor(hist_model, monkeypatch, True, precision=precision,
-                        compact_transfer=True)
-    unpacked = _predictor(hist_model, monkeypatch, False, precision=precision,
-                          compact_transfer=True)
-    win = _predictor(hist_model, monkeypatch, True, precision=precision,
-                     compact_transfer=False)
-    assert packed._pack_hist and not unpacked._pack_hist
-    got = packed.predict_from_features(feats, centers)
-    assert packed.compact_modes == {"hist"}
-    # the 676 centers' chunks: 256, 256 and the 224 rows the last 204 read
-    rows = 2 * 256 + 224
-    row_bytes = 50 + 1 + 3 * (2 if precision == "bf16" else 4)
-    assert packed.transfer_bytes == rows * row_bytes
-    want = win.predict_from_features(feats, centers)
-    np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(
-        unpacked.predict_from_features(feats, centers), want)
-    assert unpacked.compact_modes == {False}
-    np.testing.assert_array_equal(
-        packed.predict_from_features(feats, centers, assume_packable=True),
-        want)
-    big = feats.copy()
-    big[5, 3] = 300.0
-    got_b = packed.predict_from_features(big, centers, assume_packable=True)
-    assert False in packed.compact_modes
-    np.testing.assert_array_equal(got_b,
-                                  win.predict_from_features(big, centers))
-    for bad, value in (((7, 2), 1.5), ((9, 4), -1.0)):
-        frac = feats.copy()
-        frac[bad] = value
-        before = packed.transfer_bytes
-        np.testing.assert_array_equal(
-            packed.predict_from_features(frac, centers),
-            win.predict_from_features(frac, centers))
-        # unpacked: 57 fp32 feature columns a row, cast where they land
-        assert packed.transfer_bytes - before == rows * 57 * 4
-
-
 def test_predictor_packed_hist_matches_jax(hist_model, monkeypatch):
-    """The port's packed fnum-57 predictions equal the JAX package's packed
-    predictor's (fp32, scan path)."""
+    """The port's one compact path at fnum 57 (fp32 rows, 228 B a row
+    shipped) gives the predictions of the JAX package's packed predictor
+    (its histogram pack switched on for it alone; fp32, scan path) and of
+    the port's materialized windows."""
     from deepmod_tpu.engine.detect import WindowPredictor as JaxPredictor
     from deepmod_tpu.models.bilstm import BiLSTMConfig as JaxConfig
+    from deepmod_tpu_torch.engine.detect import WindowPredictor
 
     feats, centers = _hist_features()
     cfg, params = hist_model
@@ -364,8 +310,14 @@ def test_predictor_packed_hist_matches_jax(hist_model, monkeypatch):
                          data_parallel=False, compact_transfer=True)
     want = jpred.predict_from_features(feats, centers)
     assert "hist" in jpred._compact_fns
-    packed = _predictor(hist_model, monkeypatch, True, precision="fp32",
-                        compact_transfer=True)
+    monkeypatch.delenv("DMT_COMPACT_PACK57")
+    kw = dict(buckets=(64, 256), device="cpu", precision="fp32")
+    plain = WindowPredictor(params, cfg, compact_transfer=True, **kw)
+    win = WindowPredictor(params, cfg, compact_transfer=False, **kw)
+    got = plain.predict_from_features(feats, centers)
+    assert 0 < int(want.sum()) < len(want)
+    np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(
-        packed.predict_from_features(feats, centers), want)
-    assert packed.compact_modes == {"hist"}
+        got, win.predict_from_features(feats, centers))
+    # the 676 centers' chunks: 256, 256 and the 224 rows the last 204 read
+    assert plain.transfer_bytes == (2 * 256 + 224) * 57 * 4

@@ -936,16 +936,17 @@ def test_k1_tanh_sigmoid_variant(cuda):
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_compact_rows_cast_on_card_match_the_pack(cuda, precision,
-                                                  monkeypatch):
-    """Detect's default compact transfer ships the caller's fp32 rows and
-    casts them on the card: over two chunks of the 4,096-row bucket and a
-    last one of the 780 rows left (no bucket's size, with buckets of
-    1,024 and 4,096 rows), its predictions equal the opt-in
-    one-hot pack's (``DMT_COMPACT_PACK=1``: codes through the LUT, the
-    rest cast on the host) and the materialized windows', bit for bit,
-    and every chunk reaches K1 in the kernel's dtype."""
+def test_compact_rows_cast_on_card_match_the_pack(cuda, precision):
+    """Detect's compact transfer ships the caller's fp32 rows and casts
+    them on the card: over two chunks of the 4,096-row bucket and a last
+    one of the 780 rows left (no bucket's size, with buckets of 1,024 and
+    4,096 rows), its predictions equal the packed transfer's of
+    ``tools/probe_compact_pack.py`` (the JAX package's one-hot pack: codes
+    rebuilt through a LUT on the card, the rest cast on the host) and the
+    materialized windows', bit for bit, and every chunk reaches K1 in the
+    kernel's dtype."""
     from deepmod_tpu_torch.engine.detect import WindowPredictor
+    from deepmod_tpu_torch.tools.probe_compact_pack import predict_packed
 
     cfg = BiLSTMConfig(num_input=7)
     params = init_bilstm_params(12, cfg, device="cpu")  # both classes
@@ -961,8 +962,6 @@ def test_compact_rows_cast_on_card_match_the_pack(cuda, precision,
     kw = dict(buckets=(1024, 4096), device=cuda, precision=precision)
     plain = WindowPredictor(params, cfg, compact_transfer=True, **kw)
     win = WindowPredictor(params, cfg, compact_transfer=False, **kw)
-    monkeypatch.setenv("DMT_COMPACT_PACK", "1")
-    packed = WindowPredictor(params, cfg, compact_transfer=True, **kw)
     fed = []
     real_fn = plain._fn
 
@@ -972,13 +971,12 @@ def test_compact_rows_cast_on_card_match_the_pack(cuda, precision,
 
     plain._fn = spy_fn
     before = ops.LAUNCHES[precision]
-    got = plain.predict_from_features(feats, centers, assume_packable=True)
+    got = plain.predict_from_features(feats, centers)
     assert ops.LAUNCHES[precision] == before + 3
     assert fed == [(plain._dtype, "cuda")] * 3
     assert plain.transfer_bytes == 4 * 7 * (2 * 4096 + 780)
-    want = packed.predict_from_features(feats, centers, assume_packable=True)
-    assert plain.compact_modes == {False}
-    assert packed.compact_modes == {"onehot"}
+    want, moved = predict_packed(plain, feats, centers)
+    assert moved < plain.transfer_bytes
     assert 0 < int(got.sum()) < len(got)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, win.predict_from_features(feats,
@@ -1017,9 +1015,9 @@ def test_staging_on_card_matches_the_concatenated_array(cuda, precision,
     stage, pinned = staged._stage, []
 
     def spy(*args):
-        bufs = stage(*args)
-        pinned.extend(b.is_pinned() for b in bufs)
-        return bufs
+        buf = stage(*args)
+        pinned.append(buf.is_pinned())
+        return buf
 
     staged._stage = spy
     rng = np.random.default_rng(22)
@@ -1042,13 +1040,11 @@ def test_staging_on_card_matches_the_concatenated_array(cuda, precision,
         feats, centers, _, _ = build_batch_request(reads)
         assert len(got) == len(centers) and 0 < int(got.sum()) < len(got)
         np.testing.assert_array_equal(
-            got, staged.predict_from_features(feats, centers,
-                                              assume_packable=True),
+            got, staged.predict_from_features(feats, centers),
             err_msg=f"batch {batch}")
         np.testing.assert_array_equal(
             got, win.predict_from_features(feats, centers),
             err_msg=f"batch {batch}")
-    assert staged.compact_modes == {False}
     assert len(pinned) > 20 and all(pinned)
 
 
@@ -1089,7 +1085,7 @@ def test_trimmed_cfdna_batch_matches_the_untrimmed_route(cuda, precision):
             base_map=None, left_clip=0, right_clip=0, first_match_pos=0,
             num_match=int(n), num_mismatch=0, num_insert=0, num_del=0,
             features=feats, n_aligned=int(n), chrom_length=0))
-    model = pred._replicas[pred.device][0]
+    model = pred._replicas[pred.device]
     seen, real_fn = [], pred._fn
 
     def spy_fn(x):
@@ -1110,7 +1106,7 @@ def test_trimmed_cfdna_batch_matches_the_untrimmed_route(cuda, precision):
     pad_starts = starts + (2 * FEATURE_PAD - 20) * np.arange(len(events))
     centers = np.concatenate([s + FEATURE_PAD + np.arange(n)
                               for s, n in zip(pad_starts, events)])
-    want = pred.predict_from_features(whole, centers, assume_packable=True)
+    want = pred.predict_from_features(whole, centers)
     assert len(got) == len(asked) and 0 < int(got.sum()) < len(got)
     np.testing.assert_array_equal(got, want)
     rows = torch.from_numpy(whole).to(cuda).to(ops.seq_dtype(precision))

@@ -176,8 +176,8 @@ def test_data_parallel_predictor_same_bits_as_one_shard(params, precision,
     for centers in (np.arange(10, 2590, dtype=np.int64),
                     np.arange(10, 700, 3, dtype=np.int64),
                     np.asarray([10, 11, 500, 2000, 2001], np.int64)):
-        want = one.predict_from_features(feats, centers, assume_packable=True)
-        got = eight.predict_from_features(feats, centers, assume_packable=True)
+        want = one.predict_from_features(feats, centers)
+        got = eight.predict_from_features(feats, centers)
         np.testing.assert_array_equal(got, want)
         mixed = 0 < int(want.sum()) < len(want) or len(want) < 10
         assert mixed
@@ -200,7 +200,7 @@ def test_data_parallel_predictor_matches_jax(params, compact):
                          devices=CPU8, precision="fp32",
                          compact_transfer=compact)
     want = jp.predict_from_features(feats, centers, assume_packable=True)
-    got = tp.predict_from_features(feats, centers, assume_packable=True)
+    got = tp.predict_from_features(feats, centers)
     assert 0 < int(want.sum()) < len(want)
     np.testing.assert_array_equal(got, want)
 

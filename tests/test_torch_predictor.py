@@ -1,8 +1,8 @@
 """The port's WindowPredictor on the CPU: bucket schedule, compact
-transfer (fp32 rows cast where they land, and the opt-in pack), its
-bytes and counter, guards and sparse routing (mirroring the JAX package's
-tests/test_detect_e2e.py predictor tests), then identical fp32
-predictions to the JAX WindowPredictor on the same weights and features.
+transfer (fp32 rows cast where they land), its bytes and counter, guards
+and sparse routing (mirroring the JAX package's tests/test_detect_e2e.py
+predictor tests), then identical fp32 predictions to the JAX
+WindowPredictor on the same weights and features.
 """
 
 import numpy as np
@@ -113,33 +113,8 @@ def test_compact_transfer_at_layered_window_sizes(window):
     half = window // 2
     centers = np.arange(half, 400 - half, dtype=np.int64)
     got = cmp.predict_from_features(feats, centers, window)
-    assert cmp.compact_modes == {False}  # fp32 rows, cast where they land
     np.testing.assert_array_equal(
         got, ref.predict_from_features(feats, centers, window))
-
-
-@pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_packed_compact_equals_unpacked(params, precision, monkeypatch):
-    rng = np.random.default_rng(11)
-    feats = _engine_features(rng, 900)
-    centers = np.arange(12, 900 - 12, dtype=np.int64)
-    kw = dict(buckets=(64, 256), device="cpu", precision=precision)
-    win = WindowPredictor(params, CFG, compact_transfer=False, **kw)
-    monkeypatch.setenv("DMT_COMPACT_PACK", "1")  # the pack is opt-in
-    packed = WindowPredictor(params, CFG, compact_transfer=True, **kw)
-    assert packed._pack_onehot
-    got = packed.predict_from_features(feats, centers)
-    assert packed.compact_modes == {"onehot"}
-    np.testing.assert_array_equal(got, win.predict_from_features(feats, centers))
-    # packed rows (1 code byte + 3 numbers) vs 21-row windows
-    assert packed.transfer_bytes * 10 < win.transfer_bytes
-    # non-one-hot library inputs fall back to the unpacked transfer
-    rand = rng.standard_normal((900, 7)).astype(np.float32)
-    np.testing.assert_array_equal(
-        packed.predict_from_features(rand, centers),
-        win.predict_from_features(rand, centers),
-    )
-    assert False in packed.compact_modes
 
 
 # the hand count of the compact chunks at buckets (64, 256), T=21, the
@@ -153,24 +128,20 @@ CAST_ROWS = "detect.rows_cast_on_device"
 
 @pytest.mark.parametrize("shards", [1, 2])
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
-def test_default_compact_ships_fp32_rows_cast_on_device(precision, shards,
-                                                        monkeypatch):
+def test_default_compact_ships_fp32_rows_cast_on_device(precision, shards):
     """The default compact path ships the caller's fp32 rows as they stand
     and casts them to the kernel's dtype where they land: predictions equal
-    the materialized windows' and the opt-in one-hot pack's bit for bit,
-    over ragged last chunks, on one shard and two; ``transfer_bytes`` is 4 B
-    a column of every row shipped (each shard's T-1 rows of halo
-    included); the counter of rows cast on the device counts those rows
-    under a profiler and stands still without one."""
+    the materialized windows' bit for bit, over ragged last chunks, on
+    one shard and two; ``transfer_bytes`` is 4 B a column of every row
+    shipped (each shard's T-1 rows of halo included); the counter of rows
+    cast on the device counts those rows under a profiler and stands still
+    without one."""
     cfg = tb.BiLSTMConfig(num_input=7, num_hidden=16)
     p = params_to_numpy(tb.init_bilstm_params(8, cfg, device="cpu"))
     kw = dict(buckets=(64, 256), device="cpu", precision=precision,
               devices=["cpu"] * shards)
     plain = WindowPredictor(p, cfg, compact_transfer=True, **kw)
     win = WindowPredictor(p, cfg, compact_transfer=False, **kw)
-    monkeypatch.setenv("DMT_COMPACT_PACK", "1")
-    packed = WindowPredictor(p, cfg, compact_transfer=True, **kw)
-    assert packed._pack_onehot and not plain._pack_onehot
     fed = set()
     real_fn = plain._fn
 
@@ -187,8 +158,7 @@ def test_default_compact_ships_fp32_rows_cast_on_device(precision, shards,
         bytes0 = plain.transfer_bytes
         before = profiling.counters()
         with profile(activities=[ProfilerActivity.CPU]):
-            got = plain.predict_from_features(feats, centers,
-                                              assume_packable=True)
+            got = plain.predict_from_features(feats, centers)
         after = profiling.counters()
         delta = {k: after.get(k, 0) - before.get(k, 0)
                  for k in (CAST_ROWS, "detect.windows_run")}
@@ -197,17 +167,12 @@ def test_default_compact_ships_fp32_rows_cast_on_device(precision, shards,
         assert delta == {CAST_ROWS: shipped, "detect.windows_run": windows}
         np.testing.assert_array_equal(
             got, win.predict_from_features(feats, centers))
-        np.testing.assert_array_equal(
-            got, packed.predict_from_features(feats, centers,
-                                              assume_packable=True))
         assert 0 < int(got.sum()) < len(got)
         untraced = profiling.counters()
         np.testing.assert_array_equal(
             plain.predict_from_features(feats, centers), got)
         assert profiling.counters() == untraced
     assert fed == {plain._dtype}
-    assert plain.compact_modes == {False}
-    assert packed.compact_modes == {"onehot"}
 
 
 def test_compact_transfer_guards(params):
@@ -253,14 +218,17 @@ def test_sparse_selection_routes_to_window_transfer(params):
 def test_predictions_identical_to_jax_predictor(params, compact,
                                                 monkeypatch):
     """Same numpy weights and engine-shaped features through the JAX
-    predictor (scan path, fp32) and the port's (plain version, fp32), with
-    the one-hot pack off (the port's default) and on: the same predictions
-    and host->device bytes a row. A compact chunk of the port ships the
-    2,820 rows its windows read (rows 90..2909), the JAX predictor's the
-    4,096 of its bucket; window transfer ships the same bytes."""
+    predictor (scan path, fp32), with its one-hot pack off and on, and the
+    port's one compact path (plain version, fp32): the same predictions.
+    With the JAX pack off, the same host->device bytes a row: a compact
+    chunk of the port ships the 2,820 rows its windows read (rows
+    90..2909), the JAX predictor's the 4,096 of its bucket; window
+    transfer ships the same bytes. The port reads no pack setting: its
+    bytes stay those whatever the JAX package's pack is set to."""
     rng = np.random.default_rng(21)
     feats = _engine_features(rng, 3000)
     centers = np.arange(100, 2900, dtype=np.int64)
+    plain_bytes = None
     for pack in ("0", "1") if compact else ("0",):
         monkeypatch.setenv("DMT_COMPACT_PACK", pack)
         jp = JaxPredictor(params, jb.BiLSTMConfig(num_input=7),
@@ -270,8 +238,11 @@ def test_predictions_identical_to_jax_predictor(params, compact,
         tp = WindowPredictor(params, CFG, buckets=(512, 4096), device="cpu",
                              precision="fp32", compact_transfer=compact)
         want = jp.predict_from_features(feats, centers, assume_packable=True)
-        got = tp.predict_from_features(feats, centers, assume_packable=True)
+        got = tp.predict_from_features(feats, centers)
         assert 0 < int(want.sum()) < len(want)
         np.testing.assert_array_equal(got, want)
-        rows, bucket = (2820, 4096) if compact else (1, 1)
-        assert tp.transfer_bytes * bucket == jp.transfer_bytes * rows, pack
+        if pack == "0":
+            rows, bucket = (2820, 4096) if compact else (1, 1)
+            assert tp.transfer_bytes * bucket == jp.transfer_bytes * rows
+            plain_bytes = tp.transfer_bytes
+        assert tp.transfer_bytes == plain_bytes, pack

@@ -111,8 +111,7 @@ def _concatenated(results, predictor, target):
     asked center listed."""
     feats, centers, selections, n_total = build_batch_request(results,
                                                               target)
-    preds = predictor.predict_from_features(feats, centers,
-                                            assume_packable=True)
+    preds = predictor.predict_from_features(feats, centers)
     return scatter_selected_preds(results, selections, preds, n_total)
 
 
@@ -136,7 +135,6 @@ def test_staged_blocks_equal_the_concatenated_array(params, case, precision):
         np.testing.assert_array_equal(
             got, _concatenated(results, windows, target),
             err_msg=f"batch {batch}")
-    assert staged.compact_modes == {False}
 
 
 def _small_blocks(seed):
@@ -195,37 +193,28 @@ def test_staged_blocks_equal_the_jax_predictor(params, case):
         want = jax_predict_batch_windows(results, jax_pred,
                                          target_base=target)
         np.testing.assert_array_equal(got, want, err_msg=f"batch {batch}")
-    assert staged.compact_modes == {False}
 
 
-def test_each_chunk_is_staged_into_a_buffer_of_its_own(params, monkeypatch):
-    """``_stage`` gathers a chunk's rows of every column group (the fp32
-    rows as they stand; the one-hot pack's codes and rest) into new
-    buffers of the chunk's rows, padded past the blocks: staging the next
-    chunk leaves the one before, whose copies may still be in flight,
-    as it was."""
+def test_each_chunk_is_staged_into_a_buffer_of_its_own(params):
+    """``_stage`` gathers a chunk's fp32 rows from the blocks into a new
+    buffer of the chunk's rows, zeros past the blocks: staging the next
+    chunk leaves the one before, whose copies may still be in flight, as
+    it was."""
     rng = np.random.default_rng(8)
     blocks = [_rows(rng, n) for n in (50, 3, 90)]
     whole = np.concatenate(blocks)
     starts = np.array([0, 50, 53])
     pred = WindowPredictor(params, CFG, buckets=(64, 256), device="cpu",
                            compact_transfer=True)
-    groups = pred._compact_columns(blocks, starts, True)
-    first = pred._stage(groups, 0, 64)
-    kept = [b.clone() for b in first]
-    second = pred._stage(groups, 100, 64)
-    assert [b.shape for b in first] == [(64, 7)] == [b.shape for b in second]
-    np.testing.assert_array_equal(first[0].numpy(), whole[:64])
-    np.testing.assert_array_equal(second[0].numpy()[:43], whole[100:])
-    assert (second[0].numpy()[43:] == 0).all()
-    assert all(torch.equal(a, b) for a, b in zip(first, kept))
-    monkeypatch.setenv("DMT_COMPACT_PACK", "1")
-    packed = WindowPredictor(params, CFG, buckets=(64, 256), device="cpu",
-                             compact_transfer=True)
-    codes, rest = packed._stage(
-        packed._compact_columns(blocks, starts, True), 100, 64)
-    assert codes.dtype == torch.uint8 and rest.shape == (64, 3)
-    assert (codes[43:] == 4).all() and (codes[:43] < 5).all()
+    first = pred._stage(blocks, starts, 0, 64)
+    kept = first.clone()
+    second = pred._stage(blocks, starts, 100, 64)
+    assert first.shape == (64, 7) == second.shape
+    assert first.dtype == torch.float32 == second.dtype
+    np.testing.assert_array_equal(first.numpy(), whole[:64])
+    np.testing.assert_array_equal(second.numpy()[:43], whole[100:])
+    assert (second.numpy()[43:] == 0).all()
+    assert torch.equal(first, kept)
 
 
 @pytest.mark.parametrize("kind", ["numpy", "torch"])
@@ -242,9 +231,8 @@ def test_gather_reads_blocks_end_to_end_and_fills_past_them(kind):
         for rows in (1, 6, 30):
             dst = np.full((rows, 3), np.nan, np.float32)
             detect._gather(blocks, starts, row0,
-                           dst if kind == "numpy" else torch.from_numpy(dst),
-                           -1.0)
-            want = np.full((rows, 3), -1.0, np.float32)
+                           dst if kind == "numpy" else torch.from_numpy(dst))
+            want = np.zeros((rows, 3), np.float32)
             part = whole[row0 : row0 + rows]
             want[: len(part)] = part
             np.testing.assert_array_equal(dst, want)

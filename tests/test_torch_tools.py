@@ -236,11 +236,68 @@ def test_probe_compact_pack_tool(fnum):
     assert summary["identical"] is True and summary["fnum"] == fnum
     for key in ("value", "unit", "best_plain_s", "best_packed_s", "rows"):
         assert key in summary
-    assert summary["modes"] == {
-        "packed": ["hist" if fnum == 57 else "onehot"], "plain": ["False"]}
     per_row = summary["transfer_bytes_per_row"]
     assert per_row["packed"] < per_row["plain"]
-    assert "DMT_COMPACT_PACK57" not in os.environ
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("fnum", [7, 57])
+def test_probe_pack_rebuilds_the_plain_rows(fnum, precision):
+    """The probe's packed columns (the JAX package's pack, cast on the
+    host), rebuilt through its LUT on the CPU, are the plain rows cast to
+    the kernel's dtype bit for bit; its packed transfer gives the
+    predictions of ``WindowPredictor``'s compact path with fewer bytes a
+    row; rows the pack cannot carry exactly raise."""
+    import torch
+
+    from deepmod_tpu_torch.engine.detect import WindowPredictor
+    from deepmod_tpu_torch.models.bilstm import bilstm_logits
+    from deepmod_tpu_torch.models.tf_import import params_from_numpy
+    from deepmod_tpu_torch.ops.bilstm_fused import seq_dtype
+    from deepmod_tpu_torch.tools import _probe
+    from deepmod_tpu_torch.tools import probe_compact_pack as pcp
+
+    dtype = seq_dtype(precision)
+    rows = 300
+    feats = _probe.engine_rows(np.random.RandomState(fnum), rows, fnum)
+    feats[:, -3:-1] = np.random.RandomState(2).randn(rows, 2)  # bf16 rounds
+    cols = pcp.pack_columns(feats, fnum, dtype)
+    assert [c.dtype for c in cols[:-2]] == [torch.uint8] * (fnum == 57)
+    assert cols[-2].dtype == torch.uint8 and cols[-1].dtype == dtype
+    rebuilt = pcp.rebuild(cols, pcp.lut(dtype))
+    plain_rows = torch.from_numpy(feats).to(dtype)
+    assert rebuilt.shape == (rows, fnum) and rebuilt.dtype == dtype
+    assert torch.equal(rebuilt.view(torch.uint8), plain_rows.view(torch.uint8))
+
+    params, config = _probe.seeded_model(fnum)
+    # the last class's bias shifted so that the classes tie at the median
+    # window: a random model otherwise gives one class nearly everywhere
+    windows = np.lib.stride_tricks.sliding_window_view(feats, 21, axis=0)
+    logits = bilstm_logits(params_from_numpy(params, "cpu"), torch.from_numpy(
+        windows.transpose(0, 2, 1).copy()), config)
+    params["out_b"][1] -= float((logits[:, 1] - logits[:, 0]).median())
+    pred = WindowPredictor(params, config, buckets=(64, 256), device="cpu",
+                           precision=precision, compact_transfer=True)
+    centers = np.arange(10, rows - 10, dtype=np.int64)
+    want = pred.predict_from_features(feats, centers)
+    got, moved = pcp.predict_packed(pred, feats, centers)
+    assert 0 < int(want.sum()) < len(want)
+    np.testing.assert_array_equal(got, want)
+    # packed: every row once (two 256-row chunks, 20 rows of halo again);
+    # plain: the 280 rows the windows read, fp32
+    assert moved / (rows + 20) < pred.transfer_bytes / rows
+    for cols_set, value in ((slice(fnum - 7, fnum - 6), 0.5),  # not 0/1
+                            (slice(fnum - 7, fnum - 5), 1.0)):  # two hot
+        odd = feats.copy()
+        odd[7, cols_set] = value
+        with pytest.raises(ValueError, match="one-hot"):
+            pcp.pack_columns(odd, fnum, dtype)
+    if fnum == 57:
+        for value in (1.5, -1.0, 256.0):
+            odd = feats.copy()
+            odd[5, 3] = value
+            with pytest.raises(ValueError, match="histogram"):
+                pcp.pack_columns(odd, fnum, dtype)
 
 
 def test_probe_device_agg_tool_matches_jax():

@@ -106,7 +106,7 @@ def _untrimmed(results, predictor, window, target):
     centers = np.concatenate([s + FEATURE_PAD + idx
                               for s, idx in zip(starts, picked)])
     preds = predictor.predict_from_features(np.concatenate(blocks), centers,
-                                            window, assume_packable=True)
+                                            window)
     return scatter_selected_preds(results, selections, preds,
                                   sum(r.n_aligned for r in results))
 
@@ -132,12 +132,10 @@ def test_trimmed_blocks_equal_the_untrimmed_route(models, window, target,
         feats, centers, selections, n_total = build_batch_request(
             results, target, window)
         assert len(feats) == sum(n + window - 1 for n in events)
-        preds = pred.predict_from_features(feats, centers, window,
-                                           assume_packable=True)
+        preds = pred.predict_from_features(feats, centers, window)
         np.testing.assert_array_equal(
             scatter_selected_preds(results, selections, preds, n_total),
             want, err_msg=f"batch {batch}")
-    assert pred.compact_modes == ({False} if compact else set())
 
 
 @pytest.mark.parametrize("target", [None, "C"], ids=["all", "target_only"])
